@@ -1,0 +1,35 @@
+"""morbit_tpu_torch — the multiobjective trust-region solver in PyTorch + CUDA.
+
+A port of the JAX package ``morbit_tpu`` (which stays the reference) to
+PyTorch on NVIDIA GPUs. The state of every run carries a leading lane axis,
+so a batch of starts is one batched solve (:func:`multistart_optimize`) and
+a single :func:`optimize` run is the batch of one. The ADMM kernel that
+solves the trust-region LPs is hand-written CUDA
+(``morbit_tpu_torch/csrc/qp_admm.cu``), built with ``nvcc`` at first use.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; without
+a CUDA device the default raises. Ported so far: exact objectives,
+steepest descent, the unconstrained trust-region loop with criticality
+micro-steps, and the plain batched multistart runner.
+"""
+
+from morbit_tpu_torch.core.algorithm import OptimizeResult, optimize
+from morbit_tpu_torch.core.config import AlgorithmConfig
+from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
+from morbit_tpu_torch.core.mop import MOP
+from morbit_tpu_torch.models.configs import ExactConfig
+from morbit_tpu_torch.parallel.multistart import multistart_optimize
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "MOP",
+    "AlgorithmConfig",
+    "ExactConfig",
+    "optimize",
+    "multistart_optimize",
+    "OptimizeResult",
+    "ITER_TYPE",
+    "STOP_CODE",
+    "RADIUS_UPDATE",
+]

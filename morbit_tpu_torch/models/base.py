@@ -1,0 +1,70 @@
+"""Surrogate model interface (functional, static-shape, batched).
+
+Counterpart of ``morbit_tpu/models/base.py``: the reference's 2-phase
+surrogate protocol (``AbstractSurrogateInterface.jl:25-79``) as pure
+functions per model family on batched state::
+
+    prepare(state, db, ctx, ensure_fully_linear) -> (state, db)  # enqueue sites
+    fit(state, db, ctx)                          -> state        # fit from db
+    prepare_improve(state, db, ctx)              -> (state, db)
+    eval(state, x_s, scal)                       -> (B, ..., m)
+    jac(state, x_s, scal)                        -> (B, m, n)
+    fully_linear(state)                          -> (B,) bool, or a bool
+                                                    for every lane
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class ModelContext(NamedTuple):
+    """Per-iteration inputs to the model build, one row per lane."""
+
+    x_s: torch.Tensor      # (B, n) current iterate, scaled
+    x_index: torch.Tensor  # (B,) int32 row of the iterate in this group's db
+    delta: torch.Tensor    # (B,) trust-region radius
+    n_evals: torch.Tensor  # (B,) int32 group eval counter
+    scal: object           # VarScaler with (B, n) fields
+
+
+class SurrogateOps:
+    """Base class; subclasses implement the protocol above."""
+
+    #: True if evaluating the *model* consumes true-function budget (only
+    #: the exact model, ``src/models/ExactModel.jl:22-119``)
+    counts_on_eval: bool = False
+
+    #: static bound on new (unevaluated) sites one prepare/improve call can
+    #: add — lets eval_missing evaluate only a tail window of the database
+    eval_window: int = 1
+
+    def __init__(self, group, n_vars: int, dtype, ac):
+        self.group = group
+        self.cfg = group.cfg
+        self.n_vars = n_vars
+        self.dtype = dtype
+        self.ac = ac
+
+    def init_state(self, B: int, device):
+        raise NotImplementedError
+
+    def prepare(self, state, db, ctx: ModelContext, ensure_fully_linear):
+        return state, db
+
+    def fit(self, state, db, ctx: ModelContext):
+        return state
+
+    def prepare_improve(self, state, db, ctx: ModelContext):
+        return state, db
+
+    def eval(self, state, x_s, scal):
+        raise NotImplementedError
+
+    def jac(self, state, x_s, scal):
+        raise NotImplementedError
+
+    def fully_linear(self, state):
+        raise NotImplementedError

@@ -1,0 +1,205 @@
+"""Surrogate container: grouped vector models + objective evaluation.
+
+Counterpart of ``morbit_tpu/models/container.py`` (reference
+``src/SurrogateContainer.jl``), batched over lanes and limited to exact
+groups. Each group carries an ``n_evals`` counter per lane (the
+``CountedFunc`` analogue, ``src/globals.jl:74-112``); exact groups also
+count on *model* evaluation, because their model is the counted function.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from morbit_tpu_torch.core import database as dbm
+from morbit_tpu_torch.core import scaling
+from morbit_tpu_torch.core.mop import CompiledMOP
+from morbit_tpu_torch.models.base import ModelContext
+from morbit_tpu_torch.models.configs import require_exact
+from morbit_tpu_torch.models.exact import ExactOps, broadcast_scaler
+from morbit_tpu_torch.utils.tree import tree_where
+
+
+class GroupState(NamedTuple):
+    db: dbm.Database
+    model: object          # model-family-specific state (() for exact)
+    n_evals: torch.Tensor  # (B,) int32
+
+
+def make_ops(group, n_vars, dtype, ac):
+    require_exact(group.cfg)
+    return ExactOps(group, n_vars, dtype, ac)
+
+
+class SurrogateContainer:
+    """Static container built once per solver."""
+
+    def __init__(self, mop: CompiledMOP, dtype, ac, db_capacity: int, device):
+        self.mop = mop
+        self.dtype = dtype
+        self.ac = ac
+        self.db_capacity = db_capacity
+        self.device = device
+        self.ops = tuple(make_ops(g, mop.n_vars, dtype, ac) for g in mop.groups)
+
+    # ------------------------------------------------------------- state init
+    def init_group_states(self, B: int):
+        return tuple(
+            GroupState(db=dbm.init_database(B, self.db_capacity,
+                                            self.mop.n_vars, g.m, self.dtype,
+                                            self.device),
+                       model=ops.init_state(B, self.device),
+                       n_evals=torch.zeros((B,), dtype=torch.int32,
+                                           device=self.device))
+            for g, ops in zip(self.mop.groups, self.ops))
+
+    # --------------------------------------------------------- true evaluation
+    def evaluate_true(self, states, x_s, scal):
+        """Evaluate every group's true functions at one scaled site per
+        lane, insert the results and bump the counters
+        (``algorithm.jl:760-764``). Returns (fx, states, x_indices (B, G))."""
+        x = scaling.untransform(scal, x_s)
+        vals, new_states, x_indices = [], [], []
+        for g, st in zip(self.mop.groups, states):
+            v = g.eval_unscaled(x)
+            db, idx = dbm.add_evaluated(st.db, x_s, v)
+            vals.append(v)
+            x_indices.append(idx)
+            new_states.append(st._replace(db=db, n_evals=st.n_evals + 1))
+        return (self.mop.scatter_objectives(vals), tuple(new_states),
+                torch.stack(x_indices, dim=-1))
+
+    def ensure_evaluated(self, states, x_s, scal):
+        """Like :meth:`evaluate_true`, but reuse an evaluated database row
+        holding the same site (``ensure_contains_values!``,
+        ``algorithm.jl:289-295``)."""
+        x = scaling.untransform(scal, x_s)
+        vals, new_states, x_indices = [], [], []
+        for g, st in zip(self.mop.groups, states):
+            db = st.db
+            hits = ((db.X == x_s[:, None, :]).all(-1) & dbm.valid_mask(db)
+                    & db.evaluated)
+            found = hits.any(-1)
+            found_id = torch.argmax(hits.to(torch.int32), dim=-1).to(torch.int32)
+            v_new = g.eval_unscaled(x)
+            v_old = torch.gather(db.Y, 1, found_id.long()[:, None, None]
+                                 .expand(-1, 1, g.m))[:, 0]
+            v = torch.where(found[:, None], v_old, v_new)
+            db, add_id = dbm.add_evaluated(db, x_s, v, do_add=~found)
+            idx = torch.where(found, found_id, add_id)
+            vals.append(v)
+            x_indices.append(idx)
+            new_states.append(st._replace(
+                db=db, n_evals=st.n_evals + (~found).to(torch.int32)))
+        return (self.mop.scatter_objectives(vals), tuple(new_states),
+                torch.stack(x_indices, dim=-1))
+
+    # ------------------------------------------------------------ model update
+    def _contexts(self, states, x_s, x_indices, delta, scal):
+        return [ModelContext(x_s=x_s, x_index=x_indices[:, i], delta=delta,
+                             n_evals=st.n_evals, scal=scal)
+                for i, st in enumerate(states)]
+
+    def update(self, states, x_s, x_indices, delta, ensure_fully_linear,
+               scal):
+        """``update_surrogates!`` (``SurrogateContainer.jl:334-391``):
+        prepare all groups, batch-evaluate missing sites, fit."""
+        ctxs = self._contexts(states, x_s, x_indices, delta, scal)
+        mid = []
+        for ops, st, ctx in zip(self.ops, states, ctxs):
+            model, db = ops.prepare(st.model, st.db, ctx, ensure_fully_linear)
+            mid.append(st._replace(model=model, db=db))
+        return self._finish_two_phase(mid, ctxs)
+
+    def update_or_improve(self, states, x_s, x_indices, delta, improve_flag,
+                          scal, efl_flag):
+        """Update or improve, selected per lane by ``improve_flag``
+        (``algorithm.jl:682-688``): both phase-1 variants run and are
+        selected, then evaluation and fitting run once. ``efl_flag`` is the
+        per-lane ensure-fully-linear flag of criticality rebuild passes."""
+        ctxs = self._contexts(states, x_s, x_indices, delta, scal)
+        mid = []
+        for ops, st, ctx in zip(self.ops, states, ctxs):
+            imp = ops.prepare_improve(st.model, st.db, ctx)
+            upd = ops.prepare(st.model, st.db, ctx, efl_flag)
+            model, db = tree_where(improve_flag, imp, upd)
+            mid.append(st._replace(model=model, db=db))
+        return self._finish_two_phase(mid, ctxs)
+
+    def _finish_two_phase(self, mid, ctxs):
+        scal = ctxs[0].scal
+        out = []
+        for g, ops, st, ctx in zip(self.mop.groups, self.ops, mid, ctxs):
+            fn = lambda X, g=g: g.eval_unscaled(
+                scaling.untransform(broadcast_scaler(scal, X), X))
+            # tail window only for large databases (``eval_missing``)
+            win = ops.eval_window if (self.db_capacity >= 256 and
+                                      self.db_capacity >= 8 * ops.eval_window) else None
+            db, n_new = dbm.eval_missing(st.db, fn, window=win)
+            st = st._replace(db=db, n_evals=st.n_evals + n_new)
+            out.append(st._replace(model=ops.fit(st.model, st.db, ctx)))
+        return tuple(out)
+
+    # ------------------------------------------------------------- model evals
+    def eval_objectives(self, states, x_s, scal):
+        """Model objective values at one site per lane, counted
+        (``SurrogateContainer.jl:234-269``). Returns (values, states)."""
+        vals, new_states = [], []
+        for ops, st in zip(self.ops, states):
+            if ops.counts_on_eval:
+                st = st._replace(n_evals=st.n_evals + 1)
+            vals.append(ops.eval(st.model, x_s, scal))
+            new_states.append(st)
+        return self.mop.scatter_objectives(vals), tuple(new_states)
+
+    def eval_objectives_batch(self, states, X, scal):
+        """(B, K, m_obj) model objective values at K sites per lane,
+        uncounted."""
+        return self.mop.scatter_objectives(
+            [ops.eval(st.model, X, scal) for ops, st in zip(self.ops, states)])
+
+    def charge_evals(self, states, k, objectives_only: bool = False):
+        """Add ``k`` (per lane) true-function evals to exact groups: what
+        the reference's sequential loops would have evaluated. With
+        ``objectives_only`` a group serving no objective is not charged
+        (``descent.jl:150-185``)."""
+        out = []
+        for g, ops, st in zip(self.mop.groups, self.ops, states):
+            if ops.counts_on_eval and (g.has_objective or not objectives_only):
+                st = st._replace(n_evals=st.n_evals + k.to(torch.int32))
+            out.append(st)
+        return tuple(out)
+
+    def jac_objectives(self, states, x_s, scal):
+        """(B, m_obj, n) model objective Jacobians at one site per lane."""
+        Js = [ops.jac(st.model, x_s, scal) for ops, st in zip(self.ops, states)]
+        rows = [None] * self.mop.m_obj
+        for g, J in zip(self.mop.groups, Js):
+            for mb in g.members:
+                for k in range(mb.n_out):
+                    rows[mb.global_offset + k] = J[..., mb.group_offset + k, :]
+        return torch.stack(rows, dim=-2)
+
+    # ------------------------------------------------------------------- flags
+    def fully_linear(self, states):
+        """AND over groups, per lane."""
+        B = states[0].n_evals.shape[0]
+        flag = torch.ones((B,), dtype=torch.bool, device=self.device)
+        for ops, st in zip(self.ops, states):
+            flag = flag & ops.fully_linear(st.model)
+        return flag
+
+    # ------------------------------------------------------------------ budget
+    def budget_exhausted(self, states):
+        """``_budget_okay`` negation (``algorithm.jl:6-12``): any objective
+        group at or above its eval cap."""
+        B = states[0].n_evals.shape[0]
+        flag = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        for g, st in zip(self.mop.groups, states):
+            cap = min(self.ac.max_evals, g.max_evals)
+            if not g.has_objective or cap >= 2 ** 31 - 1:
+                continue
+            flag = flag | (st.n_evals >= cap)
+        return flag

@@ -1,0 +1,93 @@
+"""Carry a configuration and a solver state over from the JAX package.
+
+The port imports nothing of the JAX package, so both cross as plain data:
+
+* :func:`config_from_dict` takes ``dataclasses.asdict`` of the JAX
+  ``AlgorithmConfig``;
+* :func:`state_from_numpy` takes a JAX ``SolverState`` as a dict of numpy
+  arrays, leaf name to array: ``x``, ``x_s``, ``fx``, ``dlt``, ``ints``,
+  ``traj.data``, ``traj.count``, ``scal.<field>`` (scale, offset,
+  lb_scaled, ub_scaled), ``filter.<field>`` (theta, fvals, count,
+  overflow), ``groups.<i>.db.<field>`` (data, count, overflow) and
+  ``groups.<i>.n_evals``. A state without a lane axis (one ``optimize``
+  run) gets one. Leaves the port does not carry (the empty constraint
+  blocks and the PRNG key of the JAX state) are ignored.
+
+:func:`state_to_numpy` produces the same dict from the port's state, so two
+states compare leaf by leaf.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from morbit_tpu_torch.core import filter as flt
+from morbit_tpu_torch.core import scaling
+from morbit_tpu_torch.core.algorithm import SolverState, TrajectoryState
+from morbit_tpu_torch.core.config import AlgorithmConfig
+from morbit_tpu_torch.core.database import Database
+from morbit_tpu_torch.core.descent import resolve_descent_config
+from morbit_tpu_torch.models.container import GroupState
+
+def config_from_dict(d: dict) -> AlgorithmConfig:
+    """The port's ``AlgorithmConfig`` from ``dataclasses.asdict`` of the JAX
+    one (a descent config object arrives as a dict of its fields)."""
+    d = dict(d)
+    if isinstance(d.get("descent_method"), dict):
+        d["descent_method"] = resolve_descent_config(d["descent_method"])
+    return AlgorithmConfig(**d)
+
+
+def state_from_numpy(leaves: dict, device="cpu", dtype=None) -> SolverState:
+    """Build the port's batched state from a dict of numpy leaves."""
+    batched = np.asarray(leaves["x"]).ndim == 2
+    dtype = dtype or torch.from_numpy(np.array(leaves["x"])).dtype
+
+    def t(name, kind=None):
+        a = np.array(leaves[name])  # a writable copy
+        if not batched:
+            a = a[None]
+        return torch.as_tensor(a, dtype=kind or dtype, device=device)
+
+    x = t("x")
+    n = x.shape[-1]
+    fx = t("fx")
+    m = fx.shape[-1]
+    ints = t("ints", torch.int32)
+    G = ints.shape[-1] - 5
+    groups = []
+    for i in range(G):
+        data = t(f"groups.{i}.db.data")
+        groups.append(GroupState(
+            db=Database(data=data, count=t(f"groups.{i}.db.count", torch.int32),
+                        overflow=t(f"groups.{i}.db.overflow", torch.bool),
+                        n=n, m=data.shape[-1] - n - 1),
+            model=(), n_evals=t(f"groups.{i}.n_evals", torch.int32)))
+    return SolverState(
+        x=x, x_s=t("x_s"), fx=fx, dlt=t("dlt"), ints=ints,
+        groups=tuple(groups),
+        filter=flt.FilterState(theta=t("filter.theta"),
+                               fvals=t("filter.fvals"),
+                               count=t("filter.count", torch.int32),
+                               overflow=t("filter.overflow", torch.bool)),
+        traj=TrajectoryState(data=t("traj.data"),
+                             count=t("traj.count", torch.int32), n=n, m=m, G=G),
+        scal=scaling.VarScaler(*(t(f"scal.{f}") for f in scaling.VarScaler._fields)))
+
+
+def state_to_numpy(state: SolverState) -> dict:
+    """The port's state as a dict of numpy leaves, named as above."""
+    host = lambda v: v.detach().cpu().numpy()
+    out = {f: host(getattr(state, f)) for f in ("x", "x_s", "fx", "dlt", "ints")}
+    out["traj.data"] = host(state.traj.data)
+    out["traj.count"] = host(state.traj.count)
+    for f in scaling.VarScaler._fields:
+        out[f"scal.{f}"] = host(getattr(state.scal, f))
+    for f in flt.FilterState._fields:
+        out[f"filter.{f}"] = host(getattr(state.filter, f))
+    for i, g in enumerate(state.groups):
+        for f in ("data", "count", "overflow"):
+            out[f"groups.{i}.db.{f}"] = host(getattr(g.db, f))
+        out[f"groups.{i}.n_evals"] = host(g.n_evals)
+    return out
