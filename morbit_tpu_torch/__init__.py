@@ -3,12 +3,14 @@
 A port of the JAX package ``morbit_tpu`` (which stays the reference) to
 PyTorch on NVIDIA GPUs. The state of every run carries a leading lane axis,
 so a batch of starts is one batched solve (:func:`multistart_optimize`) and
-a single :func:`optimize` run is the batch of one. The ADMM kernel that
-solves the trust-region LPs is hand-written CUDA
-(``morbit_tpu_torch/csrc/qp_admm.cu``), built with ``nvcc`` at first use.
+a single :func:`optimize` run is the batch of one. Three hand-written CUDA
+kernels carry the main path, each built with ``nvcc`` at first use: the
+ADMM that solves the trust-region LPs (``csrc/qp_admm.cu``) and the RBF
+training-site selection, rounds 1-3 (``csrc/rbf_selection.cu``) and round 4
+(``csrc/rbf_round4.cu``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
-a CUDA device the default raises. Ported so far: exact objectives,
+a CUDA device the default raises. Ported so far: exact and RBF objectives,
 steepest descent, the unconstrained trust-region loop with criticality
 micro-steps, and the plain batched multistart runner.
 """
@@ -17,7 +19,7 @@ from morbit_tpu_torch.core.algorithm import OptimizeResult, optimize
 from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
 from morbit_tpu_torch.core.mop import MOP
-from morbit_tpu_torch.models.configs import ExactConfig
+from morbit_tpu_torch.models.configs import ExactConfig, RbfConfig
 from morbit_tpu_torch.parallel.multistart import multistart_optimize
 
 __version__ = "0.1.0"
@@ -26,6 +28,7 @@ __all__ = [
     "MOP",
     "AlgorithmConfig",
     "ExactConfig",
+    "RbfConfig",
     "optimize",
     "multistart_optimize",
     "OptimizeResult",

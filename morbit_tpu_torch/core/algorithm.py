@@ -13,9 +13,9 @@ flow reproduces vmap's semantics, not those of a sequential loop:
   The loop's ``.any()`` is the one host sync per trip.
 * every ``lax.cond`` computes both branches, then selects per lane.
 
-A single :func:`optimize` run is B=1 of the same code. This slice covers
-the unconstrained (box-constrained) path with exact models and steepest
-descent.
+A single :func:`optimize` run is B=1 of the same code. The port covers
+the unconstrained (box-constrained) path with exact and RBF models and
+steepest descent.
 """
 
 from __future__ import annotations
@@ -49,13 +49,15 @@ class TrajectoryState:
     """Per-iteration stamps (the ``IterSaveable`` buffer,
     ``src/IterDataIterSaveable.jl:189-216``), packed as in the JAX package
     into one ``(B, T, W)`` tensor with layout ``[x (n) | fx (m) | delta |
-    rho | omega | steplength | it_stat | x_indices (G)]``."""
+    rho | omega | steplength | it_stat | x_indices (G) | model_meta (MW)]``;
+    ``MW > 0`` only with ``AlgorithmConfig.save_model_meta``."""
 
     data: torch.Tensor   # (B, T, W)
     count: torch.Tensor  # (B,) int32
     n: int
     m: int
     G: int
+    MW: int = 0
 
     @property
     def x(self):
@@ -92,6 +94,14 @@ class TrajectoryState:
     def x_indices(self):
         o = self.n + self.m + 5
         return self.data[..., o: o + self.G].to(torch.int32)
+
+    @property
+    def model_meta(self):
+        """(B, T, MW) per-iteration training-set provenance, split per group
+        by ``SurrogateOps.train_stamp_len`` (empty unless
+        ``save_model_meta``)."""
+        o = self.n + self.m + 5 + self.G
+        return self.data[..., o: o + self.MW].to(torch.int32)
 
 
 _INT_COLS = {"iter_counter": 0, "last_it_stat": 1, "stop_code": 2,
@@ -225,13 +235,20 @@ class Solver:
         _full_precision_matmuls()
         self.scal = scaling.get_var_scaler(self._tensor(mop.lb),
                                            self._tensor(mop.ub), ac.var_scaler)
-        # exact groups only: the per-rebuild working set is the iterate's
-        # linear model, and no group inserts sites of its own
-        self.db_capacity = ac.resolved_db_capacity(mop.n_vars, mop.n_vars + 1, 0)
+        # the largest per-rebuild working set of any group (n+1 without an
+        # RBF group); RBF groups insert no stencil, so no per-iteration
+        # site bound (JAX algorithm.py:308-330)
+        max_model_pts = max([g.cfg.resolved_max_points(mop.n_vars)
+                             for g in mop.groups
+                             if hasattr(g.cfg, "resolved_max_points")],
+                            default=mop.n_vars + 1)
+        self.db_capacity = ac.resolved_db_capacity(mop.n_vars, max_model_pts, 0)
         self.container = SurrogateContainer(mop, dtype, ac, self.db_capacity,
                                             self.device)
         self.desc_cfg = resolve_descent_config(ac.descent_method)
         self.T = ac.resolved_trajectory_capacity()
+        #: width of the per-iteration training-set stamp (save_model_meta)
+        self.MW = self.container.train_stamp_len if ac.save_model_meta else 0
 
     # ------------------------------------------------------------------ helpers
     def _tensor(self, v, dtype=None):
@@ -242,12 +259,15 @@ class Solver:
         return theta.abs() <= 10 * torch.finfo(self.dtype).eps
 
     def _stamp(self, traj: TrajectoryState, x, fx, delta, rho, omega,
-               steplength, it_stat, x_indices) -> TrajectoryState:
+               steplength, it_stat, x_indices, groups) -> TrajectoryState:
         B, T, _ = traj.data.shape
         dt = traj.data.dtype
         col = lambda v: torch.as_tensor(v, dtype=dt, device=self.device).expand(B)[:, None]
-        row = torch.cat([x.to(dt), fx.to(dt), col(delta), col(rho), col(omega),
-                         col(steplength), col(it_stat), x_indices.to(dt)], dim=-1)
+        parts = [x.to(dt), fx.to(dt), col(delta), col(rho), col(omega),
+                 col(steplength), col(it_stat), x_indices.to(dt)]
+        if self.MW:
+            parts.append(self.container.train_stamps(groups).to(dt))
+        row = torch.cat(parts, dim=-1)
         slot = torch.clamp(traj.count, 0, T - 1)
         hit = ((torch.arange(T, device=self.device) == slot[:, None])
                & (traj.count < T)[:, None])
@@ -286,13 +306,13 @@ class Solver:
 
         G = len(mop.groups)
         traj = TrajectoryState(
-            data=torch.zeros((B, self.T, n + mop.m_obj + 5 + G), dtype=dtype,
-                             device=dev),
+            data=torch.zeros((B, self.T, n + mop.m_obj + 5 + G + self.MW),
+                             dtype=dtype, device=dev),
             count=torch.zeros((B,), dtype=torch.int32, device=dev),
-            n=n, m=mop.m_obj, G=G)
+            n=n, m=mop.m_obj, G=G, MW=self.MW)
         ninf = -float("inf")
         traj = self._stamp(traj, x, fx, delta0, ninf, ninf, ninf,
-                           int(ITER_TYPE.INITIALIZATION), x_indices)
+                           int(ITER_TYPE.INITIALIZATION), x_indices, groups)
         # initial surrogates (``init_surrogates``)
         groups = self.container.update(groups, x_s, x_indices, delta0,
                                        ensure_fully_linear=True, scal=scal)
@@ -472,7 +492,7 @@ class Solver:
 
         # fixpoint certificate: a pass that left every group database
         # untouched proves the next pass is an identity (see the JAX
-        # package); exact models consume no randomness
+        # package); no ported model's phase 1 draws random numbers
         stable = passed | do_loops_pre
         for (cnt0, nev0), st in zip(pre_stats, groups):
             stable = stable & (cnt0 == st.db.count) & (nev0 == st.n_evals)
@@ -622,7 +642,7 @@ class Solver:
         # stamp (``:899-903``), then the it_stat column of the stamped row
         traj = self._stamp(next_state.traj, next_state.x, next_state.fx,
                            delta_new, rho, omega, steplength, 0,
-                           next_state.x_indices)
+                           next_state.x_indices, next_state.groups)
         it_col = traj.n + traj.m + 4
         T = traj.data.shape[-2]
         row_hit = (torch.arange(T, device=self.device)

@@ -77,6 +77,22 @@ def add_evaluated(db: Database, x, y, do_add=None):
                                overflow=overflow), idx
 
 
+def add_site(db: Database, x, do_add):
+    """Insert unevaluated sites ``x`` (B, n) where ``do_add`` (``new_result!``,
+    ``Databases.jl``); returns the db and the row index (-1 where nothing
+    was inserted). Rows are append-only, which the criticality fixpoint
+    certificate (``Solver._crit_microstep``) relies on."""
+    cap = db.data.shape[-2]
+    ok = do_add & (db.count < cap)
+    idx = torch.where(ok, db.count, torch.full_like(db.count, -1))
+    row = torch.cat([x, x.new_zeros(x.shape[:-1] + (db.m + 1,))], dim=-1)
+    data = _onehot_write(db.data, db.count, row, ok)
+    count = torch.where(ok, db.count + 1, db.count)
+    overflow = db.overflow | (do_add & (db.count >= cap))
+    return dataclasses.replace(db, data=data, count=count,
+                               overflow=overflow), idx
+
+
 def eval_missing(db: Database, eval_fn_scaled: Callable, window: int | None = None):
     """Evaluate every unevaluated row in one batched call (``eval_missing!``,
     ``Databases.jl:258-277``). Returns the db and the per-lane number of

@@ -6,9 +6,9 @@ User functions are plain torch functions of ONE unscaled site ``x (n,) ->
 ``torch.func.vmap``. Jacobians come from the user's ``jac`` callback, else
 ``torch.func.jacrev``.
 
-This slice solves unconstrained and box-constrained problems with exact
-objectives; constraints, composites and surrogate models raise
-``NotImplementedError``.
+This package solves unconstrained and box-constrained problems with exact
+and RBF objectives; constraints, composites and the other surrogate models
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from morbit_tpu_torch.models.configs import (ExactConfig, RbfConfig,
-                                             SurrogateConfig, require_exact)
+                                             SurrogateConfig, check_ported)
 
 OBJECTIVE = "objective"
 
@@ -88,8 +88,8 @@ class MOP:
     def add_objective(self, fn, n_out=1, model_cfg=None, jac=None,
                       max_evals=2 ** 31 - 1):
         """Add an objective; like the JAX package the default model is an
-        RBF surrogate, which this package does not solve yet."""
-        cfg = require_exact(RbfConfig() if model_cfg is None else model_cfg)
+        RBF surrogate (``RbfConfig()``)."""
+        cfg = check_ported(RbfConfig() if model_cfg is None else model_cfg)
         self.functions.append(VecFun(fn=fn, n_out=int(n_out), model_cfg=cfg,
                                      role=OBJECTIVE, jac=jac,
                                      max_evals=max_evals))

@@ -41,6 +41,10 @@ class SurrogateOps:
     #: add — lets eval_missing evaluate only a tail window of the database
     eval_window: int = 1
 
+    #: static length of :meth:`train_stamp` (0: the family keeps no
+    #: training-set provenance; RBF overrides)
+    train_stamp_len: int = 0
+
     def __init__(self, group, n_vars: int, dtype, ac):
         self.group = group
         self.cfg = group.cfg
@@ -67,4 +71,10 @@ class SurrogateOps:
         raise NotImplementedError
 
     def fully_linear(self, state):
+        raise NotImplementedError
+
+    def train_stamp(self, state):
+        """Per-iteration training-set provenance, (B, train_stamp_len) int32:
+        ``[n_train, db row indices...]`` for families that keep one
+        (``RbfModel.jl:162-175``, ``IterDataIterSaveable.jl:189-216``)."""
         raise NotImplementedError

@@ -1,10 +1,13 @@
 """Surrogate container: grouped vector models + objective evaluation.
 
 Counterpart of ``morbit_tpu/models/container.py`` (reference
-``src/SurrogateContainer.jl``), batched over lanes and limited to exact
+``src/SurrogateContainer.jl``), batched over lanes, for exact and RBF
 groups. Each group carries an ``n_evals`` counter per lane (the
 ``CountedFunc`` analogue, ``src/globals.jl:74-112``); exact groups also
 count on *model* evaluation, because their model is the counted function.
+An RBF group whose geometry signature equals an earlier RBF group's takes
+that group's rounds-1-3 training set (``_exploit_other_rbf_metas!``,
+``RbfModel.jl:311-342``).
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ from morbit_tpu_torch.core import database as dbm
 from morbit_tpu_torch.core import scaling
 from morbit_tpu_torch.core.mop import CompiledMOP
 from morbit_tpu_torch.models.base import ModelContext
-from morbit_tpu_torch.models.configs import require_exact
+from morbit_tpu_torch.models.configs import ExactConfig, RbfConfig, check_ported
 from morbit_tpu_torch.models.exact import ExactOps, broadcast_scaler
+from morbit_tpu_torch.models.rbf_model import RbfOps
 from morbit_tpu_torch.utils.tree import tree_where
 
 
@@ -29,8 +33,10 @@ class GroupState(NamedTuple):
 
 
 def make_ops(group, n_vars, dtype, ac):
-    require_exact(group.cfg)
-    return ExactOps(group, n_vars, dtype, ac)
+    cfg = check_ported(group.cfg)
+    if isinstance(cfg, ExactConfig):
+        return ExactOps(group, n_vars, dtype, ac)
+    return RbfOps(group, n_vars, dtype, ac)
 
 
 class SurrogateContainer:
@@ -43,6 +49,18 @@ class SurrogateContainer:
         self.db_capacity = db_capacity
         self.device = device
         self.ops = tuple(make_ops(g, mop.n_vars, dtype, ac) for g in mop.groups)
+        # index of the earlier RBF group with the same geometry signature
+        # whose rounds-1-3 set each group reuses, or None
+        self.reuse_from = []
+        for i, g in enumerate(mop.groups):
+            src = None
+            if isinstance(g.cfg, RbfConfig):
+                for j in range(i):
+                    cj = mop.groups[j].cfg
+                    if isinstance(cj, RbfConfig) and cj.signature() == g.cfg.signature():
+                        src = j
+                        break
+            self.reuse_from.append(src)
 
     # ------------------------------------------------------------- state init
     def init_group_states(self, B: int):
@@ -108,10 +126,19 @@ class SurrogateContainer:
         prepare all groups, batch-evaluate missing sites, fit."""
         ctxs = self._contexts(states, x_s, x_indices, delta, scal)
         mid = []
-        for ops, st, ctx in zip(self.ops, states, ctxs):
-            model, db = ops.prepare(st.model, st.db, ctx, ensure_fully_linear)
+        for gi, (ops, st, ctx) in enumerate(zip(self.ops, states, ctxs)):
+            model, db = self._prepare(gi, st, ctx, ensure_fully_linear, mid)
             mid.append(st._replace(model=model, db=db))
         return self._finish_two_phase(mid, ctxs)
+
+    def _prepare(self, gi, st, ctx, ensure_fully_linear, mid):
+        """The update-path phase 1 of group ``gi``; ``mid`` holds the
+        phase-1 results of the groups before it (the reuse source)."""
+        src = self.reuse_from[gi]
+        if src is not None:
+            return self.ops[gi].prepare_with_reuse(st.model, st.db, ctx,
+                                                   mid[src].model, mid[src].db)
+        return self.ops[gi].prepare(st.model, st.db, ctx, ensure_fully_linear)
 
     def update_or_improve(self, states, x_s, x_indices, delta, improve_flag,
                           scal, efl_flag):
@@ -121,9 +148,9 @@ class SurrogateContainer:
         per-lane ensure-fully-linear flag of criticality rebuild passes."""
         ctxs = self._contexts(states, x_s, x_indices, delta, scal)
         mid = []
-        for ops, st, ctx in zip(self.ops, states, ctxs):
+        for gi, (ops, st, ctx) in enumerate(zip(self.ops, states, ctxs)):
             imp = ops.prepare_improve(st.model, st.db, ctx)
-            upd = ops.prepare(st.model, st.db, ctx, efl_flag)
+            upd = self._prepare(gi, st, ctx, efl_flag, mid)
             model, db = tree_where(improve_flag, imp, upd)
             mid.append(st._replace(model=model, db=db))
         return self._finish_two_phase(mid, ctxs)
@@ -181,6 +208,22 @@ class SurrogateContainer:
                 for k in range(mb.n_out):
                     rows[mb.global_offset + k] = J[..., mb.group_offset + k, :]
         return torch.stack(rows, dim=-2)
+
+    # ------------------------------------------------- model-meta provenance
+    @property
+    def train_stamp_len(self) -> int:
+        return sum(ops.train_stamp_len for ops in self.ops)
+
+    def train_stamps(self, states):
+        """(B, train_stamp_len) per-group training-set provenance, int32 —
+        the model part of the reference's per-iteration ``IterSaveable``
+        (``IterDataIterSaveable.jl:189-216``)."""
+        parts = [ops.train_stamp(st.model)
+                 for ops, st in zip(self.ops, states) if ops.train_stamp_len]
+        B = states[0].n_evals.shape[0]
+        if not parts:
+            return torch.zeros((B, 0), dtype=torch.int32, device=self.device)
+        return torch.cat(parts, dim=-1)
 
     # ------------------------------------------------------------------- flags
     def fully_linear(self, states):

@@ -48,6 +48,27 @@ def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     return gj_solve(A, eye.expand(A.shape))
 
 
+def solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Size and dtype dispatch (``solve_small``, ``batched_linalg.py:135-148``
+    of the JAX package): unrolled Gauss-Jordan at <= 32 bits and
+    ``k <= GJ_MAX_K``, LU (``torch.linalg.solve``) at 64 bits. Exactly
+    singular systems give nan, like LU in the JAX package, instead of
+    raising. A 32-bit system with ``k > GJ_MAX_K`` needs the blocked
+    Gauss-Jordan of the wide-n slice and raises."""
+    k = A.shape[-1]
+    if torch.finfo(A.dtype).bits <= 32:
+        if k <= GJ_MAX_K:
+            return gj_solve(A, b)
+        raise NotImplementedError(
+            f"a {k}x{k} system at {A.dtype} needs the blocked Gauss-Jordan "
+            f"solve of the wide-n slice (k <= {GJ_MAX_K} is ported)")
+    vec = b.dim() == A.dim() - 1
+    x, info = torch.linalg.solve_ex(A, b[..., None] if vec else b)
+    x = torch.where((info != 0).reshape(info.shape + (1, 1)),
+                    torch.full_like(x, float("nan")), x)
+    return x[..., 0] if vec else x
+
+
 def chol_factor(M: torch.Tensor) -> torch.Tensor:
     """Unrolled Cholesky of SPD (..., k, k) matrices; returns lower L.
 

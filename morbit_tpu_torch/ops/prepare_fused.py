@@ -1,0 +1,197 @@
+"""Routing of the RBF selection kernels K2 (rounds 1-3) and K3 (round 4).
+
+Counterpart of ``morbit_tpu/ops/prepare_fused.py``, which routes the same
+two computations to its Pallas kernels. Here:
+
+* :func:`selection` runs rounds 1-3 for a batch of lanes: CPU tensors take
+  the plain twin :func:`morbit_tpu_torch.ops.prepare_coord.rbf_selection_core`,
+  CUDA tensors launch the kernel in ``csrc/rbf_selection.cu``;
+* :func:`round4` runs the round-4 acceptance: CPU tensors take
+  :func:`morbit_tpu_torch.models.rbf_round4.run_round4`, CUDA tensors launch
+  the kernel in ``csrc/rbf_round4.cu``.
+
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises, whatever the batch size or dtype. Each kernel is built with ``nvcc``
+at first use (:mod:`morbit_tpu_torch.ops.cuda_build`) and counts its
+launches in a plain integer.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from morbit_tpu_torch.models.rbf_round4 import run_round4
+from morbit_tpu_torch.ops import cuda_build
+from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
+from morbit_tpu_torch.ops.rbf import poly_dim
+
+SELECTION_SOURCE = cuda_build.CSRC / "rbf_selection.cu"
+ROUND4_SOURCE = cuda_build.CSRC / "rbf_round4.cu"
+#: no multiply-add contraction: the kernels then round every operation as
+#: their twins do, so decisions at exact ties (a score equal to its pivot,
+#: the two box exits of a direction) fall the same way on both
+NO_FMA = ("--fmad=false",)
+
+#: largest sizes the kernels' per-thread arrays take
+SELECTION_MAX_N = 10
+ROUND4_MAX_POINTS, ROUND4_MAX_PD, ROUND4_MAX_N = 24, 16, 15
+
+#: kernel launches since the counters were last set to 0 (each wrapper adds
+#: one per launch; callers reset them to prove a run went through a kernel)
+selection_launches = 0
+round4_launches = 0
+
+#: kernel ids of ``csrc/rbf_round4.cu``
+_KERNEL_ID = {"cubic": 0, "multiquadric": 1, "inv_multiquadric": 2,
+              "gaussian": 3, "thin_plate_spline": 4}
+
+_libs = {}
+
+_SELECTION_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
+                       + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
+                       + [ctypes.c_double] * 4 + [ctypes.c_int, ctypes.c_void_p])
+_ROUND4_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                    + [ctypes.c_double] * 3 + [ctypes.c_void_p])
+
+
+def build_selection():
+    return cuda_build.build(SELECTION_SOURCE, NO_FMA)
+
+
+def build_round4():
+    return cuda_build.build(ROUND4_SOURCE, NO_FMA)
+
+
+def _library(source, stem, argtypes):
+    if source not in _libs:
+        _libs[source] = cuda_build.load(
+            source, {f"{stem}_f32": argtypes, f"{stem}_f64": argtypes}, NO_FMA)
+    return _libs[source]
+
+
+def _site_view(kernel, X, B, C, n, dtype):
+    """Check a (B, C, n) site view (a strided slice of the database is
+    accepted: only its last axis must be dense) and return its strides."""
+    if tuple(X.shape) != (B, C, n):
+        raise ValueError(f"{kernel}: X has shape {tuple(X.shape)}, expected {(B, C, n)}")
+    if X.device.type != "cuda":
+        raise ValueError(f"{kernel}: X is on {X.device}, expected a cuda device")
+    if X.dtype != dtype:
+        raise TypeError(f"{kernel}: X is {X.dtype}, expected {dtype}")
+    if X.stride(-1) != 1:
+        raise ValueError(f"{kernel}: the coordinates of X must be contiguous")
+    return X.stride(0), X.stride(1)
+
+
+# --------------------------------------------------------------- K2: rounds 1-3
+
+def selection_cuda(X, count, x_s, x_index, delta, lb_s, ub_s, max_new, efl, *,
+                   theta_e1, theta_e2_dmax, theta_pivot, delta_max,
+                   skip2_same_theta):
+    """Launch the ``rbf_selection`` kernel on the current stream; arguments
+    and outputs as :func:`rbf_selection_core`."""
+    global selection_launches
+    B, cap, n = X.shape
+    if n > SELECTION_MAX_N:
+        raise NotImplementedError(
+            f"rbf_selection kernel takes n <= {SELECTION_MAX_N}, got X of shape "
+            f"{tuple(X.shape)}")
+    dt = cuda_build.float_dtype("rbf_selection", X)
+    lane_stride, row_stride = _site_view("rbf_selection", X, B, cap, n, dt)
+    i32 = torch.int32
+    cuda_build.check_args("rbf_selection", X.device, {
+        "count": (count, (B,), i32), "x_s": (x_s, (B, n), dt),
+        "x_index": (x_index, (B,), i32), "delta": (delta, (B,), dt),
+        "lb_s": (lb_s, (B, n), dt), "ub_s": (ub_s, (B, n), dt),
+        "max_new": (max_new, (B,), i32), "efl": (efl, (B,), torch.bool)})
+    new = lambda shape, t: torch.empty(shape, dtype=t, device=X.device)
+    outs = (new((B, n), i32), new((B,), i32), new((B, n), i32), new((B,), i32),
+            new((B, n, n), dt), new((B, n), torch.bool), new((B,), i32),
+            new((B, n, n), dt), new((B,), i32), new((B,), torch.bool))
+    lib = _library(SELECTION_SOURCE, "rbf_selection", _SELECTION_ARGTYPES)
+    fn = lib.rbf_selection_f32 if dt == torch.float32 else lib.rbf_selection_f64
+    p = cuda_build.ptr
+    err = fn(p(X), lane_stride, row_stride, p(count), p(x_s), p(x_index),
+             p(delta), p(lb_s), p(ub_s), p(max_new), p(efl), *map(p, outs),
+             B, cap, n, theta_e1, theta_e2_dmax, theta_pivot, delta_max,
+             int(bool(skip2_same_theta)), cuda_build.stream_of(X))
+    if err != 0:
+        raise RuntimeError(f"rbf_selection kernel launch failed: cudaError_t {err}")
+    selection_launches += 1
+    return outs
+
+
+def selection(X, count, x_s, x_index, delta, lb_s, ub_s, max_new, efl, **statics):
+    """Rounds 1-3 for a batch of lanes. CPU tensors take the plain twin,
+    CUDA tensors launch K2 or raise."""
+    if X.device.type == "cpu":
+        return rbf_selection_core(X, count, x_s, x_index, delta, lb_s, ub_s,
+                                  max_new, efl, **statics)
+    return selection_cuda(X, count, x_s, x_index, delta, lb_s, ub_s, max_new,
+                          efl, **statics)
+
+
+# ----------------------------------------------------------------- K3: round 4
+
+def _phi_constants(kernel, static_param):
+    """(exponent, coefficient) of the exponent kernels, as ``apply_kernel``
+    computes them; unused by the smooth kernels."""
+    if kernel == "cubic":
+        k = float(static_param)
+        return k / 2.0, (-1.0) ** -(-k // 2)
+    if kernel == "thin_plate_spline":
+        k = int(static_param)
+        return float(k), 0.5 * ((-1.0) ** (k + 1))
+    return 0.0, 0.0
+
+
+def round4_cuda(X, cand, init_sites, n_init, *, kernel, param, poly_deg,
+                max_points, chol_pivot):
+    """Launch the ``rbf_round4`` kernel on the current stream; arguments and
+    outputs as :func:`run_round4`, whose state buffers the kernel sizes to
+    ``max_points`` (rows past the count are padding in both)."""
+    global round4_launches
+    B, C, n = X.shape
+    pd = poly_dim(n, poly_deg)
+    if (max_points > ROUND4_MAX_POINTS or pd > ROUND4_MAX_PD
+            or n > ROUND4_MAX_N):
+        raise NotImplementedError(
+            f"rbf_round4 kernel takes max_points <= {ROUND4_MAX_POINTS}, "
+            f"n <= {ROUND4_MAX_N} and a tail of <= {ROUND4_MAX_PD}, got "
+            f"max_points={max_points}, n={n}, pd={pd}")
+    dt = cuda_build.float_dtype("rbf_round4", X)
+    lane_stride, row_stride = _site_view("rbf_round4", X, B, C, n, dt)
+    static = isinstance(param, (int, float))
+    param_t = (torch.full((B,), float(param), dtype=dt, device=X.device)
+               if static else param)
+    S = init_sites.shape[1]
+    cuda_build.check_args("rbf_round4", X.device, {
+        "cand": (cand, (B, C), torch.bool), "init_sites": (init_sites, (B, S, n), dt),
+        "n_init": (n_init, (B,), torch.int32), "param": (param_t, (B,), dt)})
+    exponent, coef = _phi_constants(kernel, param)
+    pivot2 = float(torch.tensor(chol_pivot, dtype=dt) ** 2)
+    accepted = torch.empty((B, C), dtype=torch.bool, device=X.device)
+    N = torch.empty((B,), dtype=torch.int32, device=X.device)
+    lib = _library(ROUND4_SOURCE, "rbf_round4", _ROUND4_ARGTYPES)
+    fn = lib.rbf_round4_f32 if dt == torch.float32 else lib.rbf_round4_f64
+    p = cuda_build.ptr
+    err = fn(p(X), lane_stride, row_stride, p(cand), p(init_sites),
+             init_sites.stride(0), p(n_init), p(param_t), p(accepted), p(N),
+             B, C, n, max_points, pd, _KERNEL_ID[kernel], exponent, coef,
+             pivot2, cuda_build.stream_of(X))
+    if err != 0:
+        raise RuntimeError(f"rbf_round4 kernel launch failed: cudaError_t {err}")
+    round4_launches += 1
+    return accepted, N
+
+
+def round4(X, cand, init_sites, n_init, **kw):
+    """Round-4 acceptance for a batch of lanes. CPU tensors take the plain
+    twin, CUDA tensors launch K3 or raise."""
+    if X.device.type == "cpu":
+        return run_round4(X, cand, init_sites, n_init, **kw)
+    return round4_cuda(X, cand, init_sites, n_init, **kw)

@@ -18,15 +18,10 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
+from morbit_tpu_torch.ops import cuda_build
 from morbit_tpu_torch.ops.batched_linalg import (GJ_MAX_K, chol_factor,
                                                  chol_solve)
 
@@ -39,12 +34,7 @@ BIG = 1e30
 #: per launch; callers reset it to prove a run went through the kernel)
 launches = 0
 
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "qp_admm.cu"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
-# -Xptxas=-v only reports registers and spills per kernel (see build())
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCE = cuda_build.CSRC / "qp_admm.cu"
 
 _lib = None
 
@@ -114,60 +104,19 @@ def admm_stages_plain(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
 
 # ---------------------------------------------------------------- CUDA kernel
 
-def _nvcc() -> str:
-    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the qp_admm CUDA kernel cannot be built")
-    return found
-
-
-def library_path() -> pathlib.Path:
-    """Where the shared library for this source and these flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libqp_admm_{h.hexdigest()[:12]}.so"
-
-
-def build() -> tuple[pathlib.Path, str]:
-    """Compile ``csrc/qp_admm.cu`` unless the library is already built.
-
-    Returns the library path and the compiler's output, which lists each
-    kernel instance's registers and spills (empty when the library
-    existed). The build writes to a temporary name and renames, so
-    concurrent processes never load a half-written file."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+def build():
+    """Compile ``csrc/qp_admm.cu`` unless it is built (see
+    :func:`morbit_tpu_torch.ops.cuda_build.build`)."""
+    return cuda_build.build(SOURCE)
 
 
 def _library():
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        for name in ("qp_admm_f32", "qp_admm_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                           + [ctypes.c_double] * 4 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        _lib = lib
+        argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                    + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+        _lib = cuda_build.load(SOURCE, {"qp_admm_f32": argtypes,
+                                        "qp_admm_f64": argtypes})
     return _lib
 
 
@@ -182,31 +131,20 @@ def admm_stages_cuda(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
         raise NotImplementedError(
             f"qp_admm kernel takes nv <= {MAX_NV} and m <= {MAX_M}, got "
             f"nv={nv}, m={m}")
-    if q.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"qp_admm kernel takes float32 or float64, got {q.dtype}")
-    shapes = {"P": (P, (B, nv, nv)), "q": (q, (B, nv)), "A": (A, (B, m, nv)),
-              "l": (l, (B, m)), "u": (u, (B, m)), "rho0": (rho0, (B, m))}
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"qp_admm: {name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.device != q.device or t.device.type != "cuda":
-            raise ValueError(f"qp_admm: {name} is on {t.device}, expected {q.device} (cuda)")
-        if t.dtype != q.dtype:
-            raise TypeError(f"qp_admm: {name} is {t.dtype}, expected {q.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"qp_admm: {name} is not contiguous")
+    dt = cuda_build.float_dtype("qp_admm", q)
+    cuda_build.check_args("qp_admm", q.device, {
+        "P": (P, (B, nv, nv), dt), "q": (q, (B, nv), dt), "A": (A, (B, m, nv), dt),
+        "l": (l, (B, m), dt), "u": (u, (B, m), dt), "rho0": (rho0, (B, m), dt)})
     l_s = torch.clamp(l, -BIG, BIG)
     u_s = torch.clamp(u, -BIG, BIG)
     z = torch.empty_like(q)
     zz = torch.empty_like(l)
     y = torch.empty_like(l)
-    fn = _library().qp_admm_f32 if q.dtype == torch.float32 else _library().qp_admm_f64
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptr(P), ptr(q), ptr(A), ptr(l_s), ptr(u_s), ptr(rho0),
-                 ptr(z), ptr(zz), ptr(y), B, nv, m, n_stages, n_steps,
-                 sigma, alpha, rho_lo, rho_hi, ctypes.c_void_p(stream))
+    fn = _library().qp_admm_f32 if dt == torch.float32 else _library().qp_admm_f64
+    ptr = cuda_build.ptr
+    err = fn(ptr(P), ptr(q), ptr(A), ptr(l_s), ptr(u_s), ptr(rho0),
+             ptr(z), ptr(zz), ptr(y), B, nv, m, n_stages, n_steps,
+             sigma, alpha, rho_lo, rho_hi, cuda_build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"qp_admm kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -9,9 +9,14 @@ The port imports nothing of the JAX package, so both cross as plain data:
   ``traj.data``, ``traj.count``, ``scal.<field>`` (scale, offset,
   lb_scaled, ub_scaled), ``filter.<field>`` (theta, fvals, count,
   overflow), ``groups.<i>.db.<field>`` (data, count, overflow) and
-  ``groups.<i>.n_evals``. A state without a lane axis (one ``optimize``
-  run) gets one. Leaves the port does not carry (the empty constraint
-  blocks and the PRNG key of the JAX state) are ignored.
+  ``groups.<i>.n_evals``, and for an RBF group its model in the JAX
+  package's packed layout: ``groups.<i>.model.meta`` (``[idx (cap_train) |
+  n_train | fully_linear | dirs_head | dirs_count]``),
+  ``groups.<i>.model.dirs``, ``groups.<i>.model.fit.fdata`` (``[sites | w |
+  mask]``) and ``groups.<i>.model.fit.flam`` (``[lam ; param row]``). A
+  state without a lane axis (one ``optimize`` run) gets one. Leaves the
+  port does not carry (the empty constraint blocks and the PRNG key of the
+  JAX state) are ignored.
 
 :func:`state_to_numpy` produces the same dict from the port's state, so two
 states compare leaf by leaf.
@@ -29,6 +34,8 @@ from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.database import Database
 from morbit_tpu_torch.core.descent import resolve_descent_config
 from morbit_tpu_torch.models.container import GroupState
+from morbit_tpu_torch.models.rbf_model import RbfState
+from morbit_tpu_torch.ops.rbf import RbfFit
 
 def config_from_dict(d: dict) -> AlgorithmConfig:
     """The port's ``AlgorithmConfig`` from ``dataclasses.asdict`` of the JAX
@@ -54,16 +61,23 @@ def state_from_numpy(leaves: dict, device="cpu", dtype=None) -> SolverState:
     n = x.shape[-1]
     fx = t("fx")
     m = fx.shape[-1]
+    traj = t("traj.data")
     ints = t("ints", torch.int32)
     G = ints.shape[-1] - 5
     groups = []
     for i in range(G):
         data = t(f"groups.{i}.db.data")
+        model = ()
+        if f"groups.{i}.model.meta" in leaves:
+            model = _rbf_from_packed(t(f"groups.{i}.model.meta", torch.int32),
+                                     t(f"groups.{i}.model.dirs"),
+                                     t(f"groups.{i}.model.fit.fdata"),
+                                     t(f"groups.{i}.model.fit.flam"), n)
         groups.append(GroupState(
             db=Database(data=data, count=t(f"groups.{i}.db.count", torch.int32),
                         overflow=t(f"groups.{i}.db.overflow", torch.bool),
                         n=n, m=data.shape[-1] - n - 1),
-            model=(), n_evals=t(f"groups.{i}.n_evals", torch.int32)))
+            model=model, n_evals=t(f"groups.{i}.n_evals", torch.int32)))
     return SolverState(
         x=x, x_s=t("x_s"), fx=fx, dlt=t("dlt"), ints=ints,
         groups=tuple(groups),
@@ -71,8 +85,8 @@ def state_from_numpy(leaves: dict, device="cpu", dtype=None) -> SolverState:
                                fvals=t("filter.fvals"),
                                count=t("filter.count", torch.int32),
                                overflow=t("filter.overflow", torch.bool)),
-        traj=TrajectoryState(data=t("traj.data"),
-                             count=t("traj.count", torch.int32), n=n, m=m, G=G),
+        traj=TrajectoryState(data=traj, count=t("traj.count", torch.int32),
+                             n=n, m=m, G=G, MW=traj.shape[-1] - (n + m + 5 + G)),
         scal=scaling.VarScaler(*(t(f"scal.{f}") for f in scaling.VarScaler._fields)))
 
 
@@ -90,4 +104,34 @@ def state_to_numpy(state: SolverState) -> dict:
         for f in ("data", "count", "overflow"):
             out[f"groups.{i}.db.{f}"] = host(getattr(g.db, f))
         out[f"groups.{i}.n_evals"] = host(g.n_evals)
+        if isinstance(g.model, RbfState):
+            meta, dirs, fdata, flam = _rbf_to_packed(g.model)
+            out[f"groups.{i}.model.meta"] = host(meta)
+            out[f"groups.{i}.model.dirs"] = host(dirs)
+            out[f"groups.{i}.model.fit.fdata"] = host(fdata)
+            out[f"groups.{i}.model.fit.flam"] = host(flam)
     return out
+
+
+def _rbf_from_packed(meta, dirs, fdata, flam, n) -> RbfState:
+    cap = meta.shape[-1] - 4
+    m = fdata.shape[-1] - n - 1
+    return RbfState(
+        idx=meta[:, :cap].contiguous(), n_train=meta[:, cap].contiguous(),
+        fully_linear=meta[:, cap + 1] > 0, dirs_head=meta[:, cap + 2].contiguous(),
+        dirs_count=meta[:, cap + 3].contiguous(), dirs=dirs,
+        fit=RbfFit(sites=fdata[..., :n].contiguous(),
+                   mask=fdata[..., n + m] > 0.5,
+                   w=fdata[..., n:n + m].contiguous(),
+                   lam=flam[:, :-1].contiguous(), param=flam[:, -1, 0].contiguous()))
+
+
+def _rbf_to_packed(st: RbfState):
+    i32 = torch.int32
+    meta = torch.cat([st.idx, st.n_train[:, None], st.fully_linear.to(i32)[:, None],
+                      st.dirs_head[:, None], st.dirs_count[:, None]], dim=-1).to(i32)
+    f = st.fit
+    fdata = torch.cat([f.sites, f.w, f.mask.to(f.sites.dtype)[..., None]], dim=-1)
+    prow = f.param[:, None, None].expand(-1, 1, f.w.shape[-1])
+    flam = torch.cat([f.lam, prow], dim=-2)
+    return meta, st.dirs, fdata, flam

@@ -28,6 +28,7 @@ import morbit_tpu_torch.core.scaling as tscal
 import morbit_tpu_torch.ops.batched_linalg as tla
 import morbit_tpu_torch.ops.geometry as tgeo
 import morbit_tpu_torch.problems.synthetic as tsyn
+from morbit_tpu.models.configs import LagrangeConfig as JaxLagrangeConfig
 from morbit_tpu.models.configs import RbfConfig as JaxRbfConfig
 from morbit_tpu.models.configs import TaylorConfig as JaxTaylorConfig
 from morbit_tpu_torch.models.configs import RbfConfig
@@ -206,14 +207,15 @@ def test_solver_pins_full_precision_matmuls():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-@pytest.mark.parametrize("cfg", [None, RbfConfig(), JaxTaylorConfig()])
+@pytest.mark.parametrize("cfg", [RbfConfig(use_max_points=True),
+                                 JaxTaylorConfig(), JaxLagrangeConfig()])
 def test_unported_models_raise(cfg):
     mop = mt.MOP([-1.0], [1.0])
     with pytest.raises(NotImplementedError, match="not ported"):
         mop.add_objective(lambda x: x.sum(), model_cfg=cfg)
     with pytest.raises(NotImplementedError, match="constraints"):
         mop.add_ineq_constraint([[1.0]], [0.5])
-    # the inert configs carry the JAX package's fields and defaults
+    # the RBF config carries the JAX package's fields and defaults
     ref = dataclasses.asdict(JaxRbfConfig())
     port = dataclasses.asdict(RbfConfig())
     assert list(port) == list(ref)

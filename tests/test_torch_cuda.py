@@ -1,4 +1,4 @@
-"""The CUDA kernel of the port against its plain PyTorch twin, on the card.
+"""The CUDA kernels of the port against their plain PyTorch twins, on the card.
 
 Imports neither jax nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python3 -m pytest --noconftest tests/test_torch_cuda.py``
@@ -6,10 +6,12 @@ has only PyTorch: ``python3 -m pytest --noconftest tests/test_torch_cuda.py``
 skips: a hand-written CUDA kernel has no CPU mode.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from chip_smoke import descent_lps, random_qps
+from chip_smoke import (SEL_NAMES, SEL_STATICS, descent_lps, random_qps,
+                        round4_case, selection_case)
 from morbit_tpu_torch.ops import qp_lane
 from morbit_tpu_torch.ops.qp import _rho_vec
 
@@ -53,3 +55,57 @@ def test_kernel_rejects_cpu_mix(cuda):
         qp_lane.admm_stages_cuda(P, q.cpu(), A, lo, hi, _rho_vec(lo, hi, 0.1),
                                  n_stages=1, n_steps=1, sigma=1e-6, alpha=1.6,
                                  rho_lo=1e-6, rho_hi=1e6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,cap", [(2, 157), (3, 1507)])
+def test_selection_kernel_matches_twin(cuda, n, cap, dtype):
+    """K2 (rounds 1-3) against its twin: integer and bool outputs equal on
+    every lane, sites3/dirs close (both round every operation alike)."""
+    from morbit_tpu_torch.ops import prepare_fused
+    from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
+
+    case = selection_case(np.random.default_rng(n + cap), 1024, cap, n, "mixed")
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    i = lambda a: torch.as_tensor(a, dtype=torch.int32, device=cuda)
+    X, count, x_s, x_index, delta, lb, ub, max_new, efl = case
+    args = (f(X), i(count), f(x_s), i(x_index), f(delta), f(lb), f(ub), i(max_new),
+            torch.as_tensor(efl, device=cuda))
+    before = prepare_fused.selection_launches
+    k = prepare_fused.selection(*args, **SEL_STATICS)
+    t = rbf_selection_core(*args, **SEL_STATICS)
+    torch.cuda.synchronize()
+    assert prepare_fused.selection_launches == before + 1
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for name, a, b in zip(SEL_NAMES, k, t):
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel,deg", [("multiquadric", 1), ("cubic", 1),
+                                        ("multiquadric", 0)])
+def test_round4_kernel_matches_twin(cuda, kernel, deg, dtype):
+    """K3 (round 4) against its twin: the same acceptances on every lane,
+    with rejections present."""
+    from morbit_tpu_torch.models.rbf_round4 import run_round4
+    from morbit_tpu_torch.ops import prepare_fused
+
+    X, cand, init, count, param = round4_case(np.random.default_rng(11), 1024, 60,
+                                              2, 6, 0.4)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    args = (f(X), torch.as_tensor(cand, device=cuda), f(init),
+            torch.as_tensor(count, dtype=torch.int32, device=cuda))
+    kw = dict(kernel=kernel, param=3 if kernel == "cubic" else f(param),
+              poly_deg=deg, max_points=6, chol_pivot=0.3 if deg == 0 else 0.1)
+    before = prepare_fused.round4_launches
+    acc_k, N_k = prepare_fused.round4(*args, **kw)
+    acc_t, N_t = run_round4(*args, **kw)
+    torch.cuda.synchronize()
+    assert prepare_fused.round4_launches == before + 1
+    assert torch.equal(N_k, N_t) and torch.equal(acc_k, acc_t)
+    assert int(N_t.min()) < 6
