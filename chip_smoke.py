@@ -6,32 +6,43 @@ Run from the repository root on a machine with one CUDA card::
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. ``build``            — nvcc-builds the three kernels at once: K1
-   (``csrc/qp_admm.cu``), K2 (``csrc/rbf_selection.cu``), K3
-   (``csrc/rbf_round4.cu``).
-2. ``kernel_admm``      — K1 against its plain PyTorch twin on the card,
-   B=1024 random QPs and descent LPs, float32 and float64.
-3. ``rbf_main_path``    — the main path: ``multistart_optimize`` on 1024
+1. ``build``            — nvcc-builds the five kernels at once, one process
+   per source: K1 (``csrc/qp_admm.cu``), K2 (``csrc/rbf_selection.cu``),
+   K3 (``csrc/rbf_round4.cu``), K4 (``csrc/rbf_gram.cu``), K5
+   (``csrc/admm_iterations.cu``); registers, stack and spills per instance.
+2. ``rbf_main_path``    — the RBF main path: ``multistart_optimize`` on 1024
    Halton starts of two parabolas, both objectives in one multiquadric RBF
-   group, float32, max_iter=100, qp_iters=400; launch counts of K1-K3 per
-   batch, trips, Pareto-set fraction, the sustained rate. Its first batch
-   records the K2/K3 inputs of some trips.
-4. ``kernel_selection`` — K2 against its twin on the card: B=1024 random
-   cases (n=2, 3; cap=157, 1507; the ensure-fully-linear flag half set) and
-   the recorded main-path inputs, float64 and float32: integer and bool
-   outputs equal on every lane, sites3/dirs within 1e-12 (float64) or 1e-5
-   (float32).
-5. ``kernel_round4``    — K3 against its twin on the card: B=1024, C=60,
-   maxN=6 (multiquadric and cubic with a linear tail, multiquadric with a
-   constant tail) and the recorded main-path inputs: ``accepted`` and ``N``
-   equal on every lane, with rejections present.
-6. ``rbf_card_vs_cpu``  — the RBF main path at float64, 64 Halton starts,
+   group, float32, max_iter=100, qp_iters=400; launch counts of K1-K3 in
+   the first batch, trips, Pareto-set fraction, the sustained rate. Its
+   first batch records the K2/K3 inputs of some trips.
+3. ``wide_main_path``   — the wide-n path: ZDT1 at n=20, both objectives in
+   one cubic RBF group, the reference grid budget, float32, B_WIDE Halton
+   starts; launches of K1-K4 per batch, trips, the front error, evaluations,
+   stop codes, database rows, peak memory, the sustained rate. Its first
+   batch records the K1-K4 inputs of some calls, and no plain twin may run
+   on the card in it.
+4. ``kernel_admm``, ``kernel_selection``, ``kernel_round4`` — K1, K2, K3
+   against their twins on the card, on random cases (the wide shapes
+   included: nv=21/m=42, n=20 with 5332 rows, max_points 231 with 2310
+   rows) and the recorded inputs of both paths, float64 and float32: K1
+   within 1e-9 (float64) or 2e-3 (float32); K2's and K3's integer and bool
+   outputs equal on every lane, K2's floats within 1e-12 or 1e-5.
+5. ``kernel_gram``      — K4 against its twin: (P, n) = (134, 14) and
+   (251, 20), all five RBF kernels, and the wide path's inputs; max|diff| /
+   max|Phi| within 1e-12 (float64) or 1e-5 (float32).
+6. ``kernel_admm_iterations`` — K5 (no caller) against its twin at
+   (n, m) = (3, 6) and (21, 42), 100 steps.
+7. ``wide_quality_f64`` — the wide path's problem at float64, B=4,
+   max_iter=25, under the asserts of tests/test_zdt_quality.py:97-101.
+8. ``wide_card_vs_cpu`` — ZDT1 at n=10 at float64 on the card and on the
+   CPU, trip by trip from the same state.
+9. ``rbf_card_vs_cpu``  — the RBF main path at float64, 64 Halton starts,
    max_iter=100, on the card and on the CPU, trip by trip from the same
    state (integer leaves equal, floats within 1e-9 + 1e-6 |x|), and run
    freely on both (the lanes that end alike; on them x within 1e-9 and fx,
    whose slope is at most 10 on the box, within 1e-8).
-7. ``card_vs_cpu`` and ``main_path`` — the same two checks with exact models
-   (slice 1), at 64 and 1024 starts.
+10. ``card_vs_cpu`` and ``main_path`` — the same two checks with exact
+    models (slice 1), at 64 and 1024 starts.
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
@@ -40,6 +51,7 @@ exits non-zero before printing any result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -57,6 +69,8 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 B_MAIN = 1024
+#: starts per batch of the wide-n path
+B_WIDE = 1024
 QP_ITERS, ADAPT_EVERY = 400, 100
 LB, UB = [-4.0, -4.0], [4.0, 4.0]
 #: rounds-1-3 statics of the main path's RbfConfig (theta_1 = theta_2 = 2,
@@ -67,6 +81,16 @@ SEL_NAMES = ("r1_idx", "r1_cnt", "r2_idx", "r2_cnt", "sites3", "active3",
              "n_new", "dirs", "dirs_count", "fully_linear")
 #: main-path trips whose K2/K3 inputs the first batch records
 CAPTURE_TRIPS = (0, 1, 2, 5, 10, 20)
+#: the wide-n path: ZDT1 at n=20 with both objectives in one cubic RBF
+#: group, at the reference grid budget (morbit_tpu/parallel/benchmarks.py:
+#: 104-118) and qp_iters=400; its RBF has max_points (n+1)(n+2)/2 = 231
+N_WIDE = 20
+WIDE_MAX_POINTS = (N_WIDE + 1) * (N_WIDE + 2) // 2
+WIDE_BUDGET = dict(max_iter=100, max_evals=1000 * N_WIDE, delta_0=0.1, delta_max=0.5,
+                   f_tol_rel=1e-3, x_tol_rel=1e-3, qp_iters=QP_ITERS)
+WIDE_SUSTAINED = 2
+#: calls of each kernel whose inputs the wide path's first batch records
+WIDE_CAPTURE_CALLS = (2, 10)
 
 
 def check(cond, msg):
@@ -79,7 +103,8 @@ def phase(name, **fields):
 
 
 def event_ms(fn, reps):
-    """Median of ``reps`` CUDA-event timings of ``fn()`` (after one warm-up)."""
+    """Median of up to ``reps`` CUDA-event timings of ``fn()`` (after one
+    warm-up), fewer once they add up to 2 s."""
     fn()
     times = []
     for _ in range(reps):
@@ -90,7 +115,21 @@ def event_ms(fn, reps):
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
+        if sum(times) > 2000.0:
+            break
     return statistics.median(times)
+
+
+def timed(fn):
+    """``fn()`` once, timed with CUDA events: (its result, ms). The plain
+    twins are timed so, by the run that is compared with the kernel."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
 
 
 def admm_flops(nv, m, n_stages, n_steps):
@@ -137,6 +176,17 @@ def random_qps(B, n, m, seed):
     return P, q, A, lo, hi
 
 
+def admm_iterations_case(B, n, m, seed):
+    """Inputs of K5 from ``random_qps``: the KKT inverse
+    ``(P + sigma I + A' diag(rho) A)^-1`` at sigma = 1e-6 and a random
+    per-row rho, from z = 0, zz = clip(0, l, u), y = 0."""
+    P, q, A, lo, hi = random_qps(B, n, m, seed)
+    rho = np.random.default_rng(seed).uniform(0.05, 5.0, (B, m))
+    Minv = np.linalg.inv(P + 1e-6 * np.eye(n) + np.einsum("bri,br,brj->bij", A, rho, A))
+    return (Minv, A, rho, q, lo, hi, np.zeros((B, n)), np.clip(0.0, lo, hi),
+            np.zeros((B, m)))
+
+
 def descent_lps(B, n):
     """Steepest-descent LPs of the solver at Halton starts: two parabolas
     on [-4, 4]^2 (n=2) or the three-variable oracle problem on [-2, 3]^3."""
@@ -178,10 +228,12 @@ def selection_case(rng, B, cap, n, efl):
     return X, count, x_s, x_index, delta, lb, ub, max_new, efl
 
 
-def round4_case(rng, B, C, n, maxN, dup_frac):
+def round4_case(rng, B, C, n, maxN, dup_frac, width=None):
     """Random round-4 inputs in the pattern of tests/test_round4_fused.py
     (numpy): candidates with near-duplicates, candidate mask, rounds-1-3
-    sites, their count and the shape parameter."""
+    sites (``width`` rows, ``maxN`` by default; the solver passes its
+    training buffer, ``n`` rows wider), their count and the shape
+    parameter."""
     X = rng.uniform(0, 1, (B, C, n))
     ndup = int(C * dup_frac)
     for b in range(B):
@@ -189,10 +241,22 @@ def round4_case(rng, B, C, n, maxN, dup_frac):
         X[b, dst] = X[b, src] + rng.normal(0, 1e-6, (ndup, n))
     cand = rng.uniform(size=(B, C)) < 0.7
     count = rng.integers(1, maxN, B).astype(np.int32)
-    init = rng.uniform(0, 1, (B, maxN, n))
-    init = np.where((np.arange(maxN)[None, :] < count[:, None])[..., None], init, 0.0)
+    width = width or maxN
+    init = rng.uniform(0, 1, (B, width, n))
+    init = np.where((np.arange(width)[None, :] < count[:, None])[..., None], init, 0.0)
     param = rng.uniform(0.5, 2.0, B)
     return X, cand, init, count, param
+
+
+def gram_case(rng, B, P, n):
+    """Random K4 inputs: sites in the unit cube, ~70 % valid rows and a
+    per-lane shape parameter in [0.5, 1] (the solver's default is 1). In
+    float32, r^2 = |s_i|^2 + |s_j|^2 - 2 s_i.s_j carries a few ulps of
+    |s|^2 ~ n/3 in either summation order, and phi moves by d phi / d r^2
+    times that: p^2 for the gaussian, so larger shape parameters put kernel
+    and twin further apart than 1e-5 max|Phi|."""
+    return (rng.uniform(0, 1, (B, P, n)), rng.uniform(size=(B, P)) < 0.7,
+            rng.uniform(0.5, 1.0, B))
 
 
 def selection_work(args, outs):
@@ -262,17 +326,20 @@ def rbf_mop():
 
 def ptxas_summary(log):
     """Registers and spill bytes per kernel instance from ``-Xptxas=-v``
-    output, keyed like ``f32_3_6`` (the instance's template sizes; 0 for
-    runtime sizes)."""
+    output, keyed like ``qp_admm_f32_3_6`` (the kernel, its type and its
+    template sizes; 0 for runtime sizes)."""
     out, key = {}, None
     for line in log.splitlines():
-        hit = re.search(r"_kernelI([fd])((?:Li\d+E)+)", line)
+        hit = re.search(r"(qp_admm|rbf_selection|rbf_round4_wide|rbf_round4|rbf_gram|"
+                        r"admm_iterations)_kernelI([fd])((?:Li\d+E)*)", line)
         if "Compiling entry function" in line and hit:
-            sizes = "_".join(re.findall(r"Li(\d+)E", hit[2]))
-            key = f"{'f32' if hit[1] == 'f' else 'f64'}_{sizes}"
+            sizes = "".join("_" + v for v in re.findall(r"Li(\d+)E", hit[3]))
+            key = f"{hit[1]}_{'f32' if hit[2] == 'f' else 'f64'}{sizes}"
         elif key and "spill stores" in line:
             out.setdefault(key, {})["spill_store_bytes"] = int(
                 re.search(r"(\d+) bytes spill stores", line)[1])
+            out[key]["stack_frame_bytes"] = int(
+                re.search(r"(\d+) bytes stack frame", line)[1])
         elif key and "Used" in line and "registers" in line:
             out.setdefault(key, {})["registers"] = int(
                 re.search(r"Used (\d+) registers", line)[1])
@@ -280,10 +347,12 @@ def ptxas_summary(log):
 
 
 def phase_build():
-    from morbit_tpu_torch.ops import prepare_fused, qp_lane
+    from morbit_tpu_torch.ops import dense_kernels, prepare_fused, qp_lane
 
     builds = {"qp_admm": qp_lane.build, "rbf_selection": prepare_fused.build_selection,
-              "rbf_round4": prepare_fused.build_round4}
+              "rbf_round4": prepare_fused.build_round4,
+              "rbf_gram": dense_kernels.build_gram,
+              "admm_iterations": dense_kernels.build_admm_iterations}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:     # one nvcc per source
         done = {k: pool.submit(fn) for k, fn in builds.items()}
@@ -293,76 +362,109 @@ def phase_build():
           ptxas={k: ptxas_summary(log) for k, (_, log) in results.items()})
 
 
-def phase_kernel_admm():
-    """Kernel vs twin through ``solve_qp``; returns the main-path row."""
-    from morbit_tpu_torch.ops import qp_lane
-    from morbit_tpu_torch.ops.qp import _rho_vec, solve_qp
+def phase_kernel_admm(wide_captured):
+    """Kernel vs twin through ``solve_qp`` on random QPs, descent LPs and the
+    LPs the wide path gave the kernel (recorded after equilibration, so
+    ``solve_qp`` passes them on unchanged); returns the rows of the RBF main
+    path's shape (nv=3 descent LPs, float32) and of the wide path (its last
+    recorded call, float32).
 
-    sets = [("random", 3, 6, random_qps(B_MAIN, 3, 6, 0)),
-            ("random", 4, 8, random_qps(B_MAIN, 4, 8, 1)),
-            ("descent", 3, 6, descent_lps(B_MAIN, 2)),
-            ("descent", 4, 8, descent_lps(B_MAIN, 3))]
-    main_row = None
+    On the recorded wide LPs (P = 0, sigma = 1e-6 or 1e-4 in M = sigma I +
+    A' diag(rho) A, 400 steps that leave many lanes unconverged) the stage
+    loop amplifies rounding: perturbing A by one ulp moves the twin's own
+    output by up to ~1e-7 (float64) or ~1e-2 (float32) on some lanes. Two
+    rounding orders of it (kernel and twin) cannot agree closer than that,
+    so there the kernel is held to the larger of the fixed tolerance and
+    ten times that sensitivity, measured in the same run."""
+    from morbit_tpu_torch.ops import qp_lane
+    from morbit_tpu_torch.ops.qp import solve_qp
+
+    def through_solve_qp(stages, P, q, A, lo, hi):
+        """``solve_qp`` with ``stages`` as its stage loop; returns the
+        solution, the loop's inputs and output, and its CUDA-event time."""
+        seen = {}
+
+        def wrapped(*args, **kw):
+            seen["args"], seen["kw"] = args, kw
+            out, seen["ms"] = timed(lambda: stages(*args, **kw))
+            seen["z"] = out[0]
+            return out
+        with mock.patch.object(qp_lane, "admm_stages", wrapped):
+            sol = solve_qp(P, q, A, lo, hi, iters=QP_ITERS, adapt_every=ADAPT_EVERY)
+        return sol, seen
+
+    sets = [("random", random_qps(B_MAIN, 3, 6, 0)),
+            ("random", random_qps(B_MAIN, 4, 8, 1)),
+            ("descent", descent_lps(B_MAIN, 2)),
+            ("descent", descent_lps(B_MAIN, 3)),
+            ("random", random_qps(B_MAIN, 21, 42, 2))]
+    sets += [(f"wide_path_call{c}", a[:5]) for c, (a, _) in zip(WIDE_CAPTURE_CALLS,
+                                                                 wide_captured)]
+    rows = {}
     for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 2e-3)):
         f32 = dtype == torch.float32
-        for kind, nv, m, arrays in sets:
+        for kind, arrays in sets:
             P, q, A, lo, hi = (torch.as_tensor(a, dtype=dtype, device="cuda")
                                for a in arrays)
+            nv, m = A.shape[-1], A.shape[-2]
             qp_lane.launches = 0
-            sol_k = solve_qp(P, q, A, lo, hi, iters=QP_ITERS, adapt_every=ADAPT_EVERY)
-            with mock.patch.object(qp_lane, "admm_stages", qp_lane.admm_stages_plain):
-                sol_p = solve_qp(P, q, A, lo, hi, iters=QP_ITERS,
-                                 adapt_every=ADAPT_EVERY)
-            torch.cuda.synchronize()
+            sol_k, k = through_solve_qp(qp_lane.admm_stages_cuda, P, q, A, lo, hi)
             check(qp_lane.launches == 1, f"kernel launches {qp_lane.launches} != 1")
+            sol_p, t = through_solve_qp(qp_lane.admm_stages_plain, P, q, A, lo, hi)
             ok = sol_p.status_ok
             check(bool((sol_k.status_ok == ok).all()),
                   f"status_ok differs on {int((sol_k.status_ok != ok).sum())} lanes")
-
-            # the kernel's own output: the stage loop on the equilibrated
-            # inputs solve_qp gives it, against the twin's
-            r = A.abs().amax(-1)
-            args = (P, q, (A / r[..., None]).contiguous(), (lo / r).contiguous(),
-                    (hi / r).contiguous(), _rho_vec(lo, hi, 0.1))
-            kw = dict(n_stages=QP_ITERS // ADAPT_EVERY, n_steps=ADAPT_EVERY,
-                      sigma=1e-4 if f32 else 1e-6, alpha=1.6,
-                      rho_lo=1e-3 if f32 else 1e-6, rho_hi=1e4 if f32 else 1e6)
-            z_k = qp_lane.admm_stages_cuda(*args, **kw)[0]
-            z_p = qp_lane.admm_stages_plain(*args, **kw)[0]
-            err = float((z_k - z_p)[ok].abs().max()) if ok.any() else 0.0
-            check(err <= tol, f"{kind} nv={nv} m={m} {dtype}: |dz| {err} > {tol}")
-            # after the polish: equal at float64; at float32 the polish takes
-            # the active set from the ADMM dual signs and accepts it on KKT
-            # residuals alone, so on lanes the 400 trips leave unconverged
-            # two rounding orders can polish to different points (the JAX
-            # package's float32 solve_qp does the same)
+            dz = (k["z"] - t["z"]).abs().amax(-1)
+            err = float(dz[ok].max()) if ok.any() else 0.0
+            # after the polish: at float32 the polish takes the active set
+            # from the ADMM dual signs and accepts it on KKT residuals alone,
+            # so on lanes the 400 trips leave unconverged two rounding orders
+            # can polish to different points (the JAX package's float32
+            # solve_qp does the same); it is reported there, not held
             dz_pol = (sol_k.z - sol_p.z).abs().amax(-1)
             pol_err = float(dz_pol[ok].max()) if ok.any() else 0.0
+            limit, extra = tol, {}
+            if kind.startswith("wide_path"):
+                a = t["args"]
+                g = torch.Generator(device="cuda").manual_seed(0)
+                A1 = a[2] * (1 + torch.finfo(dtype).eps
+                             * torch.randn(a[2].shape, generator=g, device="cuda", dtype=dtype))
+                z1 = qp_lane.admm_stages_plain(a[0], a[1], A1, *a[3:], **t["kw"])[0]
+                sens = (z1 - t["z"]).abs().amax(-1)
+                sens_max = float(sens[ok].max()) if ok.any() else 0.0
+                limit = max(tol, 10.0 * sens_max)
+                extra = dict(one_ulp_sensitivity=sens_max, held_to=limit,
+                             lanes_within_tol=int((ok & (dz <= tol)).sum()))
+            check(err <= limit, f"{kind} nv={nv} m={m} {dtype}: |dz| {err} > {limit}")
             if not f32:
-                check(pol_err <= tol, f"{kind} nv={nv} m={m} {dtype}: polished "
-                      f"|dz| {pol_err} > {tol}")
-            ms = event_ms(lambda: qp_lane.admm_stages_cuda(*args, **kw), 20)
-            ms_back_to_back = event_ms(
-                lambda: [qp_lane.admm_stages_cuda(*args, **kw)
-                         for _ in range(20)], 1) / 20
-            plain_ms = event_ms(lambda: qp_lane.admm_stages_plain(*args, **kw), 5)
-            launches = qp_lane.launches
-            flops = B_MAIN * admm_flops(nv, m, kw["n_stages"], kw["n_steps"])
-            nbytes = B_MAIN * admm_bytes(nv, m, P.element_size())
-            t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
-            row = dict(set=kind, nv=nv, m=m, dtype=str(dtype), B=B_MAIN,
-                       ok_lanes=int(ok.sum()), max_abs_err=err, tol=tol,
-                       polished_max_abs_err=pol_err,
-                       polished_lanes_over_tol=int((ok & (dz_pol > tol)).sum()),
-                       ms=ms, ms_back_to_back=ms_back_to_back,
-                       plain_ms=plain_ms, launches=launches,
-                       bound_ms=max(t_ops, t_bytes) * 1e3,
-                       bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       flops=flops, bytes=nbytes)
+                check(pol_err <= limit, f"{kind} nv={nv} m={m} {dtype}: polished "
+                      f"|dz| {pol_err} > {limit}")
+            row = admm_row(k["args"], k["kw"], dtype, t["ms"], set=kind,
+                           ok_lanes=int(ok.sum()), max_abs_err=err, tol=tol, **extra,
+                           polished_max_abs_err=pol_err,
+                           polished_lanes_over_tol=int((ok & (dz_pol > tol)).sum()))
             phase("kernel_admm", **row)
-            if kind == "descent" and nv == 3 and f32:
-                main_row = row
-    return main_row
+            rows[(kind, nv, dtype)] = row
+    wide = [v for (kind, _, dt), v in rows.items()
+            if kind.startswith("wide_path") and dt == torch.float32]
+    return rows[("descent", 3, torch.float32)], wide[-1]
+
+
+def admm_row(args, kw, dtype, plain_ms, **fields):
+    """Time the K1 launch on ``args`` and add its bound."""
+    from morbit_tpu_torch.ops import qp_lane
+
+    B, m, nv = args[2].shape
+    ms = event_ms(lambda: qp_lane.admm_stages_cuda(*args, **kw), 20)
+    k = 20 if ms < 5.0 else 2
+    ms_back_to_back = event_ms(
+        lambda: [qp_lane.admm_stages_cuda(*args, **kw) for _ in range(k)], 1) / k
+    flops = B * admm_flops(nv, m, kw["n_stages"], kw["n_steps"])
+    nbytes = B * admm_bytes(nv, m, args[0].element_size())
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    return dict(fields, nv=nv, m=m, dtype=str(dtype), B=B, ms=ms,
+                ms_back_to_back=ms_back_to_back, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
 
 
 def phase_card_vs_cpu():
@@ -458,22 +560,10 @@ def phase_rbf_main_path():
                               dtype=torch.float32, device="cuda")
               for k in range(5)]
     captured = {"selection": [], "round4": []}
-    calls = {"selection": 0, "round4": 0}
-    sel_fn, r4_fn = prepare_fused.selection, prepare_fused.round4
-
-    def recording(name, fn):
-        def wrapped(*args, **kw):
-            if calls[name] in CAPTURE_TRIPS:
-                captured[name].append((tuple(a.clone() for a in args), dict(kw)))
-            calls[name] += 1
-            return fn(*args, **kw)
-        return wrapped
-
     torch.cuda.synchronize()
     qp_lane.launches = prepare_fused.selection_launches = prepare_fused.round4_launches = 0
     t0 = time.perf_counter()
-    with mock.patch.object(prepare_fused, "selection", recording("selection", sel_fn)), \
-            mock.patch.object(prepare_fused, "round4", recording("round4", r4_fn)):
+    with kernels_only(), recording(captured, CAPTURE_TRIPS):
         res = multistart_optimize(mop, starts[0], ac, dtype=torch.float32)
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -507,6 +597,149 @@ def phase_rbf_main_path():
     return launches, captured
 
 
+#: the wrappers whose inputs a path records, by the name of their captures
+_RECORDED = {"qp_admm": ("qp_lane", "admm_stages"),
+             "selection": ("prepare_fused", "selection"),
+             "round4": ("prepare_fused", "round4"),
+             "gram": ("dense_kernels", "rbf_gram_matrix")}
+
+
+@contextlib.contextmanager
+def recording(captured, calls_to_keep):
+    """Record copies of the inputs of the wrappers named in ``captured``
+    (a dict of empty lists) at the call numbers in ``calls_to_keep``; the
+    copies are made outside the kernels and launch none."""
+    from morbit_tpu_torch.ops import dense_kernels, prepare_fused, qp_lane
+
+    mods = {"qp_lane": qp_lane, "prepare_fused": prepare_fused,
+            "dense_kernels": dense_kernels}
+    calls = dict.fromkeys(captured, 0)
+
+    def wrap(name, fn):
+        def wrapped(*args, **kw):
+            if calls[name] in calls_to_keep:
+                captured[name].append((tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a for a in args), dict(kw)))
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for name in captured:
+            mod, attr = _RECORDED[name]
+            stack.enter_context(mock.patch.object(
+                mods[mod], attr, wrap(name, getattr(mods[mod], attr))))
+        yield
+
+
+@contextlib.contextmanager
+def kernels_only():
+    """Make every plain twin raise on a CUDA tensor, so that a run shows it
+    went through the kernels only."""
+    from morbit_tpu_torch.ops import dense_kernels, prepare_fused, qp_lane
+
+    def guard(name, fn):
+        def wrapped(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise RuntimeError(f"the plain twin {name} ran on a CUDA tensor")
+            return fn(*args, **kw)
+        return wrapped
+
+    twins = [(qp_lane, "admm_stages_plain"), (prepare_fused, "rbf_selection_core"),
+             (prepare_fused, "run_round4"), (dense_kernels, "rbf_gram_matrix_plain"),
+             (dense_kernels, "admm_iterations_plain")]
+    with contextlib.ExitStack() as stack:
+        for mod, attr in twins:
+            stack.enter_context(mock.patch.object(mod, attr, guard(attr, getattr(mod, attr))))
+        yield
+
+
+def wide_mop():
+    from morbit_tpu_torch.models.configs import RbfConfig
+    from morbit_tpu_torch.problems.synthetic import make_zdt
+
+    return make_zdt("zdt1", N_WIDE, model_cfg=RbfConfig(kernel="cubic"))
+
+
+def front_error(fx):
+    """|f2 - (1 - sqrt(f1))| per lane: the distance in f2 to the ZDT1
+    front (``tests/test_zdt_quality.py::_front_err``)."""
+    f1 = torch.clamp(fx[:, 0], min=0.0)
+    return (fx[:, 1] - (1.0 - torch.sqrt(f1))).abs()
+
+
+def _quantiles(t):
+    t = t.double().cpu()
+    return {"min": float(t.min()), "median": float(t.median()), "max": float(t.max())}
+
+
+def phase_wide_main_path(B):
+    """The wide-n path at float32: ZDT1, n=20, both objectives in one cubic
+    RBF group, the reference grid budget, B Halton starts. The counts are
+    set to 0 just before each batch and read just after it; the first batch
+    records the K1-K4 inputs of the calls in WIDE_CAPTURE_CALLS, and no
+    plain twin may run on the card in it."""
+    from morbit_tpu_torch import STOP_CODE, AlgorithmConfig, multistart_optimize
+    from morbit_tpu_torch.ops import dense_kernels, prepare_fused, qp_lane
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    mop = wide_mop()
+    ac = AlgorithmConfig(**WIDE_BUDGET)
+    starts = [torch.as_tensor(halton_starts(B, mop.lb, mop.ub, 1 + k * B),
+                              dtype=torch.float32, device="cuda")
+              for k in range(1 + WIDE_SUSTAINED)]
+    captured = {"qp_admm": [], "selection": [], "round4": [], "gram": []}
+
+    def counts():
+        return {"qp_admm": qp_lane.launches,
+                "rbf_selection": prepare_fused.selection_launches,
+                "rbf_round4": prepare_fused.round4_launches,
+                "rbf_gram": dense_kernels.gram_launches}
+
+    def batch(x0, record):
+        qp_lane.launches = prepare_fused.selection_launches = 0
+        prepare_fused.round4_launches = dense_kernels.gram_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if record:
+                stack.enter_context(kernels_only())
+                stack.enter_context(recording(captured, WIDE_CAPTURE_CALLS))
+            res = multistart_optimize(mop, x0, ac, dtype=torch.float32)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        for name, count in launches.items():
+            check(count >= res.trips,
+                  f"{name} launched {count} times in {res.trips} trips of the wide path")
+        return res, seconds, launches
+
+    torch.cuda.reset_peak_memory_stats()
+    res, first_s, launches = batch(starts[0], True)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(((res.stop_code >= STOP_CODE.MAX_ITER)
+                & (res.stop_code <= STOP_CODE.INFEASIBLE)).all()), "invalid stop code")
+    check(bool(torch.isfinite(res.x).all() and torch.isfinite(res.fx).all()),
+          "non-finite x or fx")
+    check(tuple(res.x.shape) == (B, N_WIDE), f"x has shape {tuple(res.x.shape)}")
+    sustained = [batch(x0, False) for x0 in starts[1:]]
+    dt = sum(s for _, s, _ in sustained)
+    codes = {STOP_CODE(c).name: int((res.stop_code == c).sum()) for c in range(2, 7)}
+    phase("wide_main_path", B=B, dtype="float32", n=N_WIDE, problem="zdt1",
+          model="RbfConfig(kernel='cubic')", budget=WIDE_BUDGET,
+          launches_per_batch=[launches] + [l for _, _, l in sustained],
+          trips_per_batch=[res.trips] + [r.trips for r, _, _ in sustained],
+          first_batch_s=first_s, sustained_s=[s for _, s, _ in sustained],
+          runs_per_s=len(sustained) * B / dt,
+          front_error=_quantiles(front_error(res.fx)),
+          mean_iterations=float(res.n_iterations.double().mean()),
+          mean_evals=float(res.n_evals.double().mean()), stop_codes=codes,
+          db_rows=int(res.state.groups[0].db.data.shape[1]),
+          max_memory_allocated_bytes=peak,
+          recorded_calls={k: len(v) for k, v in captured.items()})
+    return launches, captured
+
+
 def _selection_tensors(case, dtype):
     X, count, x_s, x_index, delta, lb, ub, max_new, efl = case
     f = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
@@ -515,26 +748,30 @@ def _selection_tensors(case, dtype):
             torch.as_tensor(efl, device="cuda"))
 
 
-def phase_kernel_selection(captured):
-    """K2 against its twin on the card; returns the row of the last recorded
-    main-path call (float32, cap 1507)."""
+def phase_kernel_selection(captured, wide_captured):
+    """K2 against its twin on the card; returns the rows of the last
+    recorded call of the RBF main path (cap 1507) and of the wide path
+    (n=20, cap 5332), both float32."""
     from morbit_tpu_torch.ops import prepare_fused
     from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
 
     sets = [(f"random_n{n}_cap{cap}", lambda dt, n=n, cap=cap: _selection_tensors(
         selection_case(np.random.default_rng(100 + n + cap), B_MAIN, cap, n, "mixed"),
-        dt), SEL_STATICS) for n in (2, 3) for cap in (157, 1507)]
-    sets += [(f"main_path_trip{t}", lambda dt, a=a: tuple(
-        x.to(dt) if x.is_floating_point() else x for x in a), kw)
-        for t, (a, kw) in zip(CAPTURE_TRIPS, captured)]
-    main_row = None
+        dt), SEL_STATICS) for n, cap in ((2, 157), (2, 1507), (3, 157), (3, 1507),
+                                         (N_WIDE, 5332))]
+    recorded = lambda a: lambda dt: tuple(x.to(dt) if x.is_floating_point() else x
+                                          for x in a)
+    sets += [(f"main_path_trip{t}", recorded(a), kw)
+             for t, (a, kw) in zip(CAPTURE_TRIPS, captured)]
+    sets += [(f"wide_path_call{t}", recorded(a), kw)
+             for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
+    rows = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for name, make, kw in sets:
             args = make(dtype)
             before = prepare_fused.selection_launches
             k = prepare_fused.selection_cuda(*args, **kw)
-            t = rbf_selection_core(*args, **kw)
-            torch.cuda.synchronize()
+            t, plain_ms = timed(lambda: rbf_selection_core(*args, **kw))
             check(prepare_fused.selection_launches == before + 1, "K2 launch not counted")
             err, lanes = 0.0, torch.zeros(args[0].shape[0], dtype=torch.bool, device="cuda")
             for out, a, b in zip(SEL_NAMES, k, t):
@@ -550,8 +787,7 @@ def phase_kernel_selection(captured):
                                   "lane": b_, "kernel": [o[b_].tolist() for o in k],
                                   "twin": [o[b_].tolist() for o in t]}), flush=True)
             check(not bad, f"K2 {name} {dtype}: {len(bad)} lanes differ from the twin")
-            ms = event_ms(lambda: prepare_fused.selection_cuda(*args, **kw), 20)
-            plain_ms = event_ms(lambda: rbf_selection_core(*args, **kw), 5)
+            ms = event_ms(lambda: prepare_fused.selection_cuda(*args, **kw), 5)
             ops, nbytes = selection_work(args, k)
             bound_ms, bound_by = bound(ops, nbytes, dtype)
             row = dict(set=name, dtype=str(dtype), B=int(args[0].shape[0]),
@@ -560,45 +796,61 @@ def phase_kernel_selection(captured):
                        lanes_differing=len(bad), ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes)
             phase("kernel_selection", **row)
-            if name.startswith("main_path") and dtype == torch.float32:
-                main_row = row
-    return main_row
+            rows[(name.split("_trip")[0].split("_call")[0], dtype)] = row
+    return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)]
 
 
-def phase_kernel_round4(captured):
-    """K3 against its twin on the card; returns the row of the last recorded
-    main-path call (float32)."""
+def phase_kernel_round4(captured, wide_captured):
+    """K3 against its twin on the card; returns the rows of the last
+    recorded call of the RBF main path and of the wide path, float32."""
     from morbit_tpu_torch.models.rbf_round4 import run_round4
     from morbit_tpu_torch.ops import prepare_fused
 
-    def random_set(kernel, deg):
+    def random_set(kernel, deg, B, C, n, maxN, chol_pivot, width=None, rows=None):
         def make(dt):
             X, cand, init, count, param = round4_case(
-                np.random.default_rng(11), B_MAIN, 60, 2, 6, 0.4)
+                np.random.default_rng(11), B, C, n, maxN, 0.4, width)
+            if rows is not None:
+                # candidates only below a database fill count, as the solver
+                # gives them
+                fill = np.random.default_rng(12).integers(n + 1, rows, B)
+                cand &= np.arange(C)[None, :] < fill[:, None]
             f = lambda a: torch.as_tensor(a, dtype=dt, device="cuda")
             kw = dict(kernel=kernel, param=3 if kernel == "cubic" else f(param),
-                      poly_deg=deg, max_points=6, chol_pivot=0.3 if deg == 0 else 0.1)
+                      poly_deg=deg, max_points=maxN, chol_pivot=chol_pivot)
             return (f(X), torch.as_tensor(cand, device="cuda"), f(init),
                     torch.as_tensor(count, dtype=torch.int32, device="cuda")), kw
         return make
 
-    sets = [(f"random_{k}_deg{d}", random_set(k, d), True)
+    def recorded(a, kw):
+        def make(dt):
+            kw2 = dict(kw)
+            if isinstance(kw2["param"], torch.Tensor):
+                kw2["param"] = kw2["param"].to(dt)
+            return tuple(x.to(dt) if x.is_floating_point() else x for x in a), kw2
+        return make
+
+    sets = [(f"random_{k}_deg{d}", random_set(k, d, B_MAIN, 60, 2, 6,
+                                              0.3 if d == 0 else 0.1), True)
             for k, d in (("multiquadric", 1), ("cubic", 1), ("multiquadric", 0))]
-    for t, (a, kw) in zip(CAPTURE_TRIPS, captured):
-        def make(dt, a=a, kw=kw):
-            kw = dict(kw)
-            if isinstance(kw["param"], torch.Tensor):
-                kw["param"] = kw["param"].to(dt)
-            return tuple(x.to(dt) if x.is_floating_point() else x for x in a), kw
-        sets.append((f"main_path_trip{t}", make, False))
-    main_row = None
+    # the wide path's shapes: max_points 231, a 251-row training buffer,
+    # 2310 candidate rows of which those below a fill count of at most 300
+    # (the database of the path's first ~10 trips) are candidates, the
+    # path's pivot (theta_pivot_cholesky = 1e-7)
+    sets.append(("random_wide_cubic_deg1", random_set(
+        "cubic", 1, B_MAIN, 2310, N_WIDE, WIDE_MAX_POINTS, 1e-14,
+        width=WIDE_MAX_POINTS + N_WIDE, rows=300), True))
+    sets += [(f"main_path_trip{t}", recorded(a, kw), False)
+             for t, (a, kw) in zip(CAPTURE_TRIPS, captured)]
+    sets += [(f"wide_path_call{t}", recorded(a, kw), False)
+             for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
+    rows = {}
     for dtype in (torch.float64, torch.float32):
         for name, make, must_reject in sets:
             args, kw = make(dtype)
             before = prepare_fused.round4_launches
             acc_k, N_k = prepare_fused.round4_cuda(*args, **kw)
-            acc_t, N_t = run_round4(*args, **kw)
-            torch.cuda.synchronize()
+            (acc_t, N_t), plain_ms = timed(lambda: run_round4(*args, **kw))
             check(prepare_fused.round4_launches == before + 1, "K3 launch not counted")
             lanes = (acc_k != acc_t).any(-1) | (N_k != N_t)
             bad = lanes.nonzero().flatten().tolist()
@@ -608,23 +860,25 @@ def phase_kernel_round4(captured):
                                   "twin": acc_t[b_].nonzero().flatten().tolist(),
                                   "N": [int(N_k[b_]), int(N_t[b_])]}), flush=True)
             check(not bad, f"K3 {name} {dtype}: {len(bad)} lanes differ from the twin")
+            # a tested candidate (one met while the lane had room) was rejected
+            room = torch.cumsum(acc_t.int(), -1) < kw["max_points"] - args[3][:, None]
+            rejected = int((args[1] & room & ~acc_t).sum())
             if must_reject:
-                check(int(N_t.min()) < kw["max_points"], f"K3 {name}: no rejection")
-            ms = event_ms(lambda: prepare_fused.round4_cuda(*args, **kw), 20)
-            plain_ms = event_ms(lambda: run_round4(*args, **kw), 5)
+                check(rejected > 0, f"K3 {name}: no rejection")
+            ms = event_ms(lambda: prepare_fused.round4_cuda(*args, **kw), 5)
             ops, nbytes = round4_work(args, kw, acc_t, N_t)
             bound_ms, bound_by = bound(ops, nbytes, dtype)
             row = dict(set=name, dtype=str(dtype), B=int(args[0].shape[0]),
-                       C=int(args[0].shape[1]), max_points=kw["max_points"],
-                       kernel=kw["kernel"], poly_deg=kw["poly_deg"],
-                       accepted=int(acc_t.sum()), min_N=int(N_t.min()),
+                       C=int(args[0].shape[1]), n=int(args[0].shape[2]),
+                       max_points=kw["max_points"], kernel=kw["kernel"],
+                       poly_deg=kw["poly_deg"], accepted=int(acc_t.sum()),
+                       rejected=rejected, min_N=int(N_t.min()),
                        max_abs_err=float((N_k - N_t).abs().max()),
                        lanes_differing=len(bad), ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes)
             phase("kernel_round4", **row)
-            if name.startswith("main_path") and dtype == torch.float32:
-                main_row = row
-    return main_row
+            rows[(name.split("_trip")[0].split("_call")[0], dtype)] = row
+    return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)]
 
 
 def _compare_states(card, cpu):
@@ -663,20 +917,15 @@ def _compare_states(card, cpu):
     return diffs
 
 
-def phase_rbf_card_vs_cpu():
-    """The RBF main path at float64 on the card and on the CPU."""
-    from morbit_tpu_torch import STOP_CODE, AlgorithmConfig, multistart_optimize
+def lockstep(make_mop, starts, ac):
+    """Trip by trip at float64: the card's trip from the CPU's state equals
+    the CPU's trip (``_compare_states``). Returns the trips, the seconds and
+    the largest relative differences of the reported floats."""
+    from morbit_tpu_torch import STOP_CODE
     from morbit_tpu_torch.parallel.multistart import build_solver
-    from morbit_tpu_torch.problems.synthetic import halton_starts
-    from morbit_tpu_torch.utils.logging import trajectory_arrays
     from morbit_tpu_torch.utils.tree import tree_map, tree_where
 
-    B = 64
-    starts = halton_starts(B, LB, UB)
-    ac = AlgorithmConfig(max_iter=100, qp_iters=QP_ITERS)
-    on = {d: build_solver(rbf_mop(), ac, torch.float64, d) for d in ("cuda", "cpu")}
-
-    # trip by trip: the card's trip from the CPU's state equals the CPU's trip
+    on = {d: build_solver(make_mop(), ac, torch.float64, d) for d in ("cuda", "cpu")}
     t0 = time.perf_counter()
     state = on["cpu"].initialize(starts)
     diffs = _compare_states(on["cuda"].initialize(starts), state)
@@ -690,7 +939,19 @@ def phase_rbf_card_vs_cpu():
         diffs = {k: max(v, d) for (k, v), d in zip(
             diffs.items(), _compare_states(card, state).values())}
         trips += 1
-    lockstep_s = time.perf_counter() - t0
+    return trips, time.perf_counter() - t0, diffs
+
+
+def phase_rbf_card_vs_cpu():
+    """The RBF main path at float64 on the card and on the CPU."""
+    from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+    from morbit_tpu_torch.utils.logging import trajectory_arrays
+
+    B = 64
+    starts = halton_starts(B, LB, UB)
+    ac = AlgorithmConfig(max_iter=100, qp_iters=QP_ITERS)
+    trips, lockstep_s, diffs = lockstep(rbf_mop, starts, ac)
 
     # freely: lanes whose runs stay alike end alike
     runs = {}
@@ -726,6 +987,147 @@ def phase_rbf_card_vs_cpu():
           seconds_cuda=runs["cuda_s"], seconds_cpu=runs["cpu_s"])
 
 
+def phase_wide_quality_f64():
+    """The wide path's problem on the card at float64, B=4, max_iter=25,
+    under the asserts of tests/test_zdt_quality.py:97-101, beside the JAX
+    package's CPU float64 figures for the same starts."""
+    from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    mop = wide_mop()
+    ac = AlgorithmConfig(max_iter=25, max_evals=1000 * N_WIDE, f_tol_rel=1e-3,
+                         x_tol_rel=1e-3)
+    t0 = time.perf_counter()
+    res = multistart_optimize(mop, halton_starts(4, mop.lb, mop.ub), ac,
+                              dtype=torch.float64)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fe, evals = front_error(res.fx).cpu(), res.n_evals.cpu().double()
+    phase("wide_quality_f64", B=4, n=N_WIDE, max_iter=25, seconds=seconds,
+          trips=res.trips, front_error=fe.tolist(), evals=evals.tolist(),
+          front_error_jax_cpu_f64=[0.0, 0.0, 0.017, 0.361],
+          evals_jax_cpu_f64=[62, 63, 121, 127],
+          stop_codes=res.stop_code.tolist())
+    check(bool(torch.isfinite(res.fx).all()), "non-finite fx")
+    check(float(fe.min()) < 0.01, f"no start reaches the front: {fe.tolist()}")
+    check(float(fe.median()) < 0.5, f"median front error {float(fe.median())} >= 0.5")
+    check(float(evals.median()) <= 200, f"median evals {float(evals.median())} > 200")
+    check(float(evals.max()) <= 400, f"max evals {float(evals.max())} > 400")
+
+
+def phase_wide_card_vs_cpu():
+    """ZDT1 at n=10 (cubic RBF, float64, B=8, max_iter=10) on the card and on
+    the CPU, trip by trip from the same state: the wide instances of K1
+    (nv=11, m=22), K2 and K3 (max_points 66) at float64 against the twins'
+    run on the CPU."""
+    from morbit_tpu_torch import AlgorithmConfig
+    from morbit_tpu_torch.models.configs import RbfConfig
+    from morbit_tpu_torch.problems.synthetic import halton_starts, make_zdt
+
+    make = lambda: make_zdt("zdt1", 10, model_cfg=RbfConfig(kernel="cubic"))
+    mop = make()
+    ac = AlgorithmConfig(max_iter=10, max_evals=1000 * 10, f_tol_rel=1e-3,
+                         x_tol_rel=1e-3, qp_iters=QP_ITERS)
+    trips, seconds, diffs = lockstep(make, halton_starts(8, mop.lb, mop.ub), ac)
+    phase("wide_card_vs_cpu", B=8, n=10, dtype="float64", max_iter=10,
+          lockstep_trips=trips, lockstep_s=seconds,
+          lockstep_rho_max_rel_diff=diffs["rho"], lockstep_fit_max_rel_diff=diffs["fit"])
+
+
+def gram_work(B, P, n, itemsize):
+    """(operations, bytes) of one K4 call: per entry 2n for the cross term
+    and ~8 for r^2, phi and the select; the sites and mask read once, the
+    (B, P, P) Gram written once."""
+    return B * P * P * (2 * n + 8), B * P * n * itemsize + B * P + B * itemsize + B * P * P * itemsize
+
+
+def phase_kernel_gram(wide_captured):
+    """K4 against its twin on the card: B=1024 random cases at (P, n) =
+    (134, 14) and (251, 20), all five kernels, ~70 % valid rows, and the
+    inputs the wide path gave it; max|diff| / max|Phi| within 1e-12
+    (float64) or 1e-5 (float32). Returns the row of the last recorded call."""
+    from morbit_tpu_torch.ops import dense_kernels
+    from morbit_tpu_torch.ops.rbf import EXPONENT_KERNELS, RBF_KERNELS, kernel_default_param
+
+    def random_set(kernel, P, n):
+        def make(dt):
+            sites, mask, param = gram_case(np.random.default_rng(P + n), B_MAIN, P, n)
+            f = lambda a: torch.as_tensor(a, dtype=dt, device="cuda")
+            par = kernel_default_param(kernel) if kernel in EXPONENT_KERNELS else f(param)
+            return f(sites), torch.as_tensor(mask, device="cuda"), kernel, par
+        return make
+
+    def recorded(a):
+        return lambda dt: (a[0].to(dt), a[1], a[2],
+                           a[3].to(dt) if isinstance(a[3], torch.Tensor) else a[3])
+
+    sets = [(f"random_{k}_P{P}_n{n}", random_set(k, P, n))
+            for P, n in ((134, 14), (251, N_WIDE)) for k in RBF_KERNELS]
+    sets += [(f"wide_path_call{t}", recorded(a))
+             for t, (a, _) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
+    row = None
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for name, make in sets:
+            args = make(dtype)
+            before = dense_kernels.gram_launches
+            k = dense_kernels.rbf_gram_cuda(*args)
+            t, plain_ms = timed(lambda: dense_kernels.rbf_gram_matrix_plain(*args))
+            check(dense_kernels.gram_launches == before + 1, "K4 launch not counted")
+            err = float((k - t).abs().max()) / float(t.abs().max())
+            check(err <= tol, f"K4 {name} {dtype}: max|diff| / max|Phi| = {err} > {tol}")
+            ms = event_ms(lambda: dense_kernels.rbf_gram_cuda(*args), 10)
+            B, P, n = args[0].shape
+            ops, nbytes = gram_work(B, P, n, args[0].element_size())
+            bound_ms, bound_by = bound(ops, nbytes, dtype)
+            row = dict(set=name, dtype=str(dtype), B=B, P=P, n=n, kernel=args[2],
+                       valid_rows=int(args[1].sum()), max_abs_err=err, tol=tol, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       ops=ops, bytes=nbytes)
+            phase("kernel_gram", **row)
+    return row
+
+
+def admm_iterations_work(B, n, m, iters, itemsize):
+    """(operations, bytes) of one K5 call, counted from the kernel's loops:
+    per step n(4m + 3) for the right-hand side, 2n^2 for M^-1 rhs, 2mn for
+    A xt, 3n and 10m for the updates; the operands read once, z/zz/y
+    written once."""
+    ops = B * iters * (n * (4 * m + 3) + 2 * n * n + 2 * m * n + 3 * n + 10 * m)
+    return ops, B * itemsize * (n * n + m * n + 5 * m + 2 * n + n + 2 * m)
+
+
+def phase_kernel_admm_iterations():
+    """K5 against its twin on the card: B=1024, (n, m) = (3, 6) and
+    (21, 42), 100 steps, float64 and float32; max|diff| within 1e-10
+    (float64) or 1e-4 (float32) times max(1, max|twin|). Returns the
+    float32 (21, 42) row. No path calls K5."""
+    from morbit_tpu_torch.ops import dense_kernels
+
+    kw = dict(iters=100, sigma=1e-6, alpha=1.6)
+    row = None
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        for n, m in ((3, 6), (21, 42)):
+            args = [torch.as_tensor(a, dtype=dtype, device="cuda")
+                    for a in admm_iterations_case(B_MAIN, n, m, seed=n)]
+            before = dense_kernels.admm_iterations_launches
+            k = dense_kernels.admm_iterations_cuda(*args, **kw)
+            t, plain_ms = timed(lambda: dense_kernels.admm_iterations_plain(*args, **kw))
+            check(dense_kernels.admm_iterations_launches == before + 1,
+                  "K5 launch not counted")
+            err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                      for a, b in zip(k, t))
+            check(err <= tol, f"K5 n={n} m={m} {dtype}: {err} > {tol}")
+            ms = event_ms(lambda: dense_kernels.admm_iterations_cuda(*args, **kw), 10)
+            ops, nbytes = admm_iterations_work(B_MAIN, n, m, kw["iters"],
+                                               args[0].element_size())
+            bound_ms, bound_by = bound(ops, nbytes, dtype)
+            row = dict(n=n, m=m, dtype=str(dtype), B=B_MAIN, iters=kw["iters"],
+                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes)
+            phase("kernel_admm_iterations", **row)
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -735,10 +1137,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
-    admm_row = phase_kernel_admm()
-    launches, captured = phase_rbf_main_path()
-    sel_row = phase_kernel_selection(captured["selection"])
-    r4_row = phase_kernel_round4(captured["round4"])
+    rbf_launches, captured = phase_rbf_main_path()
+    wide_launches, wide_captured = phase_wide_main_path(B_WIDE)
+    admm_rows = phase_kernel_admm(wide_captured["qp_admm"])
+    sel_rows = phase_kernel_selection(captured["selection"], wide_captured["selection"])
+    r4_rows = phase_kernel_round4(captured["round4"], wide_captured["round4"])
+    gram_row = phase_kernel_gram(wide_captured["gram"])
+    k5_row = phase_kernel_admm_iterations()
+    phase_wide_quality_f64()
+    phase_wide_card_vs_cpu()
     phase_rbf_card_vs_cpu()
     phase_card_vs_cpu()
     phase_main_path()
@@ -747,20 +1154,31 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    rows = [("qp_admm", admm_row, "morbit_tpu_torch/csrc/qp_admm.cu",
+    # per kernel: its row on the wide path (this slice's path), and for K1-K3
+    # also on the RBF main path; K5 has no caller
+    rows = [("qp_admm", admm_rows, "morbit_tpu_torch/csrc/qp_admm.cu",
              "morbit_tpu/ops/qp_lane.py:289"),
-            ("rbf_selection", sel_row, "morbit_tpu_torch/csrc/rbf_selection.cu",
+            ("rbf_selection", sel_rows, "morbit_tpu_torch/csrc/rbf_selection.cu",
              "morbit_tpu/ops/prepare_fused.py:167"),
-            ("rbf_round4", r4_row, "morbit_tpu_torch/csrc/rbf_round4.cu",
-             "morbit_tpu/ops/prepare_fused.py:276")]
-    for name, row, _, _ in rows:
-        check(row is not None and math.isfinite(row["ms"]), f"no main-path row for {name}")
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches[name], "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
-    } for name, row, source, replaces in rows]}), flush=True)
+            ("rbf_round4", r4_rows, "morbit_tpu_torch/csrc/rbf_round4.cu",
+             "morbit_tpu/ops/prepare_fused.py:276"),
+            ("rbf_gram", (None, gram_row), "morbit_tpu_torch/csrc/rbf_gram.cu",
+             "morbit_tpu/ops/pallas_kernels.py:71"),
+            ("admm_iterations", (None, k5_row), "morbit_tpu_torch/csrc/admm_iterations.cu",
+             "morbit_tpu/ops/pallas_kernels.py:127")]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    table = []
+    for name, (main_row, row), source, replaces in rows:
+        check(row is not None and math.isfinite(row["ms"]), f"no row for {name}")
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "path": "wide_main_path" if name in wide_launches else None,
+                 "launches": wide_launches.get(name, 0),
+                 **{k: row[k] for k in keys}, "library_ms": None}
+        if main_row is not None:
+            entry["rbf_main_path"] = {"launches": rbf_launches[name],
+                                      **{k: main_row[k] for k in keys}}
+        table.append(entry)
+    print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

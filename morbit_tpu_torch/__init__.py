@@ -3,16 +3,19 @@
 A port of the JAX package ``morbit_tpu`` (which stays the reference) to
 PyTorch on NVIDIA GPUs. The state of every run carries a leading lane axis,
 so a batch of starts is one batched solve (:func:`multistart_optimize`) and
-a single :func:`optimize` run is the batch of one. Three hand-written CUDA
-kernels carry the main path, each built with ``nvcc`` at first use: the
-ADMM that solves the trust-region LPs (``csrc/qp_admm.cu``) and the RBF
+a single :func:`optimize` run is the batch of one. Hand-written CUDA
+kernels, each built with ``nvcc`` at first use, carry the solver: the ADMM
+that solves the trust-region LPs (``csrc/qp_admm.cu``), the RBF
 training-site selection, rounds 1-3 (``csrc/rbf_selection.cu``) and round 4
-(``csrc/rbf_round4.cu``).
+(``csrc/rbf_round4.cu``), and the RBF Gram matrix of wide problems
+(``csrc/rbf_gram.cu``); ``csrc/admm_iterations.cu`` ports the one Pallas
+kernel that no path calls.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 a CUDA device the default raises. Ported so far: exact and RBF objectives,
 steepest descent, the unconstrained trust-region loop with criticality
-micro-steps, and the plain batched multistart runner.
+micro-steps, the plain batched multistart runner and the ZDT/DTLZ
+benchmark problems.
 """
 
 from morbit_tpu_torch.core.algorithm import OptimizeResult, optimize

@@ -17,7 +17,9 @@
 // live in registers: NV and M are template parameters, instantiated for the
 // shapes the solver meets (nv=3/m=6: the steepest-descent LP of a 2-variable
 // problem; nv=4/m=8: of a 3-variable problem), and a generic instance with
-// runtime sizes up to 8 x 24 covers the rest from local memory.
+// runtime sizes up to 32 x 64 covers the rest from local memory (nv=21/m=42:
+// the LP of the 20-variable ZDT path), its loops rolled and one warp per
+// block.
 //
 // Bound on an H100: the work is ~165 flops per splitting step per lane at
 // nv=3/m=6, ~66 kflop per lane for a 400-step solve, ~68 Mflop per launch
@@ -32,9 +34,12 @@
 
 namespace {
 
-constexpr int kMaxNV = 8;
-constexpr int kMaxM = 24;
+constexpr int kMaxNV = 32;
+constexpr int kMaxM = 64;
 constexpr int kThreads = 128;
+// the generic instance runs one warp per block, so B=1024 lanes spread over
+// 32 SMs instead of 8
+constexpr int kGenericThreads = 32;
 
 // NaN-propagating max/clip: jnp.maximum and jnp.clip propagate NaN, fmax
 // does not.
@@ -60,26 +65,26 @@ __device__ __forceinline__ double dabs(double x) { return fabs(x); }
 
 // Unrolled Cholesky of the lower triangle of M (same order as
 // ops.batched_linalg.chol_factor); returns whether every entry is finite.
-template <typename T, int NVC>
+template <typename T, int NVC, int NV_T>
 __device__ __forceinline__ bool chol(const T (&M)[NVC][NVC], T (&L)[NVC][NVC],
                                      int nv) {
   bool ok = true;
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
   for (int j = 0; j < NVC; ++j) {
     if (j >= nv) break;
     T s = M[j][j];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
     for (int t = 0; t < NVC; ++t) {
       if (t >= j) break;
       s = s - L[j][t] * L[j][t];
     }
     L[j][j] = dsqrt(s);
     ok = ok && finite(L[j][j]);
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
     for (int i = 0; i < NVC; ++i) {
       if (i <= j || i >= nv) continue;
       T s2 = M[i][j];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int t = 0; t < NVC; ++t) {
         if (t >= j) break;
         s2 = s2 - L[i][t] * L[j][t];
@@ -111,18 +116,18 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
 
   T Pk[NVC][NVC], qk[NVC], Ak[MC][NVC], lk[MC], uk[MC], rho[MC];
   T z[NVC], zz[MC], y[MC];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
   for (int i = 0; i < NVC; ++i) {
     if (i >= nv) break;
     qk[i] = q[(size_t)b * nv + i];
     z[i] = T(0);
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
     for (int j = 0; j < NVC; ++j) {
       if (j >= nv) break;
       Pk[i][j] = P[((size_t)b * nv + i) * nv + j];
     }
   }
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
   for (int r = 0; r < MC; ++r) {
     if (r >= m) break;
     lk[r] = l[(size_t)b * m + r];
@@ -130,7 +135,7 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
     rho[r] = rho0[(size_t)b * m + r];
     zz[r] = clip(T(0), lk[r], uk[r]);
     y[r] = T(0);
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
     for (int i = 0; i < NVC; ++i) {
       if (i >= nv) break;
       Ak[r][i] = A[((size_t)b * m + r) * nv + i];
@@ -141,14 +146,14 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
   for (int stage = 0; stage < n_stages; ++stage) {
     // ---- M = P + sigma I + A' diag(rho) A (lower triangle, mirrored)
     T M[NVC][NVC];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
     for (int i = 0; i < NVC; ++i) {
       if (i >= nv) break;
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int j = 0; j < NVC; ++j) {
         if (j > i) break;
         T acc = Pk[i][j] + (i == j ? sigma : T(0));
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int r = 0; r < MC; ++r) {
           if (r >= m) break;
           acc = acc + Ak[r][i] * rho[r] * Ak[r][j];
@@ -158,34 +163,34 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
       }
     }
     T L[NVC][NVC];
-    const bool ok = chol<T, NVC>(M, L, nv);
+    const bool ok = chol<T, NVC, NV_T>(M, L, nv);
     if (!ok) {  // jittered refactorization on breakdown
       T tr = M[0][0];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int i = 1; i < NVC; ++i) {
         if (i >= nv) break;
         tr = tr + M[i][i];
       }
       const T jit = T(1e-3) * (tr / T(nv) + T(1));
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int i = 0; i < NVC; ++i) {
         if (i >= nv) break;
         M[i][i] = M[i][i] + jit;
       }
-      chol<T, NVC>(M, L, nv);
+      chol<T, NVC, NV_T>(M, L, nv);
     }
 
     // ---- Minv = L^-T L^-1 and 1/rho, once per stage
     T Li[NVC][NVC];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
     for (int j = 0; j < NVC; ++j) {
       if (j >= nv) break;
       Li[j][j] = T(1) / L[j][j];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int i = 0; i < NVC; ++i) {
         if (i <= j || i >= nv) continue;
         T s = L[i][j] * Li[j][j];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int t = 0; t < NVC; ++t) {
           if (t <= j) continue;
           if (t >= i) break;
@@ -195,14 +200,14 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
       }
     }
     T Mi[NVC][NVC];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
     for (int i = 0; i < NVC; ++i) {
       if (i >= nv) break;
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int j = 0; j < NVC; ++j) {
         if (j > i) break;
         T acc = Li[i][i] * Li[i][j];  // t = max(i, j) = i
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int t = 0; t < NVC; ++t) {
           if (t <= i) continue;
           if (t >= nv) break;
@@ -213,7 +218,7 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
       }
     }
     T rinv[MC];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
     for (int r = 0; r < MC; ++r) {
       if (r >= m) break;
       rinv[r] = T(1) / rho[r];
@@ -222,17 +227,17 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
     // ---- n_steps splitting iterations
     for (int step = 0; step < n_steps; ++step) {
       T t1[MC];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int r = 0; r < MC; ++r) {
         if (r >= m) break;
         t1[r] = rho[r] * zz[r] - y[r];
       }
       T rhs[NVC];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int i = 0; i < NVC; ++i) {
         if (i >= nv) break;
         T acc = sigma * z[i] - qk[i];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int r = 0; r < MC; ++r) {
           if (r >= m) break;
           acc = acc + Ak[r][i] * t1[r];
@@ -240,27 +245,27 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
         rhs[i] = acc;
       }
       T xt[NVC];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int i = 0; i < NVC; ++i) {
         if (i >= nv) break;
         T acc = Mi[i][0] * rhs[0];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int j = 1; j < NVC; ++j) {
           if (j >= nv) break;
           acc = acc + Mi[i][j] * rhs[j];
         }
         xt[i] = acc;
       }
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int i = 0; i < NVC; ++i) {
         if (i >= nv) break;
         z[i] = alpha * xt[i] + one_m_alpha * z[i];
       }
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int r = 0; r < MC; ++r) {
         if (r >= m) break;
         T zt = Ak[r][0] * xt[0];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int i = 1; i < NVC; ++i) {
           if (i >= nv) break;
           zt = zt + Ak[r][i] * xt[i];
@@ -275,11 +280,11 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
     // ---- residuals -> rho rescale (next stage's factorization)
     if (stage + 1 < n_stages) {
       T pr = T(0);
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int r = 0; r < MC; ++r) {
         if (r >= m) break;
         T Az = Ak[r][0] * z[0];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int i = 1; i < NVC; ++i) {
           if (i >= nv) break;
           Az = Az + Ak[r][i] * z[i];
@@ -287,16 +292,16 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
         pr = nan_max(pr, dabs(Az - zz[r]));
       }
       T dr = T(0);
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int i = 0; i < NVC; ++i) {
         if (i >= nv) break;
         T g = qk[i];
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int j = 0; j < NVC; ++j) {
           if (j >= nv) break;
           g = g + Pk[i][j] * z[j];
         }
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
         for (int r = 0; r < MC; ++r) {
           if (r >= m) break;
           g = g + Ak[r][i] * y[r];
@@ -305,7 +310,7 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
       }
       T scale = dsqrt(nan_max(pr, T(1e-30)) / nan_max(dr, T(1e-30)));
       scale = clip(scale, T(0.1), T(10));
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
       for (int r = 0; r < MC; ++r) {
         if (r >= m) break;
         rho[r] = clip(rho[r] * scale, rho_lo, rho_hi);
@@ -313,12 +318,12 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
     }
   }
 
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
   for (int i = 0; i < NVC; ++i) {
     if (i >= nv) break;
     z_out[(size_t)b * nv + i] = z[i];
   }
-#pragma unroll
+#pragma unroll (NV_T > 0 ? 64 : 1)
   for (int r = 0; r < MC; ++r) {
     if (r >= m) break;
     zz_out[(size_t)b * m + r] = zz[r];
@@ -334,6 +339,7 @@ int launch(const T* P, const T* q, const T* A, const T* l, const T* u,
   if (B <= 0) return 0;
   if (nv < 1 || m < 1 || nv > kMaxNV || m > kMaxM) return cudaErrorInvalidValue;
   const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
+  const dim3 grid_g((B + kGenericThreads - 1) / kGenericThreads), block_g(kGenericThreads);
   const T s = T(sigma), a = T(alpha), lo = T(rho_lo), hi = T(rho_hi);
   if (nv == 3 && m == 6) {
     qp_admm_kernel<T, 3, 6><<<grid, block, 0, stream>>>(
@@ -342,7 +348,7 @@ int launch(const T* P, const T* q, const T* A, const T* l, const T* u,
     qp_admm_kernel<T, 4, 8><<<grid, block, 0, stream>>>(
         P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi);
   } else {
-    qp_admm_kernel<T, 0, 0><<<grid, block, 0, stream>>>(
+    qp_admm_kernel<T, 0, 0><<<grid_g, block_g, 0, stream>>>(
         P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi);
   }
   return (int)cudaGetLastError();

@@ -23,7 +23,8 @@
 // the lane and row strides instead of a copy. At most n picks are accepted per
 // round, so the picked rows are a list of indices, not a cap-long mask. The n x n
 // matrices Y, Z and the Householder Q live in registers (n = 2, 3) or local
-// memory (the generic instance, n <= 10).
+// memory (the generic instance, n <= 32, one warp per block so that B=1024
+// lanes spread over 32 SMs; sized for n = 32, ~50 KB a thread at float64).
 //
 // Bound on the H100: per lane the work is a few scans of its valid rows, each
 // O(n^2) operations per row, and the bytes are the valid rows read once; both
@@ -42,7 +43,7 @@
 
 namespace {
 
-constexpr int MAX_N = 10;
+constexpr int MAX_N = 32;
 
 template <typename T>
 __device__ __forceinline__ T pmax(T a, T b) {
@@ -374,7 +375,7 @@ int launch(const T* X, long long lane_stride, long long row_stride, const int* c
            double theta_e1, double theta_e2_dmax, double theta_pivot, double delta_max,
            int skip2_same_theta, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 128;
+  const int threads = (n == 2 || n == 3) ? 128 : 32;
   const int blocks = (B + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MORBIT_SEL_ARGS                                                              \

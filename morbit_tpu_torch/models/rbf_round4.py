@@ -9,7 +9,8 @@ factor of ``Z' Phi Z`` stays bounded:
     tau^2 = sigma - ||L^-1 v||^2  >  theta_pivot_cholesky^4
 
 with the Givens update of the polynomial block's QR factor and rank-1
-updates of ``Z``, ``L``, ``L^-1`` and ``Phi`` (``:429-494``).
+updates of ``Z``, ``L^-1`` and ``Phi`` (``:429-494``; the factor ``L``
+itself is never read by the test, so it is not kept).
 
 :func:`run_round4` is the batched plain version of the CUDA kernel K3
 (``morbit_tpu_torch/csrc/rbf_round4.cu``). It scans the candidates in order
@@ -111,11 +112,12 @@ def run_round4(X, cand, init_sites, n_init, kernel: str, param,
     sites = init_sites
     Z = torch.zeros((B, maxN, maxN), dtype=dtype, device=dev)
     zc = torch.zeros((B,), dtype=torch.int32, device=dev)
-    L = eye.expand(B, maxN, maxN)
     Linv = eye.expand(B, maxN, maxN)
     accepted = torch.zeros((B, C), dtype=torch.bool, device=dev)
 
-    for c in range(C):
+    # a column that is no lane's candidate changes nothing: scan only the
+    # others (one host sync)
+    for k, c in enumerate(cand.any(0).nonzero().flatten().tolist()):
         xi = X[:, c]
         # ---- tau^2 of candidate c against the current state
         diff = sites - xi[:, None, :]
@@ -180,8 +182,6 @@ def run_round4(X, cand, init_sites, n_init, kernel: str, param,
             Rn = torch.where(hitN[..., None], row[:, None, :], R_rot)
         zcol = torch.where(hitN, ghat[:, None], Qg)
         Zn = torch.where(hitZ[:, None, :], zcol[:, :, None], Z)
-        Ln = torch.where(hitZ[:, :, None], torch.where(zmask, Lv, zero)[:, None, :], L)
-        Ln = torch.where(hitZ[:, :, None] & hitZ[:, None, :], tau[:, None, None], Ln)
         linv_row = -_mv(Linv.transpose(-1, -2), Lv) / tau[:, None]
         Linvn = torch.where(hitZ[:, :, None],
                             torch.where(zmask, linv_row, zero)[:, None, :], Linv)
@@ -197,10 +197,13 @@ def run_round4(X, cand, init_sites, n_init, kernel: str, param,
         Q = torch.where(sel, Qn, Q)
         R = torch.where(sel, Rn, R)
         Z = torch.where(sel, Zn, Z)
-        L = torch.where(sel, Ln, L)
         Linv = torch.where(sel, Linvn, Linv)
         Phi = torch.where(sel, Phin, Phi)
         N = torch.where(ok, N + 1, N)
         zc = torch.where(ok, zc + 1, zc)
         accepted[:, c] = ok
+        # once every lane is full no later candidate can pass (one host sync
+        # per 16 scanned columns)
+        if k % 16 == 15 and not bool((N < max_points).any()):
+            break
     return accepted, N

@@ -13,6 +13,10 @@ import torch
 
 #: unrolled solves are used up to this size (``GJ_MAX_K`` of the JAX package)
 GJ_MAX_K = 24
+#: the blocked Gauss-Jordan covers the mid-size band above it (RBF KKT
+#: systems of the wide-n path: k = 272 at n = 20), with panels of GJ_PANEL
+BLOCKED_GJ_MAX_K = 512
+GJ_PANEL = 16
 
 
 def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -48,20 +52,67 @@ def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     return gj_solve(A, eye.expand(A.shape))
 
 
+def blocked_gj_solve(A: torch.Tensor, b: torch.Tensor,
+                     r: int = GJ_PANEL) -> torch.Tensor:
+    """Blocked Gauss-Jordan with partial pivoting for mid-size systems
+    (``blocked_gj_solve``, ``batched_linalg.py:77-132`` of the JAX package,
+    same order of operations). ``A``: (B, k, k); ``b``: (B, k) or (B, k, m).
+
+    Panels of ``r`` columns are eliminated at once: an unrolled pass over
+    the ``(k, r)`` panel picks its ``r`` pivot rows, then the identity
+    ``M <- M - F D^-1 M_S`` (``F`` the panel, ``D`` its pivot block, ``S``
+    the pivot rows) applies the whole panel as two rank-``r`` products, with
+    one-hot products standing in for row gathers. Singular systems give
+    inf/nan, like LU."""
+    B, k = A.shape[0], A.shape[-1]
+    vec = b.dim() == A.dim() - 1
+    M = torch.cat([A, b[..., None] if vec else b], dim=-1)   # (B, k, k+m)
+    dtype, dev = A.dtype, A.device
+    rows = torch.arange(k, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    neg_one = torch.tensor(-1.0, dtype=dtype, device=dev)
+    avail = torch.ones((B, k), dtype=torch.bool, device=dev)
+    all_onehots = []
+    for p0 in range(0, k, r):
+        rc = min(r, k - p0)
+        F = M[..., p0:p0 + rc]                           # original panel (B, k, rc)
+        # ---- within-panel Gauss-Jordan: pivot selection only
+        P = F
+        onehots = []
+        for c in range(rc):
+            colv = torch.where(avail, P[..., c].abs(), neg_one)
+            oh = rows == torch.argmax(colv, dim=-1)[:, None]      # (B, k)
+            onehots.append(oh)
+            avail = avail & ~oh
+            pivrow = torch.where(oh[..., None], P, zero).sum(-2)  # (B, rc)
+            pivrow = pivrow / pivrow[:, c:c + 1]
+            P = torch.where(oh[..., None], pivrow[:, None, :],
+                            P - P[..., c:c + 1] * pivrow[:, None, :])
+        OH = torch.stack(onehots, dim=1).to(dtype)       # (B, rc, k)
+        all_onehots.append(OH)
+        # ---- block elimination of the whole panel
+        PivRows = OH @ M                                 # (B, rc, k+m) original rows
+        Dinv = gj_inverse(PivRows[..., p0:p0 + rc])      # (B, rc, rc)
+        any_oh = OH.sum(1) > 0.5                         # (B, k)
+        E = torch.where(any_oh[..., None], zero, F @ Dinv)      # (B, k, rc)
+        M = M - E @ PivRows
+        M = torch.where(any_oh[..., None], OH.transpose(-1, -2) @ (Dinv @ PivRows), M)
+    X = torch.cat(all_onehots, dim=1) @ M[..., k:]       # row j -> pivot j
+    return X[..., 0] if vec else X
+
+
 def solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Size and dtype dispatch (``solve_small``, ``batched_linalg.py:135-148``
-    of the JAX package): unrolled Gauss-Jordan at <= 32 bits and
-    ``k <= GJ_MAX_K``, LU (``torch.linalg.solve``) at 64 bits. Exactly
-    singular systems give nan, like LU in the JAX package, instead of
-    raising. A 32-bit system with ``k > GJ_MAX_K`` needs the blocked
-    Gauss-Jordan of the wide-n slice and raises."""
+    of the JAX package): at <= 32 bits the unrolled Gauss-Jordan for
+    ``k <= GJ_MAX_K`` and the blocked one for ``k <= BLOCKED_GJ_MAX_K``; LU
+    (``torch.linalg.solve``) otherwise. Exactly singular systems give nan,
+    like LU in the JAX package, instead of raising."""
     k = A.shape[-1]
     if torch.finfo(A.dtype).bits <= 32:
         if k <= GJ_MAX_K:
             return gj_solve(A, b)
-        raise NotImplementedError(
-            f"a {k}x{k} system at {A.dtype} needs the blocked Gauss-Jordan "
-            f"solve of the wide-n slice (k <= {GJ_MAX_K} is ported)")
+        if k <= BLOCKED_GJ_MAX_K:
+            return blocked_gj_solve(A, b)
     vec = b.dim() == A.dim() - 1
     x, info = torch.linalg.solve_ex(A, b[..., None] if vec else b)
     x = torch.where((info != 0).reshape(info.shape + (1, 1)),

@@ -37,8 +37,11 @@ def nvcc() -> str:
 
 
 def library_path(source: pathlib.Path, extra_flags=()) -> pathlib.Path:
-    """Where the shared library for this source and these flags lives."""
+    """Where the shared library for this source, the shared headers of
+    ``csrc/`` and these flags lives."""
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
@@ -72,14 +75,15 @@ def build(source: pathlib.Path, extra_flags=()) -> tuple[pathlib.Path, str]:
 
 def load(source: pathlib.Path, signatures: dict, extra_flags=()) -> ctypes.CDLL:
     """Build ``source`` if needed and load it; ``signatures`` maps each
-    exported function to its ``argtypes`` (every function returns the
-    launch's ``cudaError_t`` as an int)."""
+    exported function to its ``argtypes`` (a launch, returning its
+    ``cudaError_t`` as an int) or to ``(argtypes, restype)``."""
     path, _ = build(source, extra_flags)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in signatures.items():
+    for name, spec in signatures.items():
+        argtypes, restype = spec if isinstance(spec, tuple) else (spec, ctypes.c_int)
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib
 
 

@@ -25,7 +25,7 @@ import torch
 from morbit_tpu_torch.models.rbf_round4 import run_round4
 from morbit_tpu_torch.ops import cuda_build
 from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
-from morbit_tpu_torch.ops.rbf import poly_dim
+from morbit_tpu_torch.ops.rbf import KERNEL_ID, phi_constants, poly_dim
 
 SELECTION_SOURCE = cuda_build.CSRC / "rbf_selection.cu"
 ROUND4_SOURCE = cuda_build.CSRC / "rbf_round4.cu"
@@ -34,18 +34,17 @@ ROUND4_SOURCE = cuda_build.CSRC / "rbf_round4.cu"
 #: the two box exits of a direction) fall the same way on both
 NO_FMA = ("--fmad=false",)
 
-#: largest sizes the kernels' per-thread arrays take
-SELECTION_MAX_N = 10
+#: largest sizes the kernels take: K2's per-thread arrays; K3's
+#: thread-per-lane instance, and its block-per-lane instance whose state
+#: lives in a workspace (the wide-n path: max_points = 231 at n = 20)
+SELECTION_MAX_N = 32
 ROUND4_MAX_POINTS, ROUND4_MAX_PD, ROUND4_MAX_N = 24, 16, 15
+ROUND4_WIDE_MAX_POINTS, ROUND4_WIDE_MAX_N = 512, 32
 
 #: kernel launches since the counters were last set to 0 (each wrapper adds
 #: one per launch; callers reset them to prove a run went through a kernel)
 selection_launches = 0
 round4_launches = 0
-
-#: kernel ids of ``csrc/rbf_round4.cu``
-_KERNEL_ID = {"cubic": 0, "multiquadric": 1, "inv_multiquadric": 2,
-              "gaussian": 3, "thin_plate_spline": 4}
 
 _libs = {}
 
@@ -56,6 +55,15 @@ _ROUND4_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
                     + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                     + [ctypes.c_double] * 3 + [ctypes.c_void_p])
+# the block-per-lane instance takes its workspace after N_out
+_ROUND4_WIDE_ARGTYPES = _ROUND4_ARGTYPES[:10] + [ctypes.c_void_p] + _ROUND4_ARGTYPES[10:]
+_SIGNATURES = {
+    SELECTION_SOURCE: {f"rbf_selection_{t}": _SELECTION_ARGTYPES for t in ("f32", "f64")},
+    ROUND4_SOURCE: {**{f"rbf_round4_{t}": _ROUND4_ARGTYPES for t in ("f32", "f64")},
+                    **{f"rbf_round4_wide_{t}": _ROUND4_WIDE_ARGTYPES
+                       for t in ("f32", "f64")},
+                    "rbf_round4_wide_lane_elems": ([ctypes.c_int] * 3, ctypes.c_longlong)},
+}
 
 
 def build_selection():
@@ -66,10 +74,9 @@ def build_round4():
     return cuda_build.build(ROUND4_SOURCE, NO_FMA)
 
 
-def _library(source, stem, argtypes):
+def _library(source):
     if source not in _libs:
-        _libs[source] = cuda_build.load(
-            source, {f"{stem}_f32": argtypes, f"{stem}_f64": argtypes}, NO_FMA)
+        _libs[source] = cuda_build.load(source, _SIGNATURES[source], NO_FMA)
     return _libs[source]
 
 
@@ -112,7 +119,7 @@ def selection_cuda(X, count, x_s, x_index, delta, lb_s, ub_s, max_new, efl, *,
     outs = (new((B, n), i32), new((B,), i32), new((B, n), i32), new((B,), i32),
             new((B, n, n), dt), new((B, n), torch.bool), new((B,), i32),
             new((B, n, n), dt), new((B,), i32), new((B,), torch.bool))
-    lib = _library(SELECTION_SOURCE, "rbf_selection", _SELECTION_ARGTYPES)
+    lib = _library(SELECTION_SOURCE)
     fn = lib.rbf_selection_f32 if dt == torch.float32 else lib.rbf_selection_f64
     p = cuda_build.ptr
     err = fn(p(X), lane_stride, row_stride, p(count), p(x_s), p(x_index),
@@ -137,32 +144,23 @@ def selection(X, count, x_s, x_index, delta, lb_s, ub_s, max_new, efl, **statics
 
 # ----------------------------------------------------------------- K3: round 4
 
-def _phi_constants(kernel, static_param):
-    """(exponent, coefficient) of the exponent kernels, as ``apply_kernel``
-    computes them; unused by the smooth kernels."""
-    if kernel == "cubic":
-        k = float(static_param)
-        return k / 2.0, (-1.0) ** -(-k // 2)
-    if kernel == "thin_plate_spline":
-        k = int(static_param)
-        return float(k), 0.5 * ((-1.0) ** (k + 1))
-    return 0.0, 0.0
-
-
 def round4_cuda(X, cand, init_sites, n_init, *, kernel, param, poly_deg,
                 max_points, chol_pivot):
     """Launch the ``rbf_round4`` kernel on the current stream; arguments and
     outputs as :func:`run_round4`, whose state buffers the kernel sizes to
-    ``max_points`` (rows past the count are padding in both)."""
+    ``max_points`` (rows past the count are padding in both). The
+    thread-per-lane instance takes ``max_points <= 24``; the block-per-lane
+    instance, whose state the wrapper allocates, takes the rest up to
+    ``ROUND4_WIDE_MAX_POINTS``."""
     global round4_launches
     B, C, n = X.shape
     pd = poly_dim(n, poly_deg)
-    if (max_points > ROUND4_MAX_POINTS or pd > ROUND4_MAX_PD
-            or n > ROUND4_MAX_N):
+    narrow = (max_points <= ROUND4_MAX_POINTS and pd <= ROUND4_MAX_PD
+              and n <= ROUND4_MAX_N)
+    if not narrow and (max_points > ROUND4_WIDE_MAX_POINTS or n > ROUND4_WIDE_MAX_N):
         raise NotImplementedError(
-            f"rbf_round4 kernel takes max_points <= {ROUND4_MAX_POINTS}, "
-            f"n <= {ROUND4_MAX_N} and a tail of <= {ROUND4_MAX_PD}, got "
-            f"max_points={max_points}, n={n}, pd={pd}")
+            f"rbf_round4 kernel takes max_points <= {ROUND4_WIDE_MAX_POINTS} and "
+            f"n <= {ROUND4_WIDE_MAX_N}, got max_points={max_points}, n={n}")
     dt = cuda_build.float_dtype("rbf_round4", X)
     lane_stride, row_stride = _site_view("rbf_round4", X, B, C, n, dt)
     static = isinstance(param, (int, float))
@@ -172,17 +170,23 @@ def round4_cuda(X, cand, init_sites, n_init, *, kernel, param, poly_deg,
     cuda_build.check_args("rbf_round4", X.device, {
         "cand": (cand, (B, C), torch.bool), "init_sites": (init_sites, (B, S, n), dt),
         "n_init": (n_init, (B,), torch.int32), "param": (param_t, (B,), dt)})
-    exponent, coef = _phi_constants(kernel, param)
+    exponent, coef = phi_constants(kernel, param)
     pivot2 = float(torch.tensor(chol_pivot, dtype=dt) ** 2)
     accepted = torch.empty((B, C), dtype=torch.bool, device=X.device)
     N = torch.empty((B,), dtype=torch.int32, device=X.device)
-    lib = _library(ROUND4_SOURCE, "rbf_round4", _ROUND4_ARGTYPES)
-    fn = lib.rbf_round4_f32 if dt == torch.float32 else lib.rbf_round4_f64
+    lib = _library(ROUND4_SOURCE)
+    t = "f32" if dt == torch.float32 else "f64"
     p = cuda_build.ptr
-    err = fn(p(X), lane_stride, row_stride, p(cand), p(init_sites),
-             init_sites.stride(0), p(n_init), p(param_t), p(accepted), p(N),
-             B, C, n, max_points, pd, _KERNEL_ID[kernel], exponent, coef,
-             pivot2, cuda_build.stream_of(X))
+    head = (p(X), lane_stride, row_stride, p(cand), p(init_sites),
+            init_sites.stride(0), p(n_init), p(param_t), p(accepted), p(N))
+    tail = (B, C, n, max_points, pd, KERNEL_ID[kernel], exponent, coef, pivot2,
+            cuda_build.stream_of(X))
+    if narrow:
+        err = getattr(lib, f"rbf_round4_{t}")(*head, *tail)
+    else:
+        lane = lib.rbf_round4_wide_lane_elems(max_points, n, pd)
+        work = torch.empty((B * lane,), dtype=dt, device=X.device)
+        err = getattr(lib, f"rbf_round4_wide_{t}")(*head, p(work), *tail)
     if err != 0:
         raise RuntimeError(f"rbf_round4 kernel launch failed: cudaError_t {err}")
     round4_launches += 1

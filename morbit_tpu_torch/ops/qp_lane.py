@@ -25,8 +25,9 @@ from morbit_tpu_torch.ops import cuda_build
 from morbit_tpu_torch.ops.batched_linalg import (GJ_MAX_K, chol_factor,
                                                  chol_solve)
 
-#: largest problem the kernel takes (its per-thread arrays are sized by these)
-MAX_NV, MAX_M = 8, 24
+#: largest problem the kernel takes (its per-thread arrays are sized by these;
+#: the 30-variable descent LP with three objectives has nv = 31, m = 63)
+MAX_NV, MAX_M = 32, 64
 #: infinite bounds become +-BIG inside the kernel (identical clip behavior)
 BIG = 1e30
 

@@ -25,13 +25,31 @@ from typing import NamedTuple
 
 import torch
 
-from morbit_tpu_torch.ops.batched_linalg import solve_small
+from morbit_tpu_torch.ops.batched_linalg import GJ_MAX_K, solve_small
 
 RBF_KERNELS = ("cubic", "multiquadric", "inv_multiquadric", "gaussian",
                "thin_plate_spline")
 
 #: kernels whose parameter is a static exponent, not a shape parameter
 EXPONENT_KERNELS = ("cubic", "thin_plate_spline")
+
+
+#: kernel ids of the CUDA kernels (``csrc/rbf_phi.cuh``)
+KERNEL_ID = {"cubic": 0, "multiquadric": 1, "inv_multiquadric": 2,
+             "gaussian": 3, "thin_plate_spline": 4}
+
+
+def phi_constants(kernel: str, static_param):
+    """(exponent, coefficient) of the exponent kernels, as
+    :func:`apply_kernel` computes them, for the CUDA kernels; unused by the
+    smooth kernels."""
+    if kernel == "cubic":
+        k = float(static_param)
+        return k / 2.0, (-1.0) ** -(-k // 2)
+    if kernel == "thin_plate_spline":
+        k = int(static_param)
+        return float(k), 0.5 * ((-1.0) ** (k + 1))
+    return 0.0, 0.0
 
 
 def kernel_default_param(kernel: str) -> float:
@@ -151,7 +169,15 @@ def fit_rbf(sites, values, mask, kernel: str = "cubic", param=None,
     mm = mask[:, :, None] & mask[:, None, :]
     eye = torch.eye(P, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    Phi = torch.where(mm, apply_kernel(kernel, pairwise_sqdist(sites), param), eye)
+    if dtype == torch.float32 and P >= 128:
+        # the wide-n path: K4, as the JAX package routes its Pallas kernel
+        # (rbf.py:181-187); the twin of the same formula on the CPU.
+        # Imported here because dense_kernels imports this module.
+        from morbit_tpu_torch.ops.dense_kernels import rbf_gram_matrix
+
+        Phi = rbf_gram_matrix(sites.contiguous(), mask.contiguous(), kernel, param)
+    else:
+        Phi = torch.where(mm, apply_kernel(kernel, pairwise_sqdist(sites), param), eye)
     n_valid = mask.sum(-1).to(dtype)
 
     # conditioning: centering removes the dominant rank-one part when the
@@ -192,10 +218,12 @@ def fit_rbf(sites, values, mask, kernel: str = "cubic", param=None,
     tol = 1e2 * torch.sqrt(torch.tensor(eps, dtype=dtype))
     bad = (~torch.isfinite(sol).all(-1).all(-1)) | (resid > tol)
     ridge = max(reg, 1e2 * float(eps))
-    # the JAX package skips this second solve when no lane needs it; its
-    # value is the same either way
-    sol2 = solve_small(kkt(ridge), rhs)
-    sol = torch.where(bad[:, None, None], sol2, sol)
+    # past the unrolled size the second solve runs only when some lane needs
+    # it (one host sync), as the JAX package gates it (rbf.py:235-249); its
+    # values are the same either way
+    if K.shape[-1] <= GJ_MAX_K or bool(bad.any()):
+        sol2 = solve_small(kkt(ridge), rhs)
+        sol = torch.where(bad[:, None, None], sol2, sol)
 
     w = torch.where(mask[..., None], sol[:, :P] / alpha[:, None, None], zero)
     lam = sol[:, P:]

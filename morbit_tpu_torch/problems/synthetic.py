@@ -1,16 +1,149 @@
 """Benchmark problems and Halton starts.
 
-Counterpart of ``make_two_parabolas`` and ``halton``/``halton_starts`` in
-``morbit_tpu/problems/synthetic.py``; the Halton sequence is computed the
-same way, so both packages get bit-equal starts.
+Counterpart of ``morbit_tpu/problems/synthetic.py``: the ZDT suite (ZDT1-4
+and 6; ZDT5 is binary-coded and has no box domain), DTLZ1, 2 and 6, the two
+parabolas, the analytic ZDT fronts and the Halton starts. The objectives
+are torch functions of one site ``x (n,)``; the port's ``MOP`` batches and
+differentiates them. The Halton sequence is computed the same way as in
+the JAX package, so both get bit-equal starts.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from morbit_tpu_torch.core.mop import MOP
+
+
+# --------------------------------------------------------------------- ZDT
+def zdt_bounds(name: str, n: int):
+    if name == "zdt4":
+        lb = np.concatenate([[0.0], -5.0 * np.ones(n - 1)])
+        ub = np.concatenate([[1.0], 5.0 * np.ones(n - 1)])
+        return lb, ub
+    return np.zeros(n), np.ones(n)
+
+
+def _pos(v):
+    """``jnp.maximum(v, 0.0)``, whose derivative splits ties in half."""
+    return torch.maximum(v, torch.zeros_like(v))
+
+
+def zdt_objectives(name: str, n: int):
+    """Return (f1, f2) as torch functions of x (n,) -> scalar."""
+
+    def g_sum(x):
+        return 1.0 + 9.0 / (n - 1) * torch.sum(x[1:])
+
+    if name == "zdt1":
+        f1 = lambda x: x[0]
+        f2 = lambda x: g_sum(x) * (1.0 - torch.sqrt(_pos(x[0] / g_sum(x))))
+    elif name == "zdt2":
+        f1 = lambda x: x[0]
+        f2 = lambda x: g_sum(x) * (1.0 - (x[0] / g_sum(x)) ** 2)
+    elif name == "zdt3":
+        f1 = lambda x: x[0]
+
+        def f2(x):
+            g = g_sum(x)
+            r = x[0] / g
+            return g * (1.0 - torch.sqrt(_pos(r))
+                        - r * torch.sin(10.0 * math.pi * x[0]))
+    elif name == "zdt4":
+        f1 = lambda x: x[0]
+
+        def f2(x):
+            g = 1.0 + 10.0 * (n - 1) + torch.sum(
+                x[1:] ** 2 - 10.0 * torch.cos(4.0 * math.pi * x[1:]))
+            return g * (1.0 - torch.sqrt(_pos(x[0] / g)))
+    elif name == "zdt6":
+        def f1(x):
+            return 1.0 - torch.exp(-4.0 * x[0]) * torch.sin(6.0 * math.pi * x[0]) ** 6
+
+        def f2(x):
+            g = 1.0 + 9.0 * (torch.sum(x[1:]) / (n - 1)) ** 0.25
+            return g * (1.0 - (f1(x) / g) ** 2)
+    else:
+        raise ValueError(f"unknown ZDT problem {name!r}")
+    return f1, f2
+
+
+def make_zdt(name: str, n: int, model_cfg=None) -> MOP:
+    lb, ub = zdt_bounds(name, n)
+    mop = MOP(lb, ub)
+    f1, f2 = zdt_objectives(name, n)
+    if model_cfg is None:
+        mop.add_exact_objective(f1)
+        mop.add_exact_objective(f2)
+    else:
+        mop.add_objective(f1, model_cfg=model_cfg)
+        mop.add_objective(f2, model_cfg=model_cfg)
+    return mop
+
+
+# --------------------------------------------------------------------- DTLZ
+def make_dtlz(which: int, n: int, M: int = 2, model_cfg=None) -> MOP:
+    """DTLZ1/DTLZ6 (the reference grid) and DTLZ2."""
+    k = n - M + 1
+    if k < 1:
+        raise ValueError(f"DTLZ needs n >= M, got n={n}, M={M}")
+
+    def g1(x):
+        xm = x[M - 1:]
+        return 100.0 * (k + torch.sum((xm - 0.5) ** 2
+                                      - torch.cos(20.0 * math.pi * (xm - 0.5))))
+
+    def g2(x):
+        return torch.sum((x[M - 1:] - 0.5) ** 2)
+
+    def g6(x):
+        return torch.sum(_pos(x[M - 1:]) ** 0.1)
+
+    objs = []
+    if which == 1:
+        for i in range(M):
+            def f(x, i=i):
+                val = 0.5 * (1.0 + g1(x))
+                val = val * torch.prod(x[: M - 1 - i])
+                if i > 0:
+                    val = val * (1.0 - x[M - 1 - i])
+                return val
+            objs.append(f)
+    elif which == 2:
+        for i in range(M):
+            def f(x, i=i):
+                val = 1.0 + g2(x)
+                val = val * torch.prod(torch.cos(0.5 * math.pi * x[: M - 1 - i]))
+                if i > 0:
+                    val = val * torch.sin(0.5 * math.pi * x[M - 1 - i])
+                return val
+            objs.append(f)
+    elif which == 6:
+        # theta-mapped DTLZ2-like front with g6 (Deb et al.)
+        for i in range(M):
+            def f(x, i=i):
+                g = g6(x)
+                theta = math.pi / (4.0 * (1.0 + g)) * (1.0 + 2.0 * g * x)
+                theta = torch.cat([(0.5 * math.pi * x[0])[None], theta[1:]])
+                val = 1.0 + g
+                val = val * torch.prod(torch.cos(theta[: M - 1 - i]))
+                if i > 0:
+                    val = val * torch.sin(theta[M - 1 - i])
+                return val
+            objs.append(f)
+    else:
+        raise ValueError("supported: DTLZ1, DTLZ2, DTLZ6")
+
+    mop = MOP(np.zeros(n), np.ones(n))
+    for f in objs:
+        if model_cfg is None:
+            mop.add_exact_objective(f)
+        else:
+            mop.add_objective(f, model_cfg=model_cfg)
+    return mop
 
 
 def _f1(x):
@@ -71,3 +204,29 @@ def halton_starts(count: int, lb, ub, start_index: int = 1) -> np.ndarray:
     ub = np.asarray(ub)
     u = halton(count, lb.shape[0], start_index)
     return lb + (ub - lb) * u
+
+
+def zdt_front(name: str, count: int = 256) -> np.ndarray:
+    """Dense sampling of the analytic Pareto front, shape (count', 2): the
+    ``g = 1`` surface with ``f1 = x0`` in [0, 1] (Zitzler et al. 2000),
+    filtered to its nondominated subset (ZDT3's and ZDT6's curves hold
+    dominated arcs)."""
+    f1 = np.linspace(0.0, 1.0, count)
+    if name in ("zdt1", "zdt4"):
+        f2 = 1.0 - np.sqrt(f1)
+    elif name == "zdt2":
+        f2 = 1.0 - f1 ** 2
+    elif name == "zdt3":
+        f2 = 1.0 - np.sqrt(f1) - f1 * np.sin(10.0 * np.pi * f1)
+    elif name == "zdt6":
+        f1 = 1.0 - np.exp(-4.0 * f1) * np.sin(6.0 * np.pi * f1) ** 6
+        f2 = 1.0 - f1 ** 2
+    else:
+        raise ValueError(f"unknown ZDT problem {name!r}")
+    pts = np.stack([f1, f2], axis=1)
+    keep = np.ones(len(pts), bool)
+    for i in range(len(pts)):
+        keep[i] = not np.any(
+            (pts[:, 0] <= pts[i, 0]) & (pts[:, 1] <= pts[i, 1])
+            & ((pts[:, 0] < pts[i, 0]) | (pts[:, 1] < pts[i, 1])))
+    return pts[keep]

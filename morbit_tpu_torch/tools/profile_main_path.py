@@ -1,16 +1,23 @@
 """Where one main-path batch spends its time on the card.
 
-Runs ``multistart_optimize`` on 1024 two-parabolas Halton starts
-(float32, ``max_iter=100, qp_iters=400``, the ``chip_smoke.py`` main path:
-both objectives in one multiquadric RBF group, or with ``--model exact``
-exact objectives) once to warm up, then once under ``torch.profiler`` and
-prints one JSON line: wall time, outer trips, device kernels launched,
-summed device kernel time and its share of the wall time (the device busy
-share), the device time of the port's own kernels (K1 ``qp_admm``, K2
-``rbf_selection``, K3 ``rbf_round4``), and the operators with the most
-host time.
+Runs ``multistart_optimize`` on 1024 Halton starts at float32 once to warm
+up, then once under ``torch.profiler``, and prints one JSON line: wall
+time, outer trips, device kernels launched, summed device kernel time and
+its share of the wall time (the device busy share), the device time of
+the port's own kernels (K1 ``qp_admm``, K2 ``rbf_selection``, K3
+``rbf_round4``, K4 ``rbf_gram``), the device kernels with the most device
+time and the operators with the most host time. The models:
 
-    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact]
+* ``rbf`` (default): two parabolas, both objectives in one multiquadric RBF
+  group, ``max_iter=100, qp_iters=400`` (the ``chip_smoke.py`` main path);
+* ``exact``: the same with exact objectives;
+* ``zdt20``: the wide-n path, ZDT1 at n=20 with both objectives in one
+  cubic RBF group at the reference grid budget (``chip_smoke.py``
+  ``wide_main_path``). Its batch runs ~200 trips of ~16,000 launches each,
+  too many events for one trace, so the profile covers trips 10-14, and
+  the wall time and busy share are those of that window.
+
+    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20]
 
 Needs a CUDA card.
 """
@@ -27,8 +34,9 @@ import torch
 
 def main(argv=None) -> int:
     args = argparse.ArgumentParser()
-    args.add_argument("--model", choices=("rbf", "exact"), default="rbf")
+    args.add_argument("--model", choices=("rbf", "exact", "zdt20"), default="rbf")
     model = args.parse_args(argv).model
+    B, window = 1024, 5
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA card", file=sys.stderr)
         return 1
@@ -36,29 +44,60 @@ def main(argv=None) -> int:
 
     from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
     from morbit_tpu_torch.models.configs import RbfConfig
-    from morbit_tpu_torch.problems.synthetic import halton_starts, make_two_parabolas
+    from morbit_tpu_torch.problems.synthetic import (halton_starts, make_two_parabolas,
+                                                     make_zdt)
 
-    lb, ub, B = [-4.0, -4.0], [4.0, 4.0], 1024
-    cfg = RbfConfig(kernel="multiquadric") if model == "rbf" else None
-    mop = make_two_parabolas(cfg, lb=lb, ub=ub)
-    ac = AlgorithmConfig(max_iter=100, qp_iters=400)
-    starts = [torch.as_tensor(halton_starts(B, lb, ub, 1 + k * B),
+    if model == "zdt20":
+        mop = make_zdt("zdt1", 20, model_cfg=RbfConfig(kernel="cubic"))
+        ac = AlgorithmConfig(max_iter=100, max_evals=20000, delta_0=0.1, delta_max=0.5,
+                             f_tol_rel=1e-3, x_tol_rel=1e-3, qp_iters=400)
+    else:
+        cfg = RbfConfig(kernel="multiquadric") if model == "rbf" else None
+        mop = make_two_parabolas(cfg, lb=[-4.0, -4.0], ub=[4.0, 4.0])
+        ac = AlgorithmConfig(max_iter=100, qp_iters=400)
+    starts = [torch.as_tensor(halton_starts(B, mop.lb, mop.ub, 1 + k * B),
                               dtype=torch.float32, device="cuda") for k in range(2)]
-    multistart_optimize(mop, starts[0], ac, dtype=torch.float32)
-    torch.cuda.synchronize()
+    if model == "zdt20":
+        from morbit_tpu_torch import STOP_CODE
+        from morbit_tpu_torch.parallel.multistart import build_solver
+        from morbit_tpu_torch.utils.tree import tree_where
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = multistart_optimize(mop, starts[1], ac, dtype=torch.float32)
+        solver = build_solver(mop, ac, torch.float32)
+        state = solver.initialize(starts[0])
+
+        def trip(state):   # one trip of Solver.solve_from_state
+            running = state.stop_code == STOP_CODE.CONTINUE
+            bool(running.any())
+            return tree_where(running, solver.iterate(state), state)
+        for _ in range(10):
+            state = trip(state)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(window):
+                state = trip(state)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        trips = window
+    else:
+        multistart_optimize(mop, starts[0], ac, dtype=torch.float32)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trips = multistart_optimize(mop, starts[1], ac, dtype=torch.float32).trips
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.time_range.elapsed_us() for e in kernels)
     own_ms = {name: sum(e.time_range.elapsed_us() for e in kernels
                         if name in e.name) / 1e3
-              for name in ("qp_admm", "rbf_selection", "rbf_round4")}
+              for name in ("qp_admm", "rbf_selection", "rbf_round4", "rbf_gram")}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top_device = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:10]
     # the same total as the profiler's own per-operator attribution
     attributed_us = sum(a.self_device_time_total for a in prof.key_averages())
     top = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
@@ -66,13 +105,16 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "model": model, "B": B,
         "dtype": "float32",
-        "wall_s": wall_s, "trips": res.trips,
+        "wall_s": wall_s, "trips": trips,
         "device_kernels": len(kernels),
-        "device_kernels_per_trip": len(kernels) / max(res.trips, 1),
+        "device_kernels_per_trip": len(kernels) / max(trips, 1),
         "device_kernel_ms": device_us / 1e3,
         "device_busy_share": device_us / 1e6 / wall_s,
         "attributed_device_ms": attributed_us / 1e3,
         "kernel_device_ms": own_ms,
+        "top_device_kernels": [{"name": k[:120], "device_ms": v / 1e3}
+                               for k, v in top_device],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "top_host_ops": [{"name": a.key, "calls": a.count,
                           "self_cpu_ms": a.self_cpu_time_total / 1e3}
                          for a in top],

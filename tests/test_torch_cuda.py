@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (SEL_NAMES, SEL_STATICS, descent_lps, random_qps,
-                        round4_case, selection_case)
+from chip_smoke import (SEL_NAMES, SEL_STATICS, admm_iterations_case, descent_lps,
+                        gram_case, random_qps, round4_case, selection_case)
 from morbit_tpu_torch.ops import qp_lane
 from morbit_tpu_torch.ops.qp import _rho_vec
 
@@ -26,11 +26,13 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 2e-3)])
-@pytest.mark.parametrize("problem", ["random36", "random48", "descent36"])
+@pytest.mark.parametrize("problem", ["random36", "random48", "descent36", "random2142"])
 def test_kernel_matches_twin(cuda, problem, dtype, tol):
     arrays = {"random36": lambda: random_qps(1024, 3, 6, 0),
               "random48": lambda: random_qps(1024, 4, 8, 1),
-              "descent36": lambda: descent_lps(1024, 2)}[problem]()
+              "descent36": lambda: descent_lps(1024, 2),
+              # the descent LP's shape on the 20-variable ZDT path
+              "random2142": lambda: random_qps(1024, 21, 42, 2)}[problem]()
     P, q, A, lo, hi = (torch.as_tensor(a, dtype=dtype, device=cuda)
                        for a in arrays)
     r = A.abs().amax(-1)
@@ -59,7 +61,7 @@ def test_kernel_rejects_cpu_mix(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n,cap", [(2, 157), (3, 1507)])
+@pytest.mark.parametrize("n,cap", [(2, 157), (3, 1507), (20, 5332)])
 def test_selection_kernel_matches_twin(cuda, n, cap, dtype):
     """K2 (rounds 1-3) against its twin: integer and bool outputs equal on
     every lane, sites3/dirs close (both round every operation alike)."""
@@ -109,3 +111,71 @@ def test_round4_kernel_matches_twin(cuda, kernel, deg, dtype):
     assert prepare_fused.round4_launches == before + 1
     assert torch.equal(N_k, N_t) and torch.equal(acc_k, acc_t)
     assert int(N_t.min()) < 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["cubic", "multiquadric"])
+def test_round4_wide_kernel_matches_twin(cuda, kernel, dtype):
+    """K3's block-per-lane instance at the shapes of the 20-variable ZDT path
+    (max_points 231, a 251-row training buffer, 2310 candidates) against its
+    twin: the same acceptances on every lane, rejections present."""
+    from morbit_tpu_torch.models.rbf_round4 import run_round4
+    from morbit_tpu_torch.ops import prepare_fused
+
+    X, cand, init, count, param = round4_case(np.random.default_rng(12), 64, 2310,
+                                              20, 231, 0.4, width=251)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    args = (f(X), torch.as_tensor(cand, device=cuda), f(init),
+            torch.as_tensor(count, dtype=torch.int32, device=cuda))
+    kw = dict(kernel=kernel, param=3 if kernel == "cubic" else f(param), poly_deg=1,
+              max_points=231, chol_pivot=0.1)
+    before = prepare_fused.round4_launches
+    acc_k, N_k = prepare_fused.round4(*args, **kw)
+    acc_t, N_t = run_round4(*args, **kw)
+    torch.cuda.synchronize()
+    assert prepare_fused.round4_launches == before + 1
+    assert torch.equal(N_k, N_t) and torch.equal(acc_k, acc_t)
+    tested = args[1] & (torch.cumsum(acc_t.int(), -1) < 231 - args[3][:, None])
+    assert bool((tested & ~acc_t).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kernel", ["cubic", "multiquadric", "inv_multiquadric",
+                                    "gaussian", "thin_plate_spline"])
+def test_gram_kernel_matches_twin(cuda, kernel, dtype, tol):
+    """K4 at the wide path's shape (P=251, n=20) against its twin, within
+    tol * max|Phi| (the two sum the cross term in different orders)."""
+    from morbit_tpu_torch.ops import dense_kernels
+    from morbit_tpu_torch.ops.rbf import EXPONENT_KERNELS, kernel_default_param
+
+    sites, mask, param = gram_case(np.random.default_rng(5), 64, 251, 20)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    par = kernel_default_param(kernel) if kernel in EXPONENT_KERNELS else f(param)
+    args = (f(sites), torch.as_tensor(mask, device=cuda), kernel, par)
+    before = dense_kernels.gram_launches
+    k = dense_kernels.rbf_gram_matrix(*args)
+    t = dense_kernels.rbf_gram_matrix_plain(*args)
+    torch.cuda.synchronize()
+    assert dense_kernels.gram_launches == before + 1
+    assert float((k - t).abs().max()) <= tol * float(t.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("n,m", [(3, 6), (21, 42)])
+def test_admm_iterations_kernel_matches_twin(cuda, n, m, dtype, tol):
+    """K5 against its twin, 100 steps, within tol * max(1, max|twin|)."""
+    from morbit_tpu_torch.ops import dense_kernels
+
+    args = [torch.as_tensor(a, dtype=dtype, device=cuda)
+            for a in admm_iterations_case(1024, n, m, seed=n)]
+    kw = dict(iters=100, sigma=1e-6, alpha=1.6)
+    before = dense_kernels.admm_iterations_launches
+    k = dense_kernels.admm_iterations(*args, **kw)
+    t = dense_kernels.admm_iterations_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert dense_kernels.admm_iterations_launches == before + 1
+    for a, b in zip(k, t):
+        assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))

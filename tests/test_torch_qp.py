@@ -109,8 +109,8 @@ def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
 
 
 def test_kernel_refuses_wide_problems():
-    P, q, A, lo, hi = (torch.as_tensor(a) for a in _lps(2, 9, 12))
-    with pytest.raises(NotImplementedError, match="nv=9"):
+    P, q, A, lo, hi = (torch.as_tensor(a) for a in _lps(2, 33, 36))
+    with pytest.raises(NotImplementedError, match="nv=33"):
         qp_lane.admm_stages_cuda(P, q, A, lo, hi, _rho_vec(lo, hi, 0.1),
                                  n_stages=1, n_steps=1, sigma=1e-6,
                                  alpha=1.6, rho_lo=1e-6, rho_hi=1e6)
