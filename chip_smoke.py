@@ -24,9 +24,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. ``kernel_admm``, ``kernel_selection``, ``kernel_round4`` — K1, K2, K3
    against their twins on the card, on random cases (the wide shapes
    included: nv=21/m=42, n=20 with 5332 rows, max_points 231 with 2310
-   rows) and the recorded inputs of both paths, float64 and float32: K1
-   within 1e-9 (float64) or 2e-3 (float32); K2's and K3's integer and bool
-   outputs equal on every lane, K2's floats within 1e-12 or 1e-5.
+   rows; K1 also at (21, 42), (32, 64), (5, 10), (1, 2) with B=1000; K2
+   also on lattice sites whose scores tie, with empty lanes and counts past
+   the capacity, at n=20 and n=32) and the recorded inputs of both paths,
+   float64 and float32: K1 within 1e-9 (float64) or 2e-3 (float32); K2's
+   and K3's outputs equal to the twins' on every lane, K2's floats to the
+   bit.
 5. ``kernel_gram``      — K4 against its twin: (P, n) = (134, 14) and
    (251, 20), all five RBF kernels, and the wide path's inputs; max|diff| /
    max|Phi| within 1e-12 (float64) or 1e-5 (float32).
@@ -171,8 +174,10 @@ def random_qps(B, n, m, seed):
     lo, hi = Az - slack, Az + slack
     lo[:, -n:], hi[:, -n:] = -1.0, 1.0
     lo[:, 0] = -np.inf
-    lo[:, 1], hi[:, 1] = -np.inf, np.inf
-    lo[:, 2] = hi[:, 2] = Az[:, 2]
+    if m > 1:
+        lo[:, 1], hi[:, 1] = -np.inf, np.inf
+    if m > 2:
+        lo[:, 2] = hi[:, 2] = Az[:, 2]
     return P, q, A, lo, hi
 
 
@@ -228,6 +233,30 @@ def selection_case(rng, B, cap, n, efl):
     return X, count, x_s, x_index, delta, lb, ub, max_new, efl
 
 
+def selection_lattice_case(rng, B, cap, n, efl):
+    """Rounds-1-3 inputs whose scores tie exactly: sites on the lattice of
+    step 1/8 in [0, 1]^n, the first half of each lane's rows repeated in its
+    second half (equal scores at rows cap/2 apart, which fall to different
+    threads and warps of the kernel's block), the iterate and the box edges
+    on the lattice. Some lanes have no rows (count 0), some a count past the
+    capacity; no NaN."""
+    X = rng.integers(0, 9, (B, cap, n)) / 8.0
+    half = cap // 2
+    X[:, half:2 * half] = X[:, :half]
+    count = rng.integers(1, cap, B).astype(np.int32)
+    count[::5] = 0
+    count[1::5] = cap + rng.integers(1, cap, len(count[1::5]))
+    x_s = rng.integers(2, 7, (B, n)) / 8.0
+    x_index = rng.integers(0, cap, B).astype(np.int32)
+    delta = rng.integers(1, 5, B) / 16.0
+    delta[0] = 0.5                 # isclose(delta, delta_max): round 2 skipped
+    lb, ub = np.zeros((B, n)), np.ones((B, n))
+    max_new = rng.integers(0, n + 2, B).astype(np.int32)
+    efl = {"false": np.zeros(B, bool), "true": np.ones(B, bool),
+           "mixed": np.arange(B) % 2 == 0}[efl]
+    return X, count, x_s, x_index, delta, lb, ub, max_new, efl
+
+
 def round4_case(rng, B, C, n, maxN, dup_frac, width=None):
     """Random round-4 inputs in the pattern of tests/test_round4_fused.py
     (numpy): candidates with near-duplicates, candidate mask, rounds-1-3
@@ -261,24 +290,47 @@ def gram_case(rng, B, P, n):
 
 def selection_work(args, outs):
     """(operations, bytes) of one K2 call on these inputs, counted from the
-    kernel's loops: each greedy scan visits the lane's valid rows at
-    ~6n + 4n^2 operations a row (box tests, shift, complement projection,
-    inf-norm); the valid rows are read once."""
-    X, count, efl = args[0], args[1], args[8]
+    block instance's loops: each round tests the lane's valid rows against
+    its boxes once (2n operations a row and box); each greedy scan visits
+    the round's candidates not yet taken, the first pick of a call at 2n
+    operations a row and later ones at 4n(n - k) (the complement projection
+    and its inf-norm; k picks in the span); each accepted pick updates the
+    complement at ~4n(k + 2n). The valid rows are read once."""
+    X, count, x_s, x_index, delta, lb_s, ub_s, _, efl = args
     B, cap, n = X.shape
     item = X.element_size()
+    st = SEL_STATICS
     rows = torch.clamp(count.long(), 0, cap)
+    valid = torch.arange(cap, device=X.device)[None, :] < rows[:, None]
+    valid &= torch.arange(cap, device=X.device)[None, :] != x_index[:, None].long()
+    d1 = (st["theta_e1"] * delta)[:, None]
+    d2 = st["theta_e2_dmax"]
+    in_box = lambda lo, hi: ((X >= lo[:, None]) & (X <= hi[:, None])).all(-1)
+    in1 = in_box(torch.maximum(lb_s, x_s - d1), torch.minimum(ub_s, x_s + d1))
+    in2 = in_box(torch.maximum(lb_s, x_s - d2), torch.minimum(ub_s, x_s + d2))
+    cand1 = (valid & in1).sum(-1)
+    cand2 = (valid & ~in1 & in2).sum(-1)
     r1 = (outs[0] >= 0).sum(-1).long()
-    scans1 = torch.where(r1 < n, r1 + 1, torch.full_like(r1, n))
-    pick2 = n - r1
     r2 = (outs[2] >= 0).sum(-1).long()
-    scans2 = torch.where(efl | (pick2 == 0), torch.zeros_like(r2),
-                         torch.minimum(r2 + 1, pick2))
-    ops = int(((scans1 + scans2) * rows).sum()) * (6 * n + 4 * n * n)
-    ops += int((r1 + r2).sum()) * 4 * n ** 3
+    ran2 = ~efl & (r1 < n)
+
+    def scans(ncand, k0, picks, n_pick, on):
+        ops = torch.zeros_like(ncand)
+        n_scans = torch.where(picks < n_pick, picks + 1, picks)
+        for s_ in range(n):
+            per_row = 2 * n if s_ == 0 else 4 * n * torch.clamp(n - (k0 + s_), min=0)
+            ops += torch.where(on & (s_ < n_scans), (ncand - s_).clamp(min=0) * per_row, 0)
+        return ops
+
+    ops = rows * 2 * n + torch.where(ran2, rows * 4 * n, 0)
+    ops += scans(cand1, torch.zeros_like(r1), r1, torch.full_like(r1, n),
+                 torch.ones_like(efl))
+    ops += scans(cand2, r1, r2, n - r1, ran2)
+    k = r1 + r2
+    ops += (r1 + r2) * 4 * n * (k + 2 * n)
     nbytes = int(rows.sum()) * n * item + B * (3 * n * item + item + 13)
     nbytes += B * (2 * n * 4 + 16 + n + 1 + 2 * n * n * item)
-    return ops, nbytes
+    return int(ops.sum()), nbytes
 
 
 def round4_work(args, kw, accepted, N):
@@ -325,13 +377,16 @@ def rbf_mop():
 # ------------------------------------------------------------------- phases
 
 def ptxas_summary(log):
-    """Registers and spill bytes per kernel instance from ``-Xptxas=-v``
-    output, keyed like ``qp_admm_f32_3_6`` (the kernel, its type and its
-    template sizes; 0 for runtime sizes)."""
+    """Registers, static shared memory, stack and spill bytes per kernel
+    instance from ``-Xptxas=-v`` output, keyed like ``qp_admm_f32_3_6`` (the
+    kernel, its type and its template sizes; none for runtime sizes). The
+    dynamic shared memory of the runtime-size instances is the wrappers'
+    (``admm_smem_bytes``, ``selection_smem_bytes``)."""
     out, key = {}, None
     for line in log.splitlines():
-        hit = re.search(r"(qp_admm|rbf_selection|rbf_round4_wide|rbf_round4|rbf_gram|"
-                        r"admm_iterations)_kernelI([fd])((?:Li\d+E)*)", line)
+        hit = re.search(r"(qp_admm_wide|qp_admm|rbf_selection_block|rbf_selection|"
+                        r"rbf_round4_wide|rbf_round4|rbf_gram|admm_iterations)"
+                        r"_kernelI([fd])((?:Li\d+E)*)", line)
         if "Compiling entry function" in line and hit:
             sizes = "".join("_" + v for v in re.findall(r"Li(\d+)E", hit[3]))
             key = f"{hit[1]}_{'f32' if hit[2] == 'f' else 'f64'}{sizes}"
@@ -343,6 +398,8 @@ def ptxas_summary(log):
         elif key and "Used" in line and "registers" in line:
             out.setdefault(key, {})["registers"] = int(
                 re.search(r"Used (\d+) registers", line)[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[key]["static_smem_bytes"] = int(smem[1]) if smem else 0
     return out
 
 
@@ -398,6 +455,10 @@ def phase_kernel_admm(wide_captured):
             ("descent", descent_lps(B_MAIN, 2)),
             ("descent", descent_lps(B_MAIN, 3)),
             ("random", random_qps(B_MAIN, 21, 42, 2))]
+    # the warp-per-lane instance at its edges: two rows a thread (m > 32),
+    # nv = 1, B not a multiple of the lanes in a block
+    sets += [("random_B1000", random_qps(1000, nv, m, 3 + nv))
+             for nv, m in ((21, 42), (32, 64), (5, 10), (1, 2))]
     sets += [(f"wide_path_call{c}", a[:5]) for c, (a, _) in zip(WIDE_CAPTURE_CALLS,
                                                                  wide_captured)]
     rows = {}
@@ -759,6 +820,10 @@ def phase_kernel_selection(captured, wide_captured):
         selection_case(np.random.default_rng(100 + n + cap), B_MAIN, cap, n, "mixed"),
         dt), SEL_STATICS) for n, cap in ((2, 157), (2, 1507), (3, 157), (3, 1507),
                                          (N_WIDE, 5332))]
+    # exact ties on a lattice, empty lanes and counts past the capacity
+    sets += [(f"lattice_n{n}_cap{cap}", lambda dt, n=n, cap=cap: _selection_tensors(
+        selection_lattice_case(np.random.default_rng(200 + n), B_MAIN, cap, n, "mixed"),
+        dt), SEL_STATICS) for n, cap in ((N_WIDE, 1200), (32, 600))]
     recorded = lambda a: lambda dt: tuple(x.to(dt) if x.is_floating_point() else x
                                           for x in a)
     sets += [(f"main_path_trip{t}", recorded(a), kw)
@@ -766,19 +831,22 @@ def phase_kernel_selection(captured, wide_captured):
     sets += [(f"wide_path_call{t}", recorded(a), kw)
              for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
     rows = {}
-    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+    for dtype in (torch.float64, torch.float32):
         for name, make, kw in sets:
             args = make(dtype)
             before = prepare_fused.selection_launches
             k = prepare_fused.selection_cuda(*args, **kw)
             t, plain_ms = timed(lambda: rbf_selection_core(*args, **kw))
             check(prepare_fused.selection_launches == before + 1, "K2 launch not counted")
+            # every output equal to the twin's, floats to the bit (NaN where
+            # the twin has NaN)
             err, lanes = 0.0, torch.zeros(args[0].shape[0], dtype=torch.bool, device="cuda")
             for out, a, b in zip(SEL_NAMES, k, t):
                 if a.is_floating_point():
-                    d = (a - b).abs().reshape(a.shape[0], -1).amax(-1)
-                    err = max(err, float(d.max()))
-                    lanes |= d > tol
+                    d = (a - b).abs().reshape(a.shape[0], -1)
+                    same = ((a == b) | (a.isnan() & b.isnan())).reshape(a.shape[0], -1)
+                    err = max(err, float(torch.nan_to_num(d, nan=0.0).max()))
+                    lanes |= ~same.all(-1)
                 else:
                     lanes |= (a != b).reshape(a.shape[0], -1).any(-1)
             bad = lanes.nonzero().flatten().tolist()
@@ -792,7 +860,7 @@ def phase_kernel_selection(captured, wide_captured):
             bound_ms, bound_by = bound(ops, nbytes, dtype)
             row = dict(set=name, dtype=str(dtype), B=int(args[0].shape[0]),
                        cap=int(args[0].shape[1]), n=int(args[0].shape[2]),
-                       max_valid_rows=int(args[1].max()), max_abs_err=err, tol=tol,
+                       max_valid_rows=int(args[1].max()), max_abs_err=err, tol=0.0,
                        lanes_differing=len(bad), ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes)
             phase("kernel_selection", **row)

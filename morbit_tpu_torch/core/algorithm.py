@@ -383,6 +383,7 @@ class Solver:
         One outer trip is either a NORMAL iteration or ONE criticality
         micro-step (``crit_mode > 0``); micro trips do not advance the
         iteration counter or stamp the trajectory."""
+        self._check_device(state)
         ac = self.ac
         SC = STOP_CODE
         stop = torch.where(
@@ -395,6 +396,19 @@ class Solver:
         go = stop == SC.CONTINUE
         return tree_where(go, self._iterate_inner(state),
                           state.replace(stop_code=stop))
+
+    def _check_device(self, state: SolverState) -> None:
+        """Raise unless every tensor of ``state`` lies on the solver's
+        device: the kernels' wrappers route by the device of the tensors
+        they are given, so a state elsewhere would not run the kernels."""
+        want, seen = self.device, set()
+        tree_map(lambda t: seen.add(t.device) or t, state)
+        bad = sorted(str(d) for d in seen if d.type != want.type
+                     or (want.index is not None and d.index != want.index))
+        if bad:
+            raise ValueError(
+                f"the state lies on {', '.join(bad)} and the solver on {want}; "
+                "move it with utils.tree.tree_map(lambda t: t.to(device), state)")
 
     def _iterate_inner(self, state: SolverState) -> SolverState:
         ac = self.ac

@@ -5,29 +5,55 @@
 //     min 1/2 z'Pz + q'z   s.t.   l <= Az <= u
 // with `n_stages` rho-stages of `n_steps` alpha-relaxed OSQP splitting steps
 // (Stellato et al. 2020), exactly the formulas of `admm_lane_batched`:
-// per stage M = P + sigma I + A' diag(rho) A, an unrolled Cholesky (lanes
+// per stage M = P + sigma I + A' diag(rho) A, a Cholesky factor (lanes
 // whose factor is not finite re-factor with jitter 1e-3 (tr M / nv + 1)),
 // an explicit M^-1 = L^-T L^-1 and 1/rho so the splitting steps carry no
 // division, zz clipped to [l, u], then rho rescaled by sqrt(pr / dr),
 // clipped to [0.1, 10] and to [rho_lo, rho_hi]. Infinite bounds arrive as
 // +-1e30 from the wrapper (morbit_tpu_torch/ops/qp_lane.py).
 //
-// Design: one thread per lane, 128-thread blocks over the batch, all stages
-// and steps in one launch. P, q, A, l, u, rho, M^-1 and the z/zz/y state
-// live in registers: NV and M are template parameters, instantiated for the
-// shapes the solver meets (nv=3/m=6: the steepest-descent LP of a 2-variable
-// problem; nv=4/m=8: of a 3-variable problem), and a generic instance with
-// runtime sizes up to 32 x 64 covers the rest from local memory (nv=21/m=42:
-// the LP of the 20-variable ZDT path), its loops rolled and one warp per
-// block.
+// Two designs, one launch for all stages and steps in both:
 //
-// Bound on an H100: the work is ~165 flops per splitting step per lane at
-// nv=3/m=6, ~66 kflop per lane for a 400-step solve, ~68 Mflop per launch
-// at B=1024, against ~260 KB of operands — tiny, and compute-bound on paper
-// (about 1 us at the fp32 peak). This simple design is latency- and
-// occupancy-bound instead: each thread runs a serial chain of 400 dependent
-// steps, and B=1024 lanes fill only 8 of the 132 SMs. Spreading a lane's
-// rows over a warp, or many lanes per SM, is later work.
+// * Register instances, one thread per lane in 128-thread blocks, for the
+//   shapes of the main paths (nv=3/m=6: the steepest-descent LP of a
+//   2-variable problem; nv=4/m=8: of a 3-variable problem). P, q, A, l, u,
+//   rho, M^-1 and the z/zz/y state live in registers.
+// * The wide instance, one warp per lane and kLanesPerBlock lanes per
+//   block, for every other shape up to 32 x 64 (nv=21/m=42: the LP of the
+//   20-variable ZDT path). The lane's A, P, the stage's two nv x nv
+//   matrices (M and L, then L^-1 and M^-1) and the vectors the threads
+//   exchange live in dynamic shared memory, sized from the runtime (nv, m)
+//   (wide_layout; the wrapper computes the same size). Thread i owns
+//   variable i (z_i, q_i, rhs_i, xt_i); threads t and t+32 own constraint
+//   rows t and t+32 (l, u, rho, 1/rho, zz, y in registers). A splitting
+//   step is three phases separated by __syncwarp: rhs_i = sigma z_i - q_i
+//   + sum_r A[r][i] t1_r; xt_i = sum_j M^-1[j][i] rhs_j (M^-1 is exactly
+//   symmetric, so column reads are conflict-free); per row the relaxation,
+//   the clip, y and the next t1_r = rho_r zz_r - y_r. Every sum is one
+//   thread's sum in the order the one-thread-per-lane kernel added it, and
+//   the two updates a*b + c*d (z and the relaxation) are written as the
+//   fma(a, b, c*d) that kernel was compiled to, so the wide instance rounds
+//   as it did: the compiler may fuse either product. Row
+//   strides are padded to an odd count of elements, so a warp reading a
+//   column (thread r reads A[r][i]) hits 32 distinct banks. Per stage,
+//   M's lower triangle is formed entry by entry over the threads, the
+//   Cholesky runs column by column (rows over threads), L^-1 column by
+//   column (one column per thread: a column's forward substitution needs
+//   only its own earlier entries), and M^-1 entry by entry. The residual
+//   maxima are warp shuffles with the NaN-propagating nan_max.
+//
+// Bound on an H100: at nv=21/m=42 a 400-step solve is ~1.9 Mflop per lane,
+// ~2 Gflop per launch at B=1024 against ~5 MB of operands: compute-bound
+// on paper (~0.03 ms at the fp32 peak). The wide instance is bound by
+// shared-memory load throughput and by the dependent chain of each thread's sums
+// (~130 dependent multiply-adds a step): about 8 lanes are resident per SM
+// and all 1024 lanes at once. Tensor cores (wgmma/mma) do not apply: every
+// lane has its own A and M^-1 and a step multiplies each by one vector, a
+// batched mat-vec with no operand reuse; TF32 would break the float32
+// tolerance, and FP64 has no wgmma. TMA is not needed either: a lane's
+// operands are a few KB loaded once per launch by a coalesced cooperative
+// load. What matters is shared-memory capacity, occupancy and warp-level
+// parallelism.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,9 +63,11 @@ namespace {
 constexpr int kMaxNV = 32;
 constexpr int kMaxM = 64;
 constexpr int kThreads = 128;
-// the generic instance runs one warp per block, so B=1024 lanes spread over
-// 32 SMs instead of 8
-constexpr int kGenericThreads = 32;
+// the wide instance: lanes (warps) per block; the wrapper's sizing
+// (ops/qp_lane.py: ADMM_LANES_PER_BLOCK) uses the same count
+constexpr int kLanesPerBlock = 4;
+constexpr int kMaxSmemBytes = 232448;   // 227 KB, the H100's per-block limit
+constexpr unsigned kFull = 0xffffffffu;
 
 // NaN-propagating max/clip: jnp.maximum and jnp.clip propagate NaN, fmax
 // does not.
@@ -62,33 +90,28 @@ __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float dabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double dabs(double x) { return fabs(x); }
+__device__ __forceinline__ float dfma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double dfma(double a, double b, double c) { return fma(a, b, c); }
+
+// ======================================================= register instances
 
 // Unrolled Cholesky of the lower triangle of M (same order as
 // ops.batched_linalg.chol_factor); returns whether every entry is finite.
-template <typename T, int NVC, int NV_T>
-__device__ __forceinline__ bool chol(const T (&M)[NVC][NVC], T (&L)[NVC][NVC],
-                                     int nv) {
+template <typename T, int NV>
+__device__ __forceinline__ bool chol(const T (&M)[NV][NV], T (&L)[NV][NV]) {
   bool ok = true;
-#pragma unroll (NV_T > 0 ? 64 : 1)
-  for (int j = 0; j < NVC; ++j) {
-    if (j >= nv) break;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
     T s = M[j][j];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-    for (int t = 0; t < NVC; ++t) {
-      if (t >= j) break;
-      s = s - L[j][t] * L[j][t];
-    }
+#pragma unroll
+    for (int t = 0; t < j; ++t) s = s - L[j][t] * L[j][t];
     L[j][j] = dsqrt(s);
     ok = ok && finite(L[j][j]);
-#pragma unroll (NV_T > 0 ? 64 : 1)
-    for (int i = 0; i < NVC; ++i) {
-      if (i <= j || i >= nv) continue;
+#pragma unroll
+    for (int i = j + 1; i < NV; ++i) {
       T s2 = M[i][j];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int t = 0; t < NVC; ++t) {
-        if (t >= j) break;
-        s2 = s2 - L[i][t] * L[j][t];
-      }
+#pragma unroll
+      for (int t = 0; t < j; ++t) s2 = s2 - L[i][t] * L[j][t];
       L[i][j] = s2 / L[j][j];
       ok = ok && finite(L[i][j]);
     }
@@ -96,180 +119,121 @@ __device__ __forceinline__ bool chol(const T (&M)[NVC][NVC], T (&L)[NVC][NVC],
   return ok;
 }
 
-// NV_T/M_T > 0: compile-time sizes (registers); 0: runtime sizes up to
-// kMaxNV x kMaxM.
-template <typename T, int NV_T, int M_T>
+template <typename T, int NV, int M_>
 __global__ void __launch_bounds__(kThreads)
 qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
                const T* __restrict__ A, const T* __restrict__ l,
                const T* __restrict__ u, const T* __restrict__ rho0,
                T* __restrict__ z_out, T* __restrict__ zz_out,
-               T* __restrict__ y_out, int B, int nv_rt, int m_rt,
-               int n_stages, int n_steps, T sigma, T alpha, T rho_lo,
-               T rho_hi) {
-  constexpr int NVC = NV_T > 0 ? NV_T : kMaxNV;
-  constexpr int MC = M_T > 0 ? M_T : kMaxM;
-  const int nv = NV_T > 0 ? NV_T : nv_rt;
-  const int m = M_T > 0 ? M_T : m_rt;
+               T* __restrict__ y_out, int B, int n_stages, int n_steps,
+               T sigma, T alpha, T rho_lo, T rho_hi) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
-  T Pk[NVC][NVC], qk[NVC], Ak[MC][NVC], lk[MC], uk[MC], rho[MC];
-  T z[NVC], zz[MC], y[MC];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-  for (int i = 0; i < NVC; ++i) {
-    if (i >= nv) break;
-    qk[i] = q[(size_t)b * nv + i];
+  T Pk[NV][NV], qk[NV], Ak[M_][NV], lk[M_], uk[M_], rho[M_];
+  T z[NV], zz[M_], y[M_];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    qk[i] = q[(size_t)b * NV + i];
     z[i] = T(0);
-#pragma unroll (NV_T > 0 ? 64 : 1)
-    for (int j = 0; j < NVC; ++j) {
-      if (j >= nv) break;
-      Pk[i][j] = P[((size_t)b * nv + i) * nv + j];
-    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) Pk[i][j] = P[((size_t)b * NV + i) * NV + j];
   }
-#pragma unroll (NV_T > 0 ? 64 : 1)
-  for (int r = 0; r < MC; ++r) {
-    if (r >= m) break;
-    lk[r] = l[(size_t)b * m + r];
-    uk[r] = u[(size_t)b * m + r];
-    rho[r] = rho0[(size_t)b * m + r];
+#pragma unroll
+  for (int r = 0; r < M_; ++r) {
+    lk[r] = l[(size_t)b * M_ + r];
+    uk[r] = u[(size_t)b * M_ + r];
+    rho[r] = rho0[(size_t)b * M_ + r];
     zz[r] = clip(T(0), lk[r], uk[r]);
     y[r] = T(0);
-#pragma unroll (NV_T > 0 ? 64 : 1)
-    for (int i = 0; i < NVC; ++i) {
-      if (i >= nv) break;
-      Ak[r][i] = A[((size_t)b * m + r) * nv + i];
-    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) Ak[r][i] = A[((size_t)b * M_ + r) * NV + i];
   }
 
   const T one_m_alpha = T(1) - alpha;
   for (int stage = 0; stage < n_stages; ++stage) {
     // ---- M = P + sigma I + A' diag(rho) A (lower triangle, mirrored)
-    T M[NVC][NVC];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-    for (int i = 0; i < NVC; ++i) {
-      if (i >= nv) break;
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int j = 0; j < NVC; ++j) {
-        if (j > i) break;
+    T M[NV][NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
         T acc = Pk[i][j] + (i == j ? sigma : T(0));
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int r = 0; r < MC; ++r) {
-          if (r >= m) break;
-          acc = acc + Ak[r][i] * rho[r] * Ak[r][j];
-        }
+#pragma unroll
+        for (int r = 0; r < M_; ++r) acc = acc + Ak[r][i] * rho[r] * Ak[r][j];
         M[i][j] = acc;
         M[j][i] = acc;
       }
     }
-    T L[NVC][NVC];
-    const bool ok = chol<T, NVC, NV_T>(M, L, nv);
+    T L[NV][NV];
+    const bool ok = chol<T, NV>(M, L);
     if (!ok) {  // jittered refactorization on breakdown
       T tr = M[0][0];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int i = 1; i < NVC; ++i) {
-        if (i >= nv) break;
-        tr = tr + M[i][i];
-      }
-      const T jit = T(1e-3) * (tr / T(nv) + T(1));
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int i = 0; i < NVC; ++i) {
-        if (i >= nv) break;
-        M[i][i] = M[i][i] + jit;
-      }
-      chol<T, NVC, NV_T>(M, L, nv);
+#pragma unroll
+      for (int i = 1; i < NV; ++i) tr = tr + M[i][i];
+      const T jit = T(1e-3) * (tr / T(NV) + T(1));
+#pragma unroll
+      for (int i = 0; i < NV; ++i) M[i][i] = M[i][i] + jit;
+      chol<T, NV>(M, L);
     }
 
     // ---- Minv = L^-T L^-1 and 1/rho, once per stage
-    T Li[NVC][NVC];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-    for (int j = 0; j < NVC; ++j) {
-      if (j >= nv) break;
+    T Li[NV][NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
       Li[j][j] = T(1) / L[j][j];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int i = 0; i < NVC; ++i) {
-        if (i <= j || i >= nv) continue;
+#pragma unroll
+      for (int i = j + 1; i < NV; ++i) {
         T s = L[i][j] * Li[j][j];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int t = 0; t < NVC; ++t) {
-          if (t <= j) continue;
-          if (t >= i) break;
-          s = s + L[i][t] * Li[t][j];
-        }
+#pragma unroll
+        for (int t = j + 1; t < i; ++t) s = s + L[i][t] * Li[t][j];
         Li[i][j] = -s / L[i][i];
       }
     }
-    T Mi[NVC][NVC];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-    for (int i = 0; i < NVC; ++i) {
-      if (i >= nv) break;
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int j = 0; j < NVC; ++j) {
-        if (j > i) break;
+    T Mi[NV][NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
         T acc = Li[i][i] * Li[i][j];  // t = max(i, j) = i
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int t = 0; t < NVC; ++t) {
-          if (t <= i) continue;
-          if (t >= nv) break;
-          acc = acc + Li[t][i] * Li[t][j];
-        }
+#pragma unroll
+        for (int t = i + 1; t < NV; ++t) acc = acc + Li[t][i] * Li[t][j];
         Mi[i][j] = acc;
         Mi[j][i] = acc;
       }
     }
-    T rinv[MC];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-    for (int r = 0; r < MC; ++r) {
-      if (r >= m) break;
-      rinv[r] = T(1) / rho[r];
-    }
+    T rinv[M_];
+#pragma unroll
+    for (int r = 0; r < M_; ++r) rinv[r] = T(1) / rho[r];
 
     // ---- n_steps splitting iterations
     for (int step = 0; step < n_steps; ++step) {
-      T t1[MC];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int r = 0; r < MC; ++r) {
-        if (r >= m) break;
-        t1[r] = rho[r] * zz[r] - y[r];
-      }
-      T rhs[NVC];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int i = 0; i < NVC; ++i) {
-        if (i >= nv) break;
+      T t1[M_];
+#pragma unroll
+      for (int r = 0; r < M_; ++r) t1[r] = rho[r] * zz[r] - y[r];
+      T rhs[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
         T acc = sigma * z[i] - qk[i];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int r = 0; r < MC; ++r) {
-          if (r >= m) break;
-          acc = acc + Ak[r][i] * t1[r];
-        }
+#pragma unroll
+        for (int r = 0; r < M_; ++r) acc = acc + Ak[r][i] * t1[r];
         rhs[i] = acc;
       }
-      T xt[NVC];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int i = 0; i < NVC; ++i) {
-        if (i >= nv) break;
+      T xt[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
         T acc = Mi[i][0] * rhs[0];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int j = 1; j < NVC; ++j) {
-          if (j >= nv) break;
-          acc = acc + Mi[i][j] * rhs[j];
-        }
+#pragma unroll
+        for (int j = 1; j < NV; ++j) acc = acc + Mi[i][j] * rhs[j];
         xt[i] = acc;
       }
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int i = 0; i < NVC; ++i) {
-        if (i >= nv) break;
-        z[i] = alpha * xt[i] + one_m_alpha * z[i];
-      }
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int r = 0; r < MC; ++r) {
-        if (r >= m) break;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) z[i] = alpha * xt[i] + one_m_alpha * z[i];
+#pragma unroll
+      for (int r = 0; r < M_; ++r) {
         T zt = Ak[r][0] * xt[0];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int i = 1; i < NVC; ++i) {
-          if (i >= nv) break;
-          zt = zt + Ak[r][i] * xt[i];
-        }
+#pragma unroll
+        for (int i = 1; i < NV; ++i) zt = zt + Ak[r][i] * xt[i];
         const T relaxed = alpha * zt + one_m_alpha * zz[r];
         const T zzr = clip(relaxed + y[r] * rinv[r], lk[r], uk[r]);
         y[r] = y[r] + rho[r] * (relaxed - zzr);
@@ -280,54 +244,284 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
     // ---- residuals -> rho rescale (next stage's factorization)
     if (stage + 1 < n_stages) {
       T pr = T(0);
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int r = 0; r < MC; ++r) {
-        if (r >= m) break;
+#pragma unroll
+      for (int r = 0; r < M_; ++r) {
         T Az = Ak[r][0] * z[0];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int i = 1; i < NVC; ++i) {
-          if (i >= nv) break;
-          Az = Az + Ak[r][i] * z[i];
-        }
+#pragma unroll
+        for (int i = 1; i < NV; ++i) Az = Az + Ak[r][i] * z[i];
         pr = nan_max(pr, dabs(Az - zz[r]));
       }
       T dr = T(0);
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int i = 0; i < NVC; ++i) {
-        if (i >= nv) break;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
         T g = qk[i];
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int j = 0; j < NVC; ++j) {
-          if (j >= nv) break;
-          g = g + Pk[i][j] * z[j];
-        }
-#pragma unroll (NV_T > 0 ? 64 : 1)
-        for (int r = 0; r < MC; ++r) {
-          if (r >= m) break;
-          g = g + Ak[r][i] * y[r];
-        }
+#pragma unroll
+        for (int j = 0; j < NV; ++j) g = g + Pk[i][j] * z[j];
+#pragma unroll
+        for (int r = 0; r < M_; ++r) g = g + Ak[r][i] * y[r];
         dr = nan_max(dr, dabs(g));
       }
       T scale = dsqrt(nan_max(pr, T(1e-30)) / nan_max(dr, T(1e-30)));
       scale = clip(scale, T(0.1), T(10));
-#pragma unroll (NV_T > 0 ? 64 : 1)
-      for (int r = 0; r < MC; ++r) {
-        if (r >= m) break;
-        rho[r] = clip(rho[r] * scale, rho_lo, rho_hi);
-      }
+#pragma unroll
+      for (int r = 0; r < M_; ++r) rho[r] = clip(rho[r] * scale, rho_lo, rho_hi);
     }
   }
 
-#pragma unroll (NV_T > 0 ? 64 : 1)
-  for (int i = 0; i < NVC; ++i) {
-    if (i >= nv) break;
-    z_out[(size_t)b * nv + i] = z[i];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) z_out[(size_t)b * NV + i] = z[i];
+#pragma unroll
+  for (int r = 0; r < M_; ++r) {
+    zz_out[(size_t)b * M_ + r] = zz[r];
+    y_out[(size_t)b * M_ + r] = y[r];
   }
-#pragma unroll (NV_T > 0 ? 64 : 1)
-  for (int r = 0; r < MC; ++r) {
-    if (r >= m) break;
-    zz_out[(size_t)b * m + r] = zz[r];
-    y_out[(size_t)b * m + r] = y[r];
+}
+
+// ============================================================ wide instance
+
+// Offsets (in elements) of one lane's arrays in shared memory. `ld` is the
+// padded row stride of A (m x nv) and of the nv x nv matrices.
+struct WideLayout {
+  int ld, A, P, W1, W2, t1, ys, rho, rhs, xt, zs, total;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int nv, int m) {
+  WideLayout w;
+  w.ld = nv | 1;
+  int o = 0;
+  w.A = o;   o += m * w.ld;
+  w.P = o;   o += nv * w.ld;
+  w.W1 = o;  o += nv * w.ld;   // M, then L^-1
+  w.W2 = o;  o += nv * w.ld;   // L, then M^-1
+  w.t1 = o;  o += m;
+  w.ys = o;  o += m;
+  w.rho = o; o += m;
+  w.rhs = o; o += nv;
+  w.xt = o;  o += nv;
+  w.zs = o;  o += nv;
+  w.total = o;
+  return w;
+}
+
+// (i, j), j <= i, of the e-th entry of a lower triangle stored by rows
+__device__ __forceinline__ void tri_index(int e, int& i, int& j) {
+  i = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
+  while (i * (i + 1) / 2 > e) --i;
+  while ((i + 1) * (i + 2) / 2 <= e) ++i;
+  j = e - i * (i + 1) / 2;
+}
+
+// Cholesky of the lower triangle of M into L, column by column with the
+// rows below the diagonal over the lane's threads; the same sums in the
+// same order as chol(). Every thread computes the pivot (the same value;
+// no column reads a diagonal entry of L); returns this thread's share of
+// the finiteness test.
+template <typename T>
+__device__ bool chol_warp(const T* M, T* L, int ld, int nv, int t) {
+  bool ok = true;
+  for (int j = 0; j < nv; ++j) {
+    T s = M[j * ld + j];
+    for (int k = 0; k < j; ++k) s = s - L[j * ld + k] * L[j * ld + k];
+    const T d = dsqrt(s);
+    ok = ok && finite(d);
+    if (t == j) L[j * ld + j] = d;
+    if (t > j && t < nv) {
+      T s2 = M[t * ld + j];
+      for (int k = 0; k < j; ++k) s2 = s2 - L[t * ld + k] * L[j * ld + k];
+      const T v = s2 / d;
+      L[t * ld + j] = v;
+      ok = ok && finite(v);
+    }
+    __syncwarp();
+  }
+  return ok;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLanesPerBlock * 32)
+qp_admm_wide_kernel(const T* __restrict__ P, const T* __restrict__ q,
+                    const T* __restrict__ A, const T* __restrict__ l,
+                    const T* __restrict__ u, const T* __restrict__ rho0,
+                    T* __restrict__ z_out, T* __restrict__ zz_out,
+                    T* __restrict__ y_out, int B, int nv, int m,
+                    int n_stages, int n_steps, T sigma, T alpha, T rho_lo,
+                    T rho_hi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int b = blockIdx.x * kLanesPerBlock + warp;
+  if (b >= B) return;  // a whole warp leaves; the lane's sync is __syncwarp
+  const WideLayout w = wide_layout(nv, m);
+  const int ld = w.ld;
+  T* s = reinterpret_cast<T*>(smem_raw) + (size_t)warp * w.total;
+  T *sA = s + w.A, *sP = s + w.P, *W1 = s + w.W1, *W2 = s + w.W2;
+  T *t1 = s + w.t1, *ys = s + w.ys, *srho = s + w.rho;
+  T *rhs = s + w.rhs, *xt = s + w.xt, *zs = s + w.zs;
+
+  // ---- coalesced load of the lane's A and P
+  const T* Ab = A + (size_t)b * m * nv;
+  for (int e = t; e < m * nv; e += 32) {
+    const int r = e / nv;
+    sA[r * ld + (e - r * nv)] = Ab[e];
+  }
+  const T* Pb = P + (size_t)b * nv * nv;
+  for (int e = t; e < nv * nv; e += 32) {
+    const int i = e / nv;
+    sP[i * ld + (e - i * nv)] = Pb[e];
+  }
+  // rows t and t + 32 (h = 0, 1) and variable t, in registers
+  T lk[2], uk[2], rho[2], rinv[2], zz[2], y[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = t + 32 * h;
+    lk[h] = uk[h] = rho[h] = rinv[h] = zz[h] = y[h] = T(0);
+    if (r < m) {
+      lk[h] = l[(size_t)b * m + r];
+      uk[h] = u[(size_t)b * m + r];
+      rho[h] = rho0[(size_t)b * m + r];
+      zz[h] = clip(T(0), lk[h], uk[h]);
+    }
+  }
+  const T qi = t < nv ? q[(size_t)b * nv + t] : T(0);
+  T z = T(0);
+  __syncwarp();
+
+  const T one_m_alpha = T(1) - alpha;
+  const int tri = nv * (nv + 1) / 2;
+  for (int stage = 0; stage < n_stages; ++stage) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (t + 32 * h < m) srho[t + 32 * h] = rho[h];
+    __syncwarp();
+    // ---- M = P + sigma I + A' diag(rho) A (lower triangle, mirrored) in W1
+    for (int e = t; e < tri; e += 32) {
+      int i, j;
+      tri_index(e, i, j);
+      T acc = sP[i * ld + j] + (i == j ? sigma : T(0));
+      for (int r = 0; r < m; ++r)
+        acc = acc + sA[r * ld + i] * srho[r] * sA[r * ld + j];
+      W1[i * ld + j] = acc;
+      W1[j * ld + i] = acc;
+    }
+    __syncwarp();
+    // ---- L in W2, refactored with jitter where not finite
+    if (!__all_sync(kFull, chol_warp(W1, W2, ld, nv, t))) {
+      T tr = W1[0];
+      for (int i = 1; i < nv; ++i) tr = tr + W1[i * ld + i];
+      const T jit = T(1e-3) * (tr / T(nv) + T(1));
+      __syncwarp();
+      if (t < nv) W1[t * ld + t] = W1[t * ld + t] + jit;
+      __syncwarp();
+      chol_warp(W1, W2, ld, nv, t);
+    }
+    // ---- L^-1 in W1, one column per thread (M is no longer read)
+    if (t < nv) {
+      const int j = t;
+      const T ljj = T(1) / W2[j * ld + j];
+      W1[j * ld + j] = ljj;
+      for (int i = j + 1; i < nv; ++i) {
+        T sum = W2[i * ld + j] * ljj;
+        for (int k = j + 1; k < i; ++k) sum = sum + W2[i * ld + k] * W1[k * ld + j];
+        W1[i * ld + j] = -sum / W2[i * ld + i];
+      }
+    }
+    __syncwarp();
+    // ---- M^-1 = L^-T L^-1 in W2 (L is no longer read)
+    for (int e = t; e < tri; e += 32) {
+      int i, j;
+      tri_index(e, i, j);
+      T acc = W1[i * ld + i] * W1[i * ld + j];
+      for (int k = i + 1; k < nv; ++k) acc = acc + W1[k * ld + i] * W1[k * ld + j];
+      W2[i * ld + j] = acc;
+      W2[j * ld + i] = acc;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = t + 32 * h;
+      if (r < m) {
+        rinv[h] = T(1) / rho[h];
+        t1[r] = rho[h] * zz[h] - y[h];
+      }
+    }
+    __syncwarp();
+
+    // ---- n_steps splitting iterations
+    for (int step = 0; step < n_steps; ++step) {
+      if (t < nv) {
+        T acc = sigma * z - qi;
+        for (int r = 0; r < m; ++r) acc = acc + sA[r * ld + t] * t1[r];
+        rhs[t] = acc;
+      }
+      __syncwarp();
+      if (t < nv) {
+        T acc = W2[t] * rhs[0];
+        for (int j = 1; j < nv; ++j) acc = acc + W2[j * ld + t] * rhs[j];
+        xt[t] = acc;
+        z = dfma(alpha, acc, one_m_alpha * z);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = t + 32 * h;
+        if (r < m) {
+          const T* Ar = sA + r * ld;
+          T zt = Ar[0] * xt[0];
+          for (int i = 1; i < nv; ++i) zt = zt + Ar[i] * xt[i];
+          const T relaxed = dfma(alpha, zt, one_m_alpha * zz[h]);
+          const T zzr = clip(relaxed + y[h] * rinv[h], lk[h], uk[h]);
+          y[h] = y[h] + rho[h] * (relaxed - zzr);
+          zz[h] = zzr;
+          t1[r] = rho[h] * zz[h] - y[h];
+        }
+      }
+      __syncwarp();
+    }
+
+    // ---- residuals -> rho rescale (next stage's factorization)
+    if (stage + 1 < n_stages) {
+      if (t < nv) zs[t] = z;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (t + 32 * h < m) ys[t + 32 * h] = y[h];
+      __syncwarp();
+      T pr = T(0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = t + 32 * h;
+        if (r < m) {
+          const T* Ar = sA + r * ld;
+          T Az = Ar[0] * zs[0];
+          for (int i = 1; i < nv; ++i) Az = Az + Ar[i] * zs[i];
+          pr = nan_max(pr, dabs(Az - zz[h]));
+        }
+      }
+      T dr = T(0);
+      if (t < nv) {
+        T g = qi;
+        for (int j = 0; j < nv; ++j) g = g + sP[t * ld + j] * zs[j];
+        for (int r = 0; r < m; ++r) g = g + sA[r * ld + t] * ys[r];
+        dr = dabs(g);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        pr = nan_max(pr, __shfl_xor_sync(kFull, pr, off));
+        dr = nan_max(dr, __shfl_xor_sync(kFull, dr, off));
+      }
+      T scale = dsqrt(nan_max(pr, T(1e-30)) / nan_max(dr, T(1e-30)));
+      scale = clip(scale, T(0.1), T(10));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rho[h] = clip(rho[h] * scale, rho_lo, rho_hi);
+      __syncwarp();
+    }
+  }
+
+  if (t < nv) z_out[(size_t)b * nv + t] = z;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = t + 32 * h;
+    if (r < m) {
+      zz_out[(size_t)b * m + r] = zz[h];
+      y_out[(size_t)b * m + r] = y[h];
+    }
   }
 }
 
@@ -335,20 +529,31 @@ template <typename T>
 int launch(const T* P, const T* q, const T* A, const T* l, const T* u,
            const T* rho0, T* z, T* zz, T* y, int B, int nv, int m,
            int n_stages, int n_steps, double sigma, double alpha,
-           double rho_lo, double rho_hi, cudaStream_t stream) {
+           double rho_lo, double rho_hi, long long smem_bytes,
+           cudaStream_t stream) {
   if (B <= 0) return 0;
   if (nv < 1 || m < 1 || nv > kMaxNV || m > kMaxM) return cudaErrorInvalidValue;
-  const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
-  const dim3 grid_g((B + kGenericThreads - 1) / kGenericThreads), block_g(kGenericThreads);
   const T s = T(sigma), a = T(alpha), lo = T(rho_lo), hi = T(rho_hi);
+  const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
   if (nv == 3 && m == 6) {
     qp_admm_kernel<T, 3, 6><<<grid, block, 0, stream>>>(
-        P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi);
+        P, q, A, l, u, rho0, z, zz, y, B, n_stages, n_steps, s, a, lo, hi);
   } else if (nv == 4 && m == 8) {
     qp_admm_kernel<T, 4, 8><<<grid, block, 0, stream>>>(
-        P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi);
+        P, q, A, l, u, rho0, z, zz, y, B, n_stages, n_steps, s, a, lo, hi);
   } else {
-    qp_admm_kernel<T, 0, 0><<<grid_g, block_g, 0, stream>>>(
+    // the wrapper's size must cover this layout
+    const long long need =
+        (long long)kLanesPerBlock * wide_layout(nv, m).total * (long long)sizeof(T);
+    if (smem_bytes < need || smem_bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+    if (smem_bytes > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          qp_admm_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid_w((B + kLanesPerBlock - 1) / kLanesPerBlock), block_w(kLanesPerBlock * 32);
+    qp_admm_wide_kernel<T><<<grid_w, block_w, (size_t)smem_bytes, stream>>>(
         P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi);
   }
   return (int)cudaGetLastError();
@@ -362,9 +567,9 @@ int qp_admm_f32(const float* P, const float* q, const float* A,
                 const float* l, const float* u, const float* rho0, float* z,
                 float* zz, float* y, int B, int nv, int m, int n_stages,
                 int n_steps, double sigma, double alpha, double rho_lo,
-                double rho_hi, void* stream) {
+                double rho_hi, long long smem_bytes, void* stream) {
   return launch<float>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
-                       n_steps, sigma, alpha, rho_lo, rho_hi,
+                       n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
                        (cudaStream_t)stream);
 }
 
@@ -372,9 +577,10 @@ int qp_admm_f64(const double* P, const double* q, const double* A,
                 const double* l, const double* u, const double* rho0,
                 double* z, double* zz, double* y, int B, int nv, int m,
                 int n_stages, int n_steps, double sigma, double alpha,
-                double rho_lo, double rho_hi, void* stream) {
+                double rho_lo, double rho_hi, long long smem_bytes,
+                void* stream) {
   return launch<double>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
-                        n_steps, sigma, alpha, rho_lo, rho_hi,
+                        n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
                         (cudaStream_t)stream);
 }
 

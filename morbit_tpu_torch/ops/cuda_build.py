@@ -24,6 +24,9 @@ BUILD_DIR = PKG.parent / "build" / "kernels"
 # -Xptxas=-v only reports registers and spills per kernel (see build())
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: dynamic shared memory one block may use on an H100 (227 KB); the
+#: launchers ask for more than 48 KB with cudaFuncSetAttribute
+SMEM_LIMIT = 232_448
 
 
 def nvcc() -> str:

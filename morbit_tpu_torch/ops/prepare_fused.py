@@ -34,10 +34,17 @@ ROUND4_SOURCE = cuda_build.CSRC / "rbf_round4.cu"
 #: the two box exits of a direction) fall the same way on both
 NO_FMA = ("--fmad=false",)
 
-#: largest sizes the kernels take: K2's per-thread arrays; K3's
-#: thread-per-lane instance, and its block-per-lane instance whose state
-#: lives in a workspace (the wide-n path: max_points = 231 at n = 20)
+#: largest sizes the kernels take: K2's register arrays (n = 2, 3) and
+#: block instance; K3's thread-per-lane instance, and its block-per-lane
+#: instance whose state lives in a workspace (the wide-n path: max_points =
+#: 231 at n = 20)
 SELECTION_MAX_N = 32
+#: K2's register instances; every other n takes the block instance
+SELECTION_REGISTER_N = (2, 3)
+#: shared memory for the staged candidate offsets of K2's block instance
+SELECTION_STAGE_BYTES = 24 * 1024
+#: warps of a block of K2's block instance (``kBlockThreads`` / 32)
+SELECTION_BLOCK_WARPS = 4
 ROUND4_MAX_POINTS, ROUND4_MAX_PD, ROUND4_MAX_N = 24, 16, 15
 ROUND4_WIDE_MAX_POINTS, ROUND4_WIDE_MAX_N = 512, 32
 
@@ -49,8 +56,9 @@ round4_launches = 0
 _libs = {}
 
 _SELECTION_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
-                       + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
-                       + [ctypes.c_double] * 4 + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] + [ctypes.c_double] * 4
+                       + [ctypes.c_int, ctypes.c_void_p])
 _ROUND4_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
                     + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -96,18 +104,53 @@ def _site_view(kernel, X, B, C, n, dtype):
 
 # --------------------------------------------------------------- K2: rounds 1-3
 
+def _selection_ld(n: int, itemsize: int) -> int:
+    """Row stride of the block instance's vector-read arrays: n rounded up
+    to a 16-byte multiple."""
+    vec = 16 // itemsize
+    return -(-n // vec) * vec
+
+
+def selection_stage_rows(n: int, itemsize: int) -> int:
+    """Candidate rows whose offsets the block instance stages in shared
+    memory (0 for the register instances)."""
+    if n in SELECTION_REGISTER_N:
+        return 0
+    return SELECTION_STAGE_BYTES // (_selection_ld(n, itemsize) * itemsize)
+
+
+def selection_smem_bytes(n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of K2 at n (``block_layout`` in
+    the source): 0 for the register instances; else the complement by rows
+    and by columns, the staged rows, the directions, seven vectors, Q and
+    the reflections (rows padded to an odd stride), the reduction slots, and
+    the ints (two pick lists, the reflection flags, the reduction and
+    compaction slots)."""
+    if n in SELECTION_REGISTER_N:
+        return 0
+    ld = _selection_ld(n, itemsize)
+    w = SELECTION_BLOCK_WARPS
+    elems = ((3 * n + selection_stage_rows(n, itemsize) + 7) * ld
+             + 2 * n * (n | 1) + w)
+    return elems * itemsize + (3 * SELECTION_MAX_N + 2 * w) * 4
+
+
 def selection_cuda(X, count, x_s, x_index, delta, lb_s, ub_s, max_new, efl, *,
                    theta_e1, theta_e2_dmax, theta_pivot, delta_max,
                    skip2_same_theta):
     """Launch the ``rbf_selection`` kernel on the current stream; arguments
-    and outputs as :func:`rbf_selection_core`."""
+    and outputs as :func:`rbf_selection_core`. The block instance's
+    candidate lists live in a (B, cap) workspace allocated here."""
     global selection_launches
     B, cap, n = X.shape
-    if n > SELECTION_MAX_N:
-        raise NotImplementedError(
-            f"rbf_selection kernel takes n <= {SELECTION_MAX_N}, got X of shape "
-            f"{tuple(X.shape)}")
     dt = cuda_build.float_dtype("rbf_selection", X)
+    item = X.element_size()
+    smem = selection_smem_bytes(n, item)
+    if n > SELECTION_MAX_N or smem > cuda_build.SMEM_LIMIT:
+        raise NotImplementedError(
+            f"rbf_selection kernel takes n <= {SELECTION_MAX_N} within "
+            f"{cuda_build.SMEM_LIMIT} bytes of shared memory, got X of shape "
+            f"{tuple(X.shape)}")
     lane_stride, row_stride = _site_view("rbf_selection", X, B, cap, n, dt)
     i32 = torch.int32
     cuda_build.check_args("rbf_selection", X.device, {
@@ -119,12 +162,15 @@ def selection_cuda(X, count, x_s, x_index, delta, lb_s, ub_s, max_new, efl, *,
     outs = (new((B, n), i32), new((B,), i32), new((B, n), i32), new((B,), i32),
             new((B, n, n), dt), new((B, n), torch.bool), new((B,), i32),
             new((B, n, n), dt), new((B,), i32), new((B,), torch.bool))
+    block = n not in SELECTION_REGISTER_N
+    work = new((B * cap if block else 0,), i32)
     lib = _library(SELECTION_SOURCE)
     fn = lib.rbf_selection_f32 if dt == torch.float32 else lib.rbf_selection_f64
     p = cuda_build.ptr
     err = fn(p(X), lane_stride, row_stride, p(count), p(x_s), p(x_index),
              p(delta), p(lb_s), p(ub_s), p(max_new), p(efl), *map(p, outs),
-             B, cap, n, theta_e1, theta_e2_dmax, theta_pivot, delta_max,
+             p(work) if block else None, B, cap, n, selection_stage_rows(n, item),
+             smem, theta_e1, theta_e2_dmax, theta_pivot, delta_max,
              int(bool(skip2_same_theta)), cuda_build.stream_of(X))
     if err != 0:
         raise RuntimeError(f"rbf_selection kernel launch failed: cudaError_t {err}")

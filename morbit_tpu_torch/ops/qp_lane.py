@@ -5,9 +5,10 @@ Counterpart of ``morbit_tpu/ops/qp_lane.py``. :func:`admm_stages` runs all
 batch of tiny QPs and returns ``(z, zz, y)``:
 
 * on CUDA tensors it launches the hand-written kernel in
-  ``morbit_tpu_torch/csrc/qp_admm.cu`` (one thread per lane, every stage and
-  splitting step in one launch), built with ``nvcc`` at first use into
-  ``build/kernels/`` and loaded with ``ctypes``;
+  ``morbit_tpu_torch/csrc/qp_admm.cu`` (every stage and splitting step in
+  one launch: one thread per lane at the main paths' shapes, one warp per
+  lane working from shared memory at every other shape), built with
+  ``nvcc`` at first use into ``build/kernels/`` and loaded with ``ctypes``;
 * on CPU tensors it runs :func:`admm_stages_plain`, the batched torch
   version of the JAX package's ``_make_stage`` loop (``ops/qp.py:40-110``).
 
@@ -25,9 +26,14 @@ from morbit_tpu_torch.ops import cuda_build
 from morbit_tpu_torch.ops.batched_linalg import (GJ_MAX_K, chol_factor,
                                                  chol_solve)
 
-#: largest problem the kernel takes (its per-thread arrays are sized by these;
-#: the 30-variable descent LP with three objectives has nv = 31, m = 63)
+#: largest problem the kernel takes (a lane's variables and its rows spread
+#: over one warp, two rows a thread; the 30-variable descent LP with three
+#: objectives has nv = 31, m = 63)
 MAX_NV, MAX_M = 32, 64
+#: shapes of the one-thread-per-lane register instances
+REGISTER_SHAPES = ((3, 6), (4, 8))
+#: lanes (warps) in a block of the wide instance (``kLanesPerBlock``)
+ADMM_LANES_PER_BLOCK = 4
 #: infinite bounds become +-BIG inside the kernel (identical clip behavior)
 BIG = 1e30
 
@@ -111,11 +117,23 @@ def build():
     return cuda_build.build(SOURCE)
 
 
+def admm_smem_bytes(nv: int, m: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of the kernel at (nv, m): 0 for
+    the register instances; for the wide instance ``ADMM_LANES_PER_BLOCK``
+    lanes of A (m x nv), P and two nv x nv stage matrices with rows padded
+    to an odd stride, and six vectors (``wide_layout`` in the source)."""
+    if (nv, m) in REGISTER_SHAPES:
+        return 0
+    ld = nv | 1
+    lane = (m + 3 * nv) * ld + 3 * m + 3 * nv
+    return ADMM_LANES_PER_BLOCK * lane * itemsize
+
+
 def _library():
     global _lib
     if _lib is None:
         argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                    + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+                    + [ctypes.c_double] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
         _lib = cuda_build.load(SOURCE, {"qp_admm_f32": argtypes,
                                         "qp_admm_f64": argtypes})
     return _lib
@@ -128,11 +146,12 @@ def admm_stages_cuda(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
     global launches
     B, nv = q.shape
     m = A.shape[-2]
-    if nv > MAX_NV or m > MAX_M:
-        raise NotImplementedError(
-            f"qp_admm kernel takes nv <= {MAX_NV} and m <= {MAX_M}, got "
-            f"nv={nv}, m={m}")
     dt = cuda_build.float_dtype("qp_admm", q)
+    smem = admm_smem_bytes(nv, m, q.element_size())
+    if nv > MAX_NV or m > MAX_M or smem > cuda_build.SMEM_LIMIT:
+        raise NotImplementedError(
+            f"qp_admm kernel takes nv <= {MAX_NV} and m <= {MAX_M} within "
+            f"{cuda_build.SMEM_LIMIT} bytes of shared memory, got nv={nv}, m={m}")
     cuda_build.check_args("qp_admm", q.device, {
         "P": (P, (B, nv, nv), dt), "q": (q, (B, nv), dt), "A": (A, (B, m, nv), dt),
         "l": (l, (B, m), dt), "u": (u, (B, m), dt), "rho0": (rho0, (B, m), dt)})
@@ -145,7 +164,7 @@ def admm_stages_cuda(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
     ptr = cuda_build.ptr
     err = fn(ptr(P), ptr(q), ptr(A), ptr(l_s), ptr(u_s), ptr(rho0),
              ptr(z), ptr(zz), ptr(y), B, nv, m, n_stages, n_steps,
-             sigma, alpha, rho_lo, rho_hi, cuda_build.stream_of(q))
+             sigma, alpha, rho_lo, rho_hi, smem, cuda_build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"qp_admm kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -29,7 +29,8 @@ import torch
 
 from morbit_tpu_torch.core import filter as flt
 from morbit_tpu_torch.core import scaling
-from morbit_tpu_torch.core.algorithm import SolverState, TrajectoryState
+from morbit_tpu_torch.core.algorithm import (SolverState, TrajectoryState,
+                                              resolve_device)
 from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.database import Database
 from morbit_tpu_torch.core.descent import resolve_descent_config
@@ -46,8 +47,11 @@ def config_from_dict(d: dict) -> AlgorithmConfig:
     return AlgorithmConfig(**d)
 
 
-def state_from_numpy(leaves: dict, device="cpu", dtype=None) -> SolverState:
-    """Build the port's batched state from a dict of numpy leaves."""
+def state_from_numpy(leaves: dict, device=None, dtype=None) -> SolverState:
+    """Build the port's batched state from a dict of numpy leaves, on CUDA
+    unless ``device`` says otherwise (the solvers' default, so that a
+    carried state reaches the kernels)."""
+    device = resolve_device(device)
     batched = np.asarray(leaves["x"]).ndim == 2
     dtype = dtype or torch.from_numpy(np.array(leaves["x"])).dtype
 

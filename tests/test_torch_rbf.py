@@ -53,7 +53,8 @@ from morbit_tpu_torch.utils.carry import (config_from_dict, state_from_numpy,
                                           state_to_numpy)
 from morbit_tpu_torch.utils.logging import trajectory_arrays
 from morbit_tpu_torch.utils.parity import export_trajectory
-from chip_smoke import SEL_NAMES, SEL_STATICS, round4_case, selection_case
+from chip_smoke import (SEL_NAMES, SEL_STATICS, round4_case, selection_case,
+                        selection_lattice_case)
 from tests.oracle_full import GroupSpec, solve_oracle_full
 from tests.test_oracle_full_parity import _assert_parity
 
@@ -208,10 +209,17 @@ def test_affine_selection_matches_jax(n):
 
 
 @pytest.mark.parametrize("efl", ["false", "true", "mixed"])
-@pytest.mark.parametrize("n", [2, 3])
-def test_selection_twin_matches_jax(n, efl):
+@pytest.mark.parametrize("n,case", [(2, "random"), (3, "random"), (2, "lattice"),
+                                    (3, "lattice")],
+                         ids=["2", "3", "2-lattice", "3-lattice"])
+def test_selection_twin_matches_jax(n, case, efl):
+    """K2's twin against JAX's ``rbf_selection_core``, also on lattice sites
+    whose scores tie exactly (with empty lanes and counts past the
+    capacity): the kernel equals the twin to the bit on the card, so the
+    chain kernel = twin = JAX holds on ties."""
     rng = np.random.default_rng(42 + n)
-    args = selection_case(rng, 8, 23, n, efl)
+    make = selection_case if case == "random" else selection_lattice_case
+    args = make(rng, 8, 23, n, efl)
     port = rbf_selection_core(
         _t(args[0]), torch.as_tensor(args[1]), _t(args[2]), torch.as_tensor(args[3]),
         _t(args[4]), _t(args[5]), _t(args[6]), torch.as_tensor(args[7]),
@@ -357,7 +365,7 @@ def test_rbf_multistart_matches_jax_and_single_runs():
     jinit = jax.jit(jax.vmap(jsolver.initialize))(jnp.asarray(starts))
     solver = Solver(compile_mop(tsyn.make_two_parabolas(RbfConfig(**cfg), LB2, UB2)),
                     mt.AlgorithmConfig(**kw), F64, "cpu")
-    state, _ = solver.solve_from_state(state_from_numpy(_jax_leaves(jinit)))
+    state, _ = solver.solve_from_state(state_from_numpy(_jax_leaves(jinit), device="cpu"))
     carried = mt.OptimizeResult(x=state.x, fx=state.fx, stop_code=state.stop_code,
                                 n_iterations=state.iter_counter - 1,
                                 n_evals=state.groups[0].n_evals, state=state, trips=0)
@@ -467,7 +475,8 @@ def test_iterate_from_carried_jax_rbf_state():
         if int(st.stop_code) != 1:
             break
         nxt = jiter(st)
-        port = state_to_numpy(solver.iterate(state_from_numpy(_jax_leaves(st))))
+        port = state_to_numpy(solver.iterate(state_from_numpy(_jax_leaves(st),
+                                                              device="cpu")))
         ref = _jax_leaves(nxt)
         assert set(port) == set(ref)
         for name, a in port.items():

@@ -31,6 +31,7 @@ from morbit_tpu_torch.core.mop import compile_mop
 from morbit_tpu_torch.utils.carry import (config_from_dict, state_from_numpy,
                                           state_to_numpy)
 from morbit_tpu_torch.utils.logging import trajectory_arrays
+from morbit_tpu_torch.utils.tree import tree_map
 from tests.oracle_sequential import solve_oracle
 
 LB2, UB2 = [-4.0, -4.0], [4.0, 4.0]
@@ -199,7 +200,8 @@ def test_iterate_from_carried_jax_state(label):
         if int(st.stop_code) != 1:
             break
         nxt = jiter(st)
-        port = state_to_numpy(solver.iterate(state_from_numpy(_jax_leaves(st))))
+        port = state_to_numpy(solver.iterate(state_from_numpy(_jax_leaves(st),
+                                                              device="cpu")))
         ref = _jax_leaves(nxt)
         assert set(port) == set(ref)
         for name, a in port.items():
@@ -214,3 +216,31 @@ def test_iterate_from_carried_jax_state(label):
     assert int(st.stop_code) == final_stop
     if final_stop == 4:                  # CRITICAL, through micro-steps
         assert {1, 2} & modes
+
+
+def test_iterate_refuses_a_state_on_another_device():
+    """The kernels' wrappers route by the device of their tensors, so a
+    state that does not lie on the solver's device must not reach them:
+    ``iterate`` raises (a CPU solver here, its state moved to the meta
+    device)."""
+    solver = Solver(compile_mop(_two_parabolas()[0]), mt.AlgorithmConfig(max_iter=3),
+                    torch.float64, "cpu")
+    state = solver.initialize(torch.zeros((2, 2), dtype=torch.float64))
+    solver.iterate(state)
+    with pytest.raises(ValueError, match="lies on meta"):
+        solver.iterate(tree_map(lambda t: t.to("meta"), state))
+
+
+def test_carried_state_defaults_to_cuda():
+    """``state_from_numpy`` puts a carried state on the solvers' default
+    device, CUDA, and raises without it; ``device="cpu"`` asks for the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the default device is usable")
+    solver = Solver(compile_mop(_two_parabolas()[0]), mt.AlgorithmConfig(max_iter=3),
+                    torch.float64, "cpu")
+    leaves = state_to_numpy(solver.initialize(torch.zeros((2, 2), dtype=torch.float64)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state_from_numpy(leaves)
+    again = state_to_numpy(state_from_numpy(leaves, device="cpu"))
+    assert all(np.array_equal(again[k], v) for k, v in leaves.items())

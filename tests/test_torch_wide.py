@@ -225,6 +225,13 @@ def _beyond_limits(kernel):
         return lambda: prepare_fused.round4_cuda(
             z(1, 4, 2), torch.zeros((1, 4), dtype=bool), z(1, maxN, 2), i32(1),
             kernel="cubic", param=3, poly_deg=1, max_points=maxN, chol_pivot=1e-7)
+    if kernel == "admm_rows":
+        from morbit_tpu_torch.ops import qp_lane
+
+        nv, m = 2, qp_lane.MAX_M + 1
+        return lambda: qp_lane.admm_stages_cuda(
+            z(1, nv, nv), z(1, nv), z(1, m, nv), z(1, m), z(1, m), z(1, m),
+            n_stages=1, n_steps=1, sigma=1e-6, alpha=1.6, rho_lo=1e-6, rho_hi=1e6)
     if kernel == "gram":
         return lambda: dense_kernels.rbf_gram_cuda(
             z(dense_kernels.GRAM_MAX_B + 1, 1, 1), torch.ones((1, 1), dtype=bool),
@@ -235,7 +242,50 @@ def _beyond_limits(kernel):
         z(1, 2), iters=1, sigma=1e-6, alpha=1.6)
 
 
-@pytest.mark.parametrize("kernel", ["selection", "round4", "gram", "admm_iterations"])
+@pytest.mark.parametrize("kernel", ["selection", "round4", "gram", "admm_iterations",
+                                    "admm_rows"])
 def test_kernels_refuse_beyond_their_limits(kernel):
     with pytest.raises(NotImplementedError, match="takes"):
         _beyond_limits(kernel)()
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_kernel_blocks_fit_shared_memory(itemsize):
+    """Every shape the K1 and K2 wrappers take fits the H100's 227 KB of
+    shared memory per block, at float32 and float64: K1 at each nv <= 32 and
+    m <= 64, K2 at each n <= 32 (the register instances take none)."""
+    from morbit_tpu_torch.ops import cuda_build, prepare_fused, qp_lane
+
+    admm = [qp_lane.admm_smem_bytes(nv, m, itemsize)
+            for nv in range(1, qp_lane.MAX_NV + 1) for m in range(1, qp_lane.MAX_M + 1)]
+    sel = [prepare_fused.selection_smem_bytes(n, itemsize)
+           for n in range(1, prepare_fused.SELECTION_MAX_N + 1)]
+    assert max(admm) <= cuda_build.SMEM_LIMIT and max(sel) <= cuda_build.SMEM_LIMIT
+    assert qp_lane.admm_smem_bytes(3, 6, itemsize) == 0
+    assert prepare_fused.selection_smem_bytes(2, itemsize) == 0
+    assert prepare_fused.selection_stage_rows(20, itemsize) > 0
+
+
+@pytest.mark.parametrize("kernel", ["admm", "selection"])
+def test_kernels_refuse_blocks_past_shared_memory(monkeypatch, kernel):
+    """A shape whose block would not fit the shared memory of the card
+    raises before any launch (here with the limit set below the wide path's
+    block)."""
+    from morbit_tpu_torch.ops import cuda_build, prepare_fused, qp_lane
+
+    monkeypatch.setattr(cuda_build, "SMEM_LIMIT", 1024)
+    z = lambda *shape: torch.zeros(shape)
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    if kernel == "admm":
+        nv, m = 21, 42
+        call = lambda: qp_lane.admm_stages_cuda(
+            z(1, nv, nv), z(1, nv), z(1, m, nv), z(1, m), z(1, m), z(1, m),
+            n_stages=1, n_steps=1, sigma=1e-6, alpha=1.6, rho_lo=1e-6, rho_hi=1e6)
+    else:
+        n = 20
+        call = lambda: prepare_fused.selection_cuda(
+            z(1, 4, n), i32(1), z(1, n), i32(1), z(1), z(1, n), z(1, n), i32(1),
+            torch.zeros(1, dtype=bool), theta_e1=2.0, theta_e2_dmax=1.0,
+            theta_pivot=0.25, delta_max=0.5, skip2_same_theta=True)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        call()
