@@ -26,13 +26,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    included: nv=21/m=42, n=20 with 5332 rows, max_points 231 with 2310
    rows; K1 also at (21, 42), (32, 64), (5, 10), (1, 2) with B=1000; K2
    also on lattice sites whose scores tie, with empty lanes and counts past
-   the capacity, at n=20 and n=32) and the recorded inputs of both paths,
-   float64 and float32: K1 within 1e-9 (float64) or 2e-3 (float32); K2's
-   and K3's outputs equal to the twins' on every lane, K2's floats to the
-   bit.
+   the capacity, at n=20 and n=32; K3 also at the block instance's edges,
+   ``round4_edge_case``) and the recorded inputs of both paths, float64
+   and float32: K1 within 1e-9 (float64) or 2e-3 (float32); K2's and K3's
+   outputs equal to the twins' on every lane, K2's floats to the bit. K3's
+   rows give its bound under the live-size count (``round4_work``) and the
+   padded kernel's count, and the tested and accepted candidates per lane.
 5. ``kernel_gram``      — K4 against its twin: (P, n) = (134, 14) and
-   (251, 20), all five RBF kernels, and the wide path's inputs; max|diff| /
-   max|Phi| within 1e-12 (float64) or 1e-5 (float32).
+   (251, 20), all five RBF kernels, the edges of its tiling (P in 128,
+   129, 251, 512 and n in 1, 20, 32), and the wide path's inputs; max|diff|
+   / max|Phi| within 1e-12 (float64) or 1e-5 (float32), and the output
+   exactly symmetric; timed over ten launches back to back.
 6. ``kernel_admm_iterations`` — K5 (no caller) against its twin at
    (n, m) = (3, 6) and (21, 42), 100 steps.
 7. ``wide_quality_f64`` — the wide path's problem at float64, B=4,
@@ -105,20 +109,24 @@ def phase(name, **fields):
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
-def event_ms(fn, reps):
+def event_ms(fn, reps, inner=1):
     """Median of up to ``reps`` CUDA-event timings of ``fn()`` (after one
-    warm-up), fewer once they add up to 2 s."""
+    warm-up), fewer once they add up to 2 s. With ``inner`` > 1 each timing
+    spans that many calls back to back and is divided by it, so that a
+    kernel shorter than its wrapper's host time is timed on the card, not
+    at the host's launch rate."""
     fn()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-        if sum(times) > 2000.0:
+        times.append(e0.elapsed_time(e1) / inner)
+        if sum(times) * inner > 2000.0:
             break
     return statistics.median(times)
 
@@ -277,6 +285,41 @@ def round4_case(rng, B, C, n, maxN, dup_frac, width=None):
     return X, cand, init, count, param
 
 
+#: K3's edge sets at the wide shapes (``round4_edge_case``)
+ROUND4_EDGES = ("n0_below_pd", "n0_zero", "full", "fill_to_max")
+
+
+def round4_edge_case(rng, B, kind):
+    """Round-4 inputs at the wide path's shapes (max_points 231, a 251-row
+    training buffer, 2310 candidate rows) at the edges of K3's block
+    instance; every third lane has no candidate, the others have them
+    below a fill of at most 120 rows (the twin scans every column that
+    holds one). ``n0_below_pd``: counts
+    0-20, below pd = 21 (the rank test active); ``n0_zero``: no site yet;
+    ``full``: half the lanes at or past max_points; ``fill_to_max``: counts
+    1-21 and each of the first 400 rows a candidate, so most lanes fill to
+    max_points with candidates left."""
+    n, maxN = N_WIDE, WIDE_MAX_POINTS
+    X, cand, init, count, param = round4_case(rng, B, 2310, n, maxN, 0.4, maxN + n)
+    fill = rng.integers(n + 1, 120, B)
+    if kind == "n0_below_pd":
+        count = rng.integers(0, n + 1, B).astype(np.int32)
+    elif kind == "n0_zero":
+        count = np.zeros(B, np.int32)
+    elif kind == "full":
+        count = np.where(np.arange(B) % 2 == 0, rng.integers(maxN, maxN + n + 1, B),
+                         count).astype(np.int32)
+    else:
+        count = rng.integers(1, n + 2, B).astype(np.int32)
+        fill = np.full(B, 400)
+        cand = np.ones_like(cand)
+    cand &= np.arange(2310)[None, :] < fill[:, None]
+    cand[::3] = False
+    rows = np.arange(maxN + n)[None, :] < count[:, None]
+    init = np.where(rows[..., None], rng.uniform(0, 1, init.shape), 0.0)
+    return X, cand, init, count, param
+
+
 def gram_case(rng, B, P, n):
     """Random K4 inputs: sites in the unit cube, ~70 % valid rows and a
     per-lane shape parameter in [0.5, 1] (the solver's default is 1). In
@@ -333,20 +376,83 @@ def selection_work(args, outs):
     return int(ops.sum()), nbytes
 
 
+def round4_test_ops(N, zc, N0, n, pd):
+    """Operations of one tested candidate at the live sizes (N sites, zc
+    accepted, N0 at the start), whatever implements it: phi to the N sites
+    (3n + 6 each), the pd Givens steps on the pd x pd block (~9 pd + 6 each),
+    Qg (2 pd N), Phi Qg (2 N^2) with tmp and the two dot products (6 N),
+    Z' tmp over the live triangle of Z (column z has N0 + z + 1 rows),
+    L^-1 v over the triangle of L^-1 and its squared norm, and sigma."""
+    v = 2 * (zc * (N0 + 1) + zc * (zc - 1) // 2)
+    return (N * (3 * n + 6) + pd * (9 * pd + 6) + 2 * pd * N + 2 * N * N + 6 * N
+            + v + zc * (zc + 1) + 2 * zc + 6)
+
+
+def _at_least(x, lo):
+    return max(x, lo) if isinstance(x, int) else x.clamp(min=lo)
+
+
+def round4_accept_ops(N, zc, pd):
+    """Operations of one acceptance at the live sizes: the pd rotations of
+    Q's pd leading columns and the slot column on max(N + 1, pd) rows, and
+    the new row of L^-1 (L^-1' Lv over its triangle, the divisions)."""
+    return 6 * pd * _at_least(N + 1, pd) + zc * (zc + 1) + zc + 2
+
+
+def round4_setup_ops(N0, n, pd):
+    """Operations of a lane's set-up: Phi on the N0 x N0 block and the
+    Householder QR of the N0 x pd polynomial block, whose reflection j is
+    supported on rows [j, N0) and updates the N0 x pd block and the
+    N0 x N0 block of Q."""
+    ops = N0 * N0 * (3 * n + 6)
+    for j in range(pd):
+        live = _at_least(N0 - j, 0)
+        ops = ops + (live > 0) * (4 * live + 10 + 2 * live * (pd + N0)
+                                  + 3 * N0 * (pd + N0))
+    return ops
+
+
+def round4_tested(cand, accepted, count, max_points):
+    """Replay each lane's acceptance sequence: (tested (B, C) bool, the
+    count N and the accepted count zc before each column). A candidate is
+    tested while the lane has room; its N is the start count plus the
+    acceptances before it."""
+    before = torch.cumsum(accepted.to(torch.int64), -1) - accepted.to(torch.int64)
+    N = count.to(torch.int64)[:, None] + before
+    return cand & (N < max_points), N, before
+
+
 def round4_work(args, kw, accepted, N):
-    """(operations, bytes) of one K3 call on these inputs, counted from the
-    kernel's loops: each candidate tested before the scan stops costs
-    ~M(3n+6) + pd(4pd+3M+8) + 6M^2 operations (M = max_points), each
-    acceptance ~6 pd M + 4 M^2; the tested rows are read once."""
+    """(operations, bytes) of one K3 call on these inputs at the live sizes:
+    every tested candidate (``round4_tested``) costs ``round4_test_ops``,
+    every acceptance ``round4_accept_ops``, every lane with room
+    ``round4_setup_ops``; the tested rows, the flags, the start sites and
+    the outputs are moved once."""
     X, cand, init, count = args
     B, C, n = X.shape
     M, item = kw["max_points"], X.element_size()
     pd = n + 1 if kw["poly_deg"] == 1 else (1 if kw["poly_deg"] == 0 else 0)
-    cols = torch.arange(C, device=X.device)
-    last = torch.where(accepted, cols, torch.full_like(cols, -1)).amax(-1)
-    stop = torch.where(N >= M, last + 1, torch.full_like(last, C))
-    stop = torch.where(count >= M, torch.zeros_like(stop), stop)
-    tested = int((cand & (cols[None, :] < stop[:, None])).sum())
+    tested, Nc, zc = round4_tested(cand, accepted, count, M)
+    N0 = count.to(torch.int64)[:, None].expand_as(Nc)
+    ops = int(torch.where(tested, round4_test_ops(Nc, zc, N0, n, pd), 0).sum())
+    ops += int(torch.where(accepted, round4_accept_ops(Nc, zc, pd), 0).sum())
+    room = count.to(torch.int64) < M
+    ops += int(torch.where(room, round4_setup_ops(count.to(torch.int64), n, pd), 0).sum())
+    nbytes = (int(tested.sum()) * n * item + B * C * 2 + int(count.sum()) * n * item
+              + B * (item + 8))
+    return ops, nbytes
+
+
+def round4_work_padded(args, kw, accepted, N):
+    """The count of the earlier, padded kernel (every loop over max_points
+    M): each candidate tested before the scan stops costs ~M(3n+6) +
+    pd(4pd+3M+8) + 6M^2 operations, each acceptance ~6 pd M + 4 M^2; the
+    tested rows are read once. Printed beside the live count."""
+    X, cand, init, count = args
+    B, C, n = X.shape
+    M, item = kw["max_points"], X.element_size()
+    pd = n + 1 if kw["poly_deg"] == 1 else (1 if kw["poly_deg"] == 0 else 0)
+    tested = int(round4_tested(cand, accepted, count, M)[0].sum())
     n_acc = int(accepted.sum())
     ops = (tested * (M * (3 * n + 6) + pd * (4 * pd + 3 * M + 8) + 6 * M * M)
            + n_acc * (6 * pd * M + 4 * M * M))
@@ -908,6 +1014,17 @@ def phase_kernel_round4(captured, wide_captured):
     sets.append(("random_wide_cubic_deg1", random_set(
         "cubic", 1, B_MAIN, 2310, N_WIDE, WIDE_MAX_POINTS, 1e-14,
         width=WIDE_MAX_POINTS + N_WIDE, rows=300), True))
+    # the block instance's edges at the wide shapes (B=64: the twin scans
+    # every column that holds a candidate)
+    for kind in ROUND4_EDGES:
+        def edge(dt, kind=kind):
+            X, cand, init, count, _ = round4_edge_case(np.random.default_rng(7), 64, kind)
+            f = lambda a: torch.as_tensor(a, dtype=dt, device="cuda")
+            return (f(X), torch.as_tensor(cand, device="cuda"), f(init),
+                    torch.as_tensor(count, dtype=torch.int32, device="cuda")), dict(
+                kernel="cubic", param=3, poly_deg=1, max_points=WIDE_MAX_POINTS,
+                chol_pivot=1e-14)
+        sets.append((f"wide_edge_{kind}", edge, False))
     sets += [(f"main_path_trip{t}", recorded(a, kw), False)
              for t, (a, kw) in zip(CAPTURE_TRIPS, captured)]
     sets += [(f"wide_path_call{t}", recorded(a, kw), False)
@@ -936,14 +1053,21 @@ def phase_kernel_round4(captured, wide_captured):
             ms = event_ms(lambda: prepare_fused.round4_cuda(*args, **kw), 5)
             ops, nbytes = round4_work(args, kw, acc_t, N_t)
             bound_ms, bound_by = bound(ops, nbytes, dtype)
+            ops_padded, _ = round4_work_padded(args, kw, acc_t, N_t)
+            tested = round4_tested(args[1], acc_t, args[3], kw["max_points"])[0].sum(-1)
             row = dict(set=name, dtype=str(dtype), B=int(args[0].shape[0]),
                        C=int(args[0].shape[1]), n=int(args[0].shape[2]),
                        max_points=kw["max_points"], kernel=kw["kernel"],
                        poly_deg=kw["poly_deg"], accepted=int(acc_t.sum()),
-                       rejected=rejected, min_N=int(N_t.min()),
+                       rejected=rejected, min_N=int(N_t.min()), max_N=int(N_t.max()),
+                       tested_max=int(tested.max()),
+                       tested_median=float(tested.double().median()),
+                       accepted_max=int(acc_t.sum(-1).max()),
                        max_abs_err=float((N_k - N_t).abs().max()),
                        lanes_differing=len(bad), ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes)
+                       bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes,
+                       bound_ms_padded_count=bound(ops_padded, nbytes, dtype)[0],
+                       ops_padded_count=ops_padded)
             phase("kernel_round4", **row)
             rows[(name.split("_trip")[0].split("_call")[0], dtype)] = row
     return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)]
@@ -1111,15 +1235,17 @@ def gram_work(B, P, n, itemsize):
 
 def phase_kernel_gram(wide_captured):
     """K4 against its twin on the card: B=1024 random cases at (P, n) =
-    (134, 14) and (251, 20), all five kernels, ~70 % valid rows, and the
-    inputs the wide path gave it; max|diff| / max|Phi| within 1e-12
-    (float64) or 1e-5 (float32). Returns the row of the last recorded call."""
+    (134, 14) and (251, 20), all five kernels, B=128 cases at the edges of
+    its tiling (P in 128, 129, 251, 512 and n in 1, 20, 32), ~70 % valid
+    rows, and the inputs the wide path gave it; max|diff| / max|Phi| within
+    1e-12 (float64) or 1e-5 (float32), and the output exactly symmetric.
+    Returns the row of the last recorded call."""
     from morbit_tpu_torch.ops import dense_kernels
     from morbit_tpu_torch.ops.rbf import EXPONENT_KERNELS, RBF_KERNELS, kernel_default_param
 
-    def random_set(kernel, P, n):
+    def random_set(kernel, P, n, B=B_MAIN):
         def make(dt):
-            sites, mask, param = gram_case(np.random.default_rng(P + n), B_MAIN, P, n)
+            sites, mask, param = gram_case(np.random.default_rng(P + n), B, P, n)
             f = lambda a: torch.as_tensor(a, dtype=dt, device="cuda")
             par = kernel_default_param(kernel) if kernel in EXPONENT_KERNELS else f(param)
             return f(sites), torch.as_tensor(mask, device="cuda"), kernel, par
@@ -1131,6 +1257,12 @@ def phase_kernel_gram(wide_captured):
 
     sets = [(f"random_{k}_P{P}_n{n}", random_set(k, P, n))
             for P, n in ((134, 14), (251, N_WIDE)) for k in RBF_KERNELS]
+    # the edges of the tiling (P a multiple of 32 and one past it, P = 512,
+    # n = 1 and n = 32), each RBF kernel at least once
+    edges = [(P, n) for P in (128, 129, 251, 512) for n in (1, N_WIDE, 32)
+             if (P, n) != (251, N_WIDE)]
+    sets += [(f"edge_{k}_P{P}_n{n}", random_set(k, P, n, B=128))
+             for e, (P, n) in enumerate(edges) for k in [RBF_KERNELS[e % len(RBF_KERNELS)]]]
     sets += [(f"wide_path_call{t}", recorded(a))
              for t, (a, _) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
     row = None
@@ -1143,12 +1275,15 @@ def phase_kernel_gram(wide_captured):
             check(dense_kernels.gram_launches == before + 1, "K4 launch not counted")
             err = float((k - t).abs().max()) / float(t.abs().max())
             check(err <= tol, f"K4 {name} {dtype}: max|diff| / max|Phi| = {err} > {tol}")
-            ms = event_ms(lambda: dense_kernels.rbf_gram_cuda(*args), 10)
+            # only the tiles with I <= J are computed: the mirror is exact
+            check(torch.equal(k, k.transpose(1, 2)), f"K4 {name} {dtype}: not symmetric")
+            ms = event_ms(lambda: dense_kernels.rbf_gram_cuda(*args), 10, inner=10)
             B, P, n = args[0].shape
             ops, nbytes = gram_work(B, P, n, args[0].element_size())
             bound_ms, bound_by = bound(ops, nbytes, dtype)
             row = dict(set=name, dtype=str(dtype), B=B, P=P, n=n, kernel=args[2],
-                       valid_rows=int(args[1].sum()), max_abs_err=err, tol=tol, ms=ms,
+                       valid_rows=int(args[1].sum()), max_abs_err=err, tol=tol,
+                       symmetric=True, ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        ops=ops, bytes=nbytes)
             phase("kernel_gram", **row)

@@ -33,8 +33,6 @@ GRAM_SOURCE = cuda_build.CSRC / "rbf_gram.cu"
 ADMM_ITERATIONS_SOURCE = cuda_build.CSRC / "admm_iterations.cu"
 #: largest instance K5's per-thread vectors take
 ADMM_ITERATIONS_MAX_N, ADMM_ITERATIONS_MAX_M = 64, 128
-#: the lane axis of K4 is its grid's third dimension
-GRAM_MAX_B = 65535
 
 #: kernel launches since the counters were last set to 0 (each wrapper adds
 #: one per launch; callers reset them to prove a run went through a kernel)
@@ -42,7 +40,7 @@ gram_launches = 0
 admm_iterations_launches = 0
 
 _SIGNATURES = {
-    GRAM_SOURCE: {f"rbf_gram_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    GRAM_SOURCE: {f"rbf_gram_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                   + [ctypes.c_double] * 2 + [ctypes.c_void_p] for t in ("f32", "f64")},
     ADMM_ITERATIONS_SOURCE: {
         f"admm_iterations_{t}": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
@@ -81,29 +79,48 @@ def rbf_gram_matrix_plain(sites, mask, kernel: str, param):
     return torch.where(mask[:, :, None] & mask[:, None, :], phi, eye)
 
 
+def gram_smem_bytes(P: int, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of K4 (``gram_smem_bytes`` in the
+    source): the lane's sites (P rounded up to 32 rows, each n rounded up to
+    an odd number of 4-value vectors), their norms, eight 32 x 33 tile
+    buffers and the mask."""
+    rows = -(-P // 32) * 32
+    ld = -(-n // 4) * 4
+    ld += 4 if (ld // 4) % 2 == 0 else 0
+    return itemsize * (rows * ld + rows + 8 * 32 * 33) + rows
+
+
 def rbf_gram_cuda(sites, mask, kernel: str, param):
-    """Launch the ``rbf_gram`` kernel on the current stream."""
+    """Launch the ``rbf_gram`` kernel on the current stream (one block per
+    lane; the lane's sites must fit in shared memory). Returns a (B, P, P)
+    view of a (B, P, ldo) buffer whose rows are padded to a multiple of 8
+    values."""
     global gram_launches
     B, P, n = sites.shape
-    if B > GRAM_MAX_B:
-        raise NotImplementedError(f"rbf_gram kernel takes B <= {GRAM_MAX_B}, got {B}")
     dt = cuda_build.float_dtype("rbf_gram", sites)
+    if gram_smem_bytes(P, n, sites.element_size()) > cuda_build.SMEM_LIMIT:
+        raise NotImplementedError(
+            f"rbf_gram kernel takes a lane's sites within {cuda_build.SMEM_LIMIT} "
+            f"bytes of shared memory, got P={P}, n={n} at {dt}")
     param_t = (torch.full((B,), float(param), dtype=dt, device=sites.device)
                if isinstance(param, (int, float)) else param.contiguous())
     cuda_build.check_args("rbf_gram", sites.device, {
         "sites": (sites, (B, P, n), dt), "mask": (mask, (B, P), torch.bool),
         "param": (param_t, (B,), dt)})
     exponent, coef = phi_constants(kernel, param)
-    out = torch.empty((B, P, P), dtype=dt, device=sites.device)
+    # rows padded to a multiple of 8 values: every row starts on a 32-byte
+    # sector, so the kernel's row segments are written as whole sectors
+    ldo = -(-P // 8) * 8
+    out = torch.empty((B, P, ldo), dtype=dt, device=sites.device)
     fn = getattr(_library(GRAM_SOURCE), "rbf_gram_f32" if dt == torch.float32
                  else "rbf_gram_f64")
     p = cuda_build.ptr
-    err = fn(p(sites), p(mask), p(param_t), p(out), B, P, n, KERNEL_ID[kernel],
+    err = fn(p(sites), p(mask), p(param_t), p(out), B, P, n, ldo, KERNEL_ID[kernel],
              exponent, coef, cuda_build.stream_of(sites))
     if err != 0:
         raise RuntimeError(f"rbf_gram kernel launch failed: cudaError_t {err}")
     gram_launches += 1
-    return out
+    return out[:, :, :P]
 
 
 def rbf_gram_matrix(sites, mask, kernel: str, param):

@@ -63,8 +63,9 @@ _ROUND4_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
                     + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                     + [ctypes.c_double] * 3 + [ctypes.c_void_p])
-# the block-per-lane instance takes its workspace after N_out
-_ROUND4_WIDE_ARGTYPES = _ROUND4_ARGTYPES[:10] + [ctypes.c_void_p] + _ROUND4_ARGTYPES[10:]
+# the block-per-lane instance takes its two workspaces after N_out
+_ROUND4_WIDE_ARGTYPES = (_ROUND4_ARGTYPES[:10] + [ctypes.c_void_p] * 2
+                         + _ROUND4_ARGTYPES[10:])
 _SIGNATURES = {
     SELECTION_SOURCE: {f"rbf_selection_{t}": _SELECTION_ARGTYPES for t in ("f32", "f64")},
     ROUND4_SOURCE: {**{f"rbf_round4_{t}": _ROUND4_ARGTYPES for t in ("f32", "f64")},
@@ -190,6 +191,13 @@ def selection(X, count, x_s, x_index, delta, lb_s, ub_s, max_new, efl, **statics
 
 # ----------------------------------------------------------------- K3: round 4
 
+def round4_wide_smem_bytes(max_points: int, pd: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of K3's block-per-lane instance
+    (``wide_smem_elems`` in the source): eight vectors of ``max_points``,
+    two pd x pd buffers for R's leading rows and five vectors of pd."""
+    return itemsize * (8 * max_points + 2 * pd * pd + 5 * pd)
+
+
 def round4_cuda(X, cand, init_sites, n_init, *, kernel, param, poly_deg,
                 max_points, chol_pivot):
     """Launch the ``rbf_round4`` kernel on the current stream; arguments and
@@ -203,11 +211,16 @@ def round4_cuda(X, cand, init_sites, n_init, *, kernel, param, poly_deg,
     pd = poly_dim(n, poly_deg)
     narrow = (max_points <= ROUND4_MAX_POINTS and pd <= ROUND4_MAX_PD
               and n <= ROUND4_MAX_N)
-    if not narrow and (max_points > ROUND4_WIDE_MAX_POINTS or n > ROUND4_WIDE_MAX_N):
-        raise NotImplementedError(
-            f"rbf_round4 kernel takes max_points <= {ROUND4_WIDE_MAX_POINTS} and "
-            f"n <= {ROUND4_WIDE_MAX_N}, got max_points={max_points}, n={n}")
     dt = cuda_build.float_dtype("rbf_round4", X)
+    if not narrow and (max_points > ROUND4_WIDE_MAX_POINTS or n > ROUND4_WIDE_MAX_N
+                       or pd > max_points
+                       or round4_wide_smem_bytes(max_points, pd, X.element_size())
+                       > cuda_build.SMEM_LIMIT):
+        raise NotImplementedError(
+            f"rbf_round4 kernel takes max_points <= {ROUND4_WIDE_MAX_POINTS}, "
+            f"n <= {ROUND4_WIDE_MAX_N} and pd <= max_points within "
+            f"{cuda_build.SMEM_LIMIT} bytes of shared memory, got "
+            f"max_points={max_points}, n={n}, pd={pd}")
     lane_stride, row_stride = _site_view("rbf_round4", X, B, C, n, dt)
     static = isinstance(param, (int, float))
     param_t = (torch.full((B,), float(param), dtype=dt, device=X.device)
@@ -232,7 +245,8 @@ def round4_cuda(X, cand, init_sites, n_init, *, kernel, param, poly_deg,
     else:
         lane = lib.rbf_round4_wide_lane_elems(max_points, n, pd)
         work = torch.empty((B * lane,), dtype=dt, device=X.device)
-        err = getattr(lib, f"rbf_round4_wide_{t}")(*head, p(work), *tail)
+        cand_list = torch.empty((B * C,), dtype=torch.int32, device=X.device)
+        err = getattr(lib, f"rbf_round4_wide_{t}")(*head, p(work), p(cand_list), *tail)
     if err != 0:
         raise RuntimeError(f"rbf_round4 kernel launch failed: cudaError_t {err}")
     round4_launches += 1

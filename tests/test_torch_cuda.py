@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (SEL_NAMES, SEL_STATICS, admm_iterations_case, descent_lps,
-                        gram_case, random_qps, round4_case, selection_case,
-                        selection_lattice_case)
+from chip_smoke import (ROUND4_EDGES, SEL_NAMES, SEL_STATICS, admm_iterations_case,
+                        descent_lps, gram_case, random_qps, round4_case,
+                        round4_edge_case, selection_case, selection_lattice_case)
 from morbit_tpu_torch.ops import qp_lane
 from morbit_tpu_torch.ops.qp import _rho_vec
 
@@ -156,6 +156,31 @@ def test_round4_wide_kernel_matches_twin(cuda, kernel, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ROUND4_EDGES)
+def test_round4_wide_kernel_edges_match_twin(cuda, kind, dtype):
+    """K3's block-per-lane instance at its edges (``round4_edge_case``:
+    counts below pd, no site yet, lanes already full, lanes that fill to
+    max_points, lanes with no candidate) against its twin, lane by lane."""
+    from morbit_tpu_torch.models.rbf_round4 import run_round4
+    from morbit_tpu_torch.ops import prepare_fused
+
+    X, cand, init, count, _ = round4_edge_case(np.random.default_rng(7), 64, kind)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    args = (f(X), torch.as_tensor(cand, device=cuda), f(init),
+            torch.as_tensor(count, dtype=torch.int32, device=cuda))
+    kw = dict(kernel="cubic", param=3, poly_deg=1, max_points=231, chol_pivot=1e-14)
+    before = prepare_fused.round4_launches
+    acc_k, N_k = prepare_fused.round4(*args, **kw)
+    acc_t, N_t = run_round4(*args, **kw)
+    torch.cuda.synchronize()
+    assert prepare_fused.round4_launches == before + 1
+    assert torch.equal(N_k, N_t) and torch.equal(acc_k, acc_t)
+    if kind == "fill_to_max":
+        assert int(N_t.max()) == 231
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("kernel", ["cubic", "multiquadric", "inv_multiquadric",
                                     "gaussian", "thin_plate_spline"])
@@ -175,6 +200,30 @@ def test_gram_kernel_matches_twin(cuda, kernel, dtype, tol):
     torch.cuda.synchronize()
     assert dense_kernels.gram_launches == before + 1
     assert float((k - t).abs().max()) <= tol * float(t.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("P,n,kernel", [(128, 1, "cubic"), (129, 20, "gaussian"),
+                                        (251, 32, "thin_plate_spline"),
+                                        (512, 20, "multiquadric"),
+                                        (129, 32, "inv_multiquadric")])
+def test_gram_kernel_edges_match_twin(cuda, P, n, kernel, dtype, tol):
+    """K4 at the edges of its tiling (P a multiple of 32 and one past it,
+    n = 1 and n = 32) against its twin within tol * max|Phi|, and exactly
+    symmetric (only the tiles with I <= J are computed)."""
+    from morbit_tpu_torch.ops import dense_kernels
+    from morbit_tpu_torch.ops.rbf import EXPONENT_KERNELS, kernel_default_param
+
+    sites, mask, param = gram_case(np.random.default_rng(P + n), 16, P, n)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    par = kernel_default_param(kernel) if kernel in EXPONENT_KERNELS else f(param)
+    args = (f(sites), torch.as_tensor(mask, device=cuda), kernel, par)
+    k = dense_kernels.rbf_gram_matrix(*args)
+    t = dense_kernels.rbf_gram_matrix_plain(*args)
+    torch.cuda.synchronize()
+    assert float((k - t).abs().max()) <= tol * float(t.abs().max())
+    assert torch.equal(k, k.transpose(1, 2))
 
 
 @pytest.mark.cuda

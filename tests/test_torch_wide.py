@@ -233,9 +233,10 @@ def _beyond_limits(kernel):
             z(1, nv, nv), z(1, nv), z(1, m, nv), z(1, m), z(1, m), z(1, m),
             n_stages=1, n_steps=1, sigma=1e-6, alpha=1.6, rho_lo=1e-6, rho_hi=1e6)
     if kernel == "gram":
+        # one lane's sites past the shared memory of a block
+        P = 16384
         return lambda: dense_kernels.rbf_gram_cuda(
-            z(dense_kernels.GRAM_MAX_B + 1, 1, 1), torch.ones((1, 1), dtype=bool),
-            "cubic", 3.0)
+            z(1, P, 1), torch.ones((1, P), dtype=bool), "cubic", 3.0)
     n = dense_kernels.ADMM_ITERATIONS_MAX_N + 1
     return lambda: dense_kernels.admm_iterations_cuda(
         z(1, n, n), z(1, 2, n), z(1, 2), z(1, n), z(1, 2), z(1, 2), z(1, n), z(1, 2),
