@@ -38,7 +38,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    / max|Phi| within 1e-12 (float64) or 1e-5 (float32), and the output
    exactly symmetric; timed over ten launches back to back.
 6. ``kernel_admm_iterations`` — K5 (no caller) against its twin at
-   (n, m) = (3, 6) and (21, 42), 100 steps.
+   (n, m) = (3, 6) and (21, 42), B=1024, 100 steps (both timed), and on
+   its edge sets (``K5_EDGES``: (1, 1), (32, 64), (64, 128), B=1, B not a
+   multiple of the instances a block, no steps, rows with infinite bounds),
+   float64 and float32, within 1e-10 (float64) or 1e-4 (float32) times
+   max(1, max|twin|).
 7. ``wide_quality_f64`` — the wide path's problem at float64, B=4,
    max_iter=25, under the asserts of tests/test_zdt_quality.py:97-101.
 8. ``wide_card_vs_cpu`` — ZDT1 at n=10 at float64 on the card and on the
@@ -1291,27 +1295,51 @@ def phase_kernel_gram(wide_captured):
 
 
 def admm_iterations_work(B, n, m, iters, itemsize):
-    """(operations, bytes) of one K5 call, counted from the kernel's loops:
-    per step n(4m + 3) for the right-hand side, 2n^2 for M^-1 rhs, 2mn for
-    A xt, 3n and 10m for the updates; the operands read once, z/zz/y
-    written once."""
-    ops = B * iters * (n * (4 * m + 3) + 2 * n * n + 2 * m * n + 3 * n + 10 * m)
+    """(operations, bytes) of one K5 call, counted from the function and not
+    from a kernel: per step 2m for t1 = rho zz - y, 2nm for A' t1 and 3n for
+    sigma z - q and the sum, 2n^2 for M^-1 rhs, 2mn for A xt, 3n and 10m
+    for the updates; the operands read once, z/zz/y written once."""
+    ops = B * iters * (2 * m + 2 * n * m + 3 * n + 2 * n * n + 2 * m * n + 3 * n + 10 * m)
     return ops, B * itemsize * (n * n + m * n + 5 * m + 2 * n + n + 2 * m)
+
+
+#: K5's edge sets beside the timed (3, 6) and (21, 42) sets: (name, n, m, B,
+#: iters, rows with infinite bounds); 1023 and 5 are not multiples of the
+#: instances a block (4 at (21, 42), 2 at float64 (64, 128))
+K5_EDGES = (("n1_m1", 1, 1, 37, 100, False), ("n32_m64", 32, 64, 37, 100, False),
+            ("n64_m128", 64, 128, 37, 100, False), ("B1", 21, 42, 1, 100, False),
+            ("B1023", 21, 42, 1023, 100, False), ("B5_n64_m128", 64, 128, 5, 30, False),
+            ("iters0", 21, 42, 64, 0, False), ("inf_rows", 21, 42, 64, 100, True))
+
+
+def admm_iterations_edge_case(B, n, m, inf_rows, seed):
+    """``admm_iterations_case``; with ``inf_rows`` three rows in four get an
+    infinite lower, upper or both bounds (zz0 = clip(0, l, u) again)."""
+    Minv, A, rho, q, lo, hi, z0, _, y0 = admm_iterations_case(B, n, m, seed)
+    if inf_rows:
+        lo[:, 0::4] = -np.inf
+        hi[:, 1::4] = np.inf
+        lo[:, 2::4], hi[:, 2::4] = -np.inf, np.inf
+    return Minv, A, rho, q, lo, hi, z0, np.clip(0.0, lo, hi), y0
 
 
 def phase_kernel_admm_iterations():
     """K5 against its twin on the card: B=1024, (n, m) = (3, 6) and
-    (21, 42), 100 steps, float64 and float32; max|diff| within 1e-10
-    (float64) or 1e-4 (float32) times max(1, max|twin|). Returns the
-    float32 (21, 42) row. No path calls K5."""
+    (21, 42), 100 steps, timed over five launches back to back (at (3, 6)
+    the wrapper's host time is near the kernel's), then the edge sets
+    ``K5_EDGES``; float64 and float32, max|diff| within 1e-10 (float64) or
+    1e-4 (float32) times max(1, max|twin|). Returns the float32 rows at
+    (3, 6) and (21, 42). No path calls K5."""
     from morbit_tpu_torch.ops import dense_kernels
 
-    kw = dict(iters=100, sigma=1e-6, alpha=1.6)
-    row = None
+    timed_sets = [(f"n{n}_m{m}", n, m, B_MAIN, 100, False) for n, m in ((3, 6), (21, 42))]
+    rows = {}
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
-        for n, m in ((3, 6), (21, 42)):
+        for (name, n, m, B, iters, inf_rows), is_timed in (
+                [(s_, True) for s_ in timed_sets] + [(e, False) for e in K5_EDGES]):
             args = [torch.as_tensor(a, dtype=dtype, device="cuda")
-                    for a in admm_iterations_case(B_MAIN, n, m, seed=n)]
+                    for a in admm_iterations_edge_case(B, n, m, inf_rows, seed=n)]
+            kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
             before = dense_kernels.admm_iterations_launches
             k = dense_kernels.admm_iterations_cuda(*args, **kw)
             t, plain_ms = timed(lambda: dense_kernels.admm_iterations_plain(*args, **kw))
@@ -1319,16 +1347,21 @@ def phase_kernel_admm_iterations():
                   "K5 launch not counted")
             err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
                       for a, b in zip(k, t))
-            check(err <= tol, f"K5 n={n} m={m} {dtype}: {err} > {tol}")
-            ms = event_ms(lambda: dense_kernels.admm_iterations_cuda(*args, **kw), 10)
-            ops, nbytes = admm_iterations_work(B_MAIN, n, m, kw["iters"],
-                                               args[0].element_size())
-            bound_ms, bound_by = bound(ops, nbytes, dtype)
-            row = dict(n=n, m=m, dtype=str(dtype), B=B_MAIN, iters=kw["iters"],
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes)
+            check(err <= tol, f"K5 {name} {dtype}: {err} > {tol}")
+            row = dict(set=name, n=n, m=m, dtype=str(dtype), B=B, iters=iters,
+                       lanes_per_block=dense_kernels.admm_iterations_lanes(
+                           n, m, args[0].element_size()),
+                       max_abs_err=err, tol=tol, plain_ms=plain_ms)
+            if is_timed:
+                ms = event_ms(lambda: dense_kernels.admm_iterations_cuda(*args, **kw),
+                              10, inner=5)
+                ops, nbytes = admm_iterations_work(B, n, m, iters, args[0].element_size())
+                bound_ms, bound_by = bound(ops, nbytes, dtype)
+                row.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by, ops=ops,
+                           bytes=nbytes)
+                rows[(name, dtype)] = row
             phase("kernel_admm_iterations", **row)
-    return row
+    return rows[("n3_m6", torch.float32)], rows[("n21_m42", torch.float32)]
 
 
 def main():
@@ -1346,7 +1379,7 @@ def main():
     sel_rows = phase_kernel_selection(captured["selection"], wide_captured["selection"])
     r4_rows = phase_kernel_round4(captured["round4"], wide_captured["round4"])
     gram_row = phase_kernel_gram(wide_captured["gram"])
-    k5_row = phase_kernel_admm_iterations()
+    k5_rows = phase_kernel_admm_iterations()
     phase_wide_quality_f64()
     phase_wide_card_vs_cpu()
     phase_rbf_card_vs_cpu()
@@ -1367,7 +1400,7 @@ def main():
              "morbit_tpu/ops/prepare_fused.py:276"),
             ("rbf_gram", (None, gram_row), "morbit_tpu_torch/csrc/rbf_gram.cu",
              "morbit_tpu/ops/pallas_kernels.py:71"),
-            ("admm_iterations", (None, k5_row), "morbit_tpu_torch/csrc/admm_iterations.cu",
+            ("admm_iterations", (None, k5_rows[1]), "morbit_tpu_torch/csrc/admm_iterations.cu",
              "morbit_tpu/ops/pallas_kernels.py:127")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     table = []
@@ -1380,6 +1413,9 @@ def main():
         if main_row is not None:
             entry["rbf_main_path"] = {"launches": rbf_launches[name],
                                       **{k: main_row[k] for k in keys}}
+        if name == "admm_iterations":      # K5's (21, 42) row above; also (3, 6)
+            entry["shape"] = [row["n"], row["m"]]
+            entry["n3_m6"] = {k: k5_rows[0][k] for k in keys}
         table.append(entry)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

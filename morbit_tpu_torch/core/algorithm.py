@@ -20,6 +20,7 @@ steepest descent.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -202,13 +203,21 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@contextlib.contextmanager
 def _full_precision_matmuls():
-    """Full float32 matmuls inside the solver, mirroring the JAX package's
-    ``_highest_matmul_precision`` (algorithm.py:252-265): TF32 products
-    spoil the tiny Gram/KKT/QP solves (about 5x worse convergence at f32
-    in the JAX package's measurements)."""
+    """Full float32 matmuls inside the solver's calls, mirroring the JAX
+    package's ``_highest_matmul_precision`` (algorithm.py:252-265): TF32
+    products spoil the tiny Gram/KKT/QP solves (about 5x worse convergence
+    at f32 in the JAX package's measurements). Both TF32 flags are False
+    inside and hold the caller's values again on exit, an exception
+    included; nested scopes restore the outer scope's values."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 class Solver:
@@ -232,7 +241,6 @@ class Solver:
                 raise NotImplementedError(
                     f"AlgorithmConfig.{name}={getattr(ac, name)!r} is not "
                     "ported to morbit_tpu_torch yet")
-        _full_precision_matmuls()
         self.scal = scaling.get_var_scaler(self._tensor(mop.lb),
                                            self._tensor(mop.ub), ac.var_scaler)
         # the largest per-rebuild working set of any group (n+1 without an
@@ -288,6 +296,7 @@ class Solver:
         return omega, d, groups
 
     # ------------------------------------------------------------- initialization
+    @_full_precision_matmuls()
     def initialize(self, x0) -> SolverState:
         """``initialize_data`` (``algorithm.jl:223-323``) for a (B, n) batch
         of starting points (a single (n,) start is the batch of one)."""
@@ -377,6 +386,7 @@ class Solver:
                                                    shrink_much, delta)))
 
     # ------------------------------------------------------------ one iteration
+    @_full_precision_matmuls()
     def iterate(self, state: SolverState) -> SolverState:
         """``iterate!`` (``algorithm.jl:615-917``) for every lane.
 
@@ -675,6 +685,7 @@ class Solver:
                                   iter_counter=state.iter_counter + 1)
 
     # ---------------------------------------------------------------- top level
+    @_full_precision_matmuls()
     def solve_from_state(self, state: SolverState) -> tuple[SolverState, int]:
         """Run every lane to its stop code; returns the state and the number
         of outer trips."""
@@ -686,6 +697,7 @@ class Solver:
             state = tree_where(running, self.iterate(state), state)
             trips += 1
 
+    @_full_precision_matmuls()
     def solve(self, x0) -> OptimizeResult:
         state, trips = self.solve_from_state(self.initialize(x0))
         return OptimizeResult(

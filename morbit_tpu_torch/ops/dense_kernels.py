@@ -31,8 +31,10 @@ from morbit_tpu_torch.ops.rbf import KERNEL_ID, apply_kernel, phi_constants
 
 GRAM_SOURCE = cuda_build.CSRC / "rbf_gram.cu"
 ADMM_ITERATIONS_SOURCE = cuda_build.CSRC / "admm_iterations.cu"
-#: largest instance K5's per-thread vectors take
+#: largest instance K5 takes (two variables and four rows a thread)
 ADMM_ITERATIONS_MAX_N, ADMM_ITERATIONS_MAX_M = 64, 128
+#: most instances (warps) in one block of K5
+ADMM_ITERATIONS_MAX_LANES = 4
 
 #: kernel launches since the counters were last set to 0 (each wrapper adds
 #: one per launch; callers reset them to prove a run went through a kernel)
@@ -44,7 +46,9 @@ _SIGNATURES = {
                   + [ctypes.c_double] * 2 + [ctypes.c_void_p] for t in ("f32", "f64")},
     ADMM_ITERATIONS_SOURCE: {
         f"admm_iterations_{t}": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
-        + [ctypes.c_double] * 2 + [ctypes.c_void_p] for t in ("f32", "f64")},
+        + [ctypes.c_double] * 2
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        for t in ("f32", "f64")},
 }
 _libs = {}
 
@@ -152,15 +156,45 @@ def admm_iterations_plain(Minv, A, rho, q, l, u, z0, zz0, y0, *, iters: int,
     return z, zz, y
 
 
+def _admm_iterations_lane_elems(n: int, m: int, itemsize: int) -> int:
+    """Shared-memory elements of one K5 instance, mirroring ``layout`` in
+    the source (whose launcher refuses any other size): A (m rows rounded
+    up to whole 16-byte vectors) and Minv, each row padded to an odd count
+    of vectors, t1, rhs and xt."""
+    width = 16 // itemsize
+    ld = -(-n // width) * width
+    ld += width if (ld // width) % 2 == 0 else 0
+    mp = -(-m // width) * width
+    return (mp + n) * ld + mp + 2 * ld
+
+
+def admm_iterations_lanes(n: int, m: int, itemsize: int) -> int:
+    """Instances (warps) a block of K5 takes at (n, m): as many as fit the
+    shared memory of a block, at most ``ADMM_ITERATIONS_MAX_LANES``."""
+    lane = _admm_iterations_lane_elems(n, m, itemsize) * itemsize
+    return max(1, min(ADMM_ITERATIONS_MAX_LANES, cuda_build.SMEM_LIMIT // lane))
+
+
+def admm_iterations_smem_bytes(n: int, m: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of K5 at (n, m): the instances of
+    :func:`admm_iterations_lanes`, each its A, Minv and three vectors."""
+    return (admm_iterations_lanes(n, m, itemsize)
+            * _admm_iterations_lane_elems(n, m, itemsize) * itemsize)
+
+
 def admm_iterations_cuda(Minv, A, rho, q, l, u, z0, zz0, y0, *, iters: int,
                          sigma: float, alpha: float):
-    """Launch the ``admm_iterations`` kernel on the current stream."""
+    """Launch the ``admm_iterations`` kernel on the current stream (one warp
+    per instance, :func:`admm_iterations_lanes` instances a block)."""
     global admm_iterations_launches
     B, m, n = A.shape
-    if n > ADMM_ITERATIONS_MAX_N or m > ADMM_ITERATIONS_MAX_M:
+    smem = admm_iterations_smem_bytes(n, m, A.element_size())
+    if (n > ADMM_ITERATIONS_MAX_N or m > ADMM_ITERATIONS_MAX_M
+            or smem > cuda_build.SMEM_LIMIT):
         raise NotImplementedError(
             f"admm_iterations kernel takes n <= {ADMM_ITERATIONS_MAX_N} and m <= "
-            f"{ADMM_ITERATIONS_MAX_M}, got n={n}, m={m}")
+            f"{ADMM_ITERATIONS_MAX_M} within {cuda_build.SMEM_LIMIT} bytes of shared "
+            f"memory, got n={n}, m={m}")
     dt = cuda_build.float_dtype("admm_iterations", A)
     vecs = dict(rho=(rho, m), q=(q, n), l=(l, m), u=(u, m), z0=(z0, n),
                 zz0=(zz0, m), y0=(y0, m))
@@ -172,7 +206,9 @@ def admm_iterations_cuda(Minv, A, rho, q, l, u, z0, zz0, y0, *, iters: int,
                  "admm_iterations_f32" if dt == torch.float32 else "admm_iterations_f64")
     p = cuda_build.ptr
     err = fn(p(Minv), p(A), p(rho), p(q), p(l), p(u), p(z0), p(zz0), p(y0), p(z),
-             p(zz), p(y), B, n, m, iters, sigma, alpha, cuda_build.stream_of(A))
+             p(zz), p(y), B, n, m, iters, sigma, alpha,
+             admm_iterations_lanes(n, m, A.element_size()), smem, cuda_build.SMEM_LIMIT,
+             cuda_build.stream_of(A))
     if err != 0:
         raise RuntimeError(f"admm_iterations kernel launch failed: cudaError_t {err}")
     admm_iterations_launches += 1

@@ -1,4 +1,4 @@
-"""K1-K4 of two checkouts on one card, at the wide path's shapes.
+"""K1-K5 of two checkouts on one card, at the wide path's shapes.
 
 Times K1 (``admm_stages_cuda``) at (nv, m) = (21, 42), 4 stages of 100
 steps, K2 (``selection_cuda``) at n=20 with 5,332 and 1,200 rows, K3
@@ -6,10 +6,13 @@ steps, K2 (``selection_cuda``) at n=20 with 5,332 and 1,200 rows, K3
 below a fill of at most 300 rows, and K4 (``rbf_gram_cuda``, cubic) at
 (P, n) = (251, 20), on seeded random inputs (``chip_smoke.random_qps``,
 ``selection_case``, ``round4_case``, ``gram_case``), float32, B=1024, with
-CUDA events. It prints a SHA-256 of K3's outputs (``accepted``, N) and of
-K4's Gram bytes, so that the lines of the two checkouts show whether their
-kernels agree to the bit. K4 is timed over ten launches back to back
-(its wrapper's host time exceeds the kernel's). ``--inputs`` also times K3
+CUDA events; and K5 (``admm_iterations_cuda``, no caller) at (n, m) =
+(3, 6) and (21, 42), 100 steps, float32 and float64, B=1024, on
+``chip_smoke.admm_iterations_case``. It prints a SHA-256 of K3's outputs
+(``accepted``, N), of K4's Gram bytes and of K5's (z, zz, y), so that the
+lines of the two checkouts show whether their kernels agree to the bit.
+K4 is timed over ten launches back to back and K5 over five (their
+wrappers' host time exceeds or nears the kernels'). ``--inputs`` also times K3
 on the wide path's recorded inputs (``round4_phases --record``). With
 ``--wide-batch`` it also times one batch of the wide path (``chip_smoke.py``'s first ``wide_main_path`` batch:
 ZDT1 at n=20, cubic RBF, the reference grid budget, 1024 Halton starts,
@@ -108,6 +111,15 @@ def time_here(wide_batch: bool, inputs) -> dict:
     g = (f(sites), torch.as_tensor(mask, device="cuda"), "cubic", 3.0)
     out["K4_P251_n20_ms"] = _event_ms(lambda: dense_kernels.rbf_gram_cuda(*g), 10, inner=10)
     out["K4_P251_n20_sha256"] = digest(dense_kernels.rbf_gram_cuda(*g))
+    k5_kw = dict(iters=100, sigma=1e-6, alpha=1.6)
+    for tag, k5_dt in (("f32", torch.float32), ("f64", torch.float64)):
+        for n, m in ((3, 6), (21, 42)):
+            k5 = [torch.as_tensor(a, dtype=k5_dt, device="cuda")
+                  for a in cs.admm_iterations_case(1024, n, m, seed=n)]
+            out[f"K5_n{n}_m{m}_{tag}_ms"] = _event_ms(
+                lambda: dense_kernels.admm_iterations_cuda(*k5, **k5_kw), 10, inner=5)
+            out[f"K5_n{n}_m{m}_{tag}_sha256"] = digest(
+                *dense_kernels.admm_iterations_cuda(*k5, **k5_kw))
     if wide_batch:
         import time
 

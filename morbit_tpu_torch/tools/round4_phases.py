@@ -22,12 +22,15 @@ of the uninstrumented kernel is printed beside them.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
+
+try:
+    from . import _clock_probe
+except ImportError:  # run as a file, as the child of another checkout does
+    import _clock_probe
 
 #: the marks: (comment in the wide kernel, the phase it opens); a mark's
 #: cycles run to the next mark. The first three are in every version of the
@@ -44,86 +47,18 @@ _ANCHORS = (("masked Householder QR", "qr"),
             ("// Q <- blkdiag(Q, 1) G': the same rotations on the pd", "accept_q"),
             ("// the new row of L^-1", "accept_l"))
 PHASES = ("setup",) + tuple(name for _, name in _ANCHORS)
-_TEST, _ACCEPT = PHASES.index("test"), PHASES.index("accept")
 _SLOTS = 16
-
-_PROBE_HEAD = r"""
-__device__ long long* g_round4_probe = nullptr;
-extern "C" int round4_probe_set(long long* p) {
-  return (int)cudaMemcpyToSymbol(g_round4_probe, &p, sizeof(p));
-}
-#define MORBIT_PROBE(k)                                                  \
-  if (threadIdx.x == 0) {                                                \
-    const long long _t = clock64();                                      \
-    _pa[_pp] += _t - _pt;                                                \
-    _pt = _t;                                                            \
-    _pp = (k);                                                           \
-    if ((k) == MORBIT_TEST) ++_pc[0];                                    \
-    if ((k) == MORBIT_ACCEPT) ++_pc[1];                                  \
-  }
-#define MORBIT_PROBE_END                                                 \
-  if (threadIdx.x == 0 && g_round4_probe) {                              \
-    MORBIT_PROBE(0);                                                     \
-    for (int _k = 0; _k < MORBIT_PHASES; ++_k)                           \
-      g_round4_probe[blockIdx.x * MORBIT_SLOTS + _k] = _pa[_k];          \
-    g_round4_probe[blockIdx.x * MORBIT_SLOTS + MORBIT_PHASES] = _pc[0];  \
-    g_round4_probe[blockIdx.x * MORBIT_SLOTS + MORBIT_PHASES + 1] = _pc[1]; \
-  }
-"""
-_PROBE_DECL = ("long long _pt = clock64(), _pa[MORBIT_PHASES] = {}; "
-               "int _pp = 0, _pc[2] = {0, 0};")
 
 
 def instrument(src: str) -> str:
-    """The source with the probes in the wide kernel (its definition runs
-    from ``rbf_round4_wide_kernel(`` to the first line that is a lone
-    closing brace)."""
-    start = re.search(r"rbf_round4_wide_kernel\(", src).start()
-    body = src.index("{", src.index(")", start)) + 1
-    stop = src.index("\n}\n", body)
-    lines = src[body:stop].split("\n")
-    out = [_PROBE_DECL]
-    for line in lines:
-        for k, (anchor, _) in enumerate(_ANCHORS, 1):
-            if anchor in line:
-                out.append(f"MORBIT_PROBE({k});")
-        if re.search(r"N_out\[b\] = N;\s*$", line) and "return" not in line:
-            out.append("MORBIT_PROBE_END;")
-        out.append(line)
-    inc = src.index('#include "rbf_phi.cuh"') + len('#include "rbf_phi.cuh"')
-    sizes = (f"\n#define MORBIT_PHASES {len(PHASES)}\n#define MORBIT_SLOTS {_SLOTS}\n"
-             f"#define MORBIT_TEST {_TEST}\n#define MORBIT_ACCEPT {_ACCEPT}\n")
-    text = (src[:inc] + sizes + _PROBE_HEAD + src[inc:body] + "\n".join(out)
-            + src[stop:])
-    for anchor, _ in _ANCHORS[:3]:
-        if anchor not in src[body:stop]:
-            raise RuntimeError(f"anchor {anchor!r} not in the wide kernel")
-    return text
-
-
-def _instrumented_library(prepare_fused, cuda_build):
-    """Build the instrumented copy of this checkout's K3 source and load it
-    with the wrapper's own signatures."""
-    import hashlib
-
-    src = instrument(prepare_fused.ROUND4_SOURCE.read_text())
-    out_dir = cuda_build.BUILD_DIR.parent / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tag = hashlib.sha256(src.encode()).hexdigest()[:12]
-    cu, so = out_dir / f"round4_probe_{tag}.cu", out_dir / f"round4_probe_{tag}.so"
-    cu.write_text(src)
-    proc = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS,
-                           *prepare_fused.NO_FMA, "-I", str(cuda_build.CSRC),
-                           "-o", str(so), str(cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(str(so))
-    for name, spec in prepare_fused._SIGNATURES[prepare_fused.ROUND4_SOURCE].items():
-        argtypes, restype = spec if isinstance(spec, tuple) else (spec, ctypes.c_int)
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = restype
-    lib.round4_probe_set.argtypes = [ctypes.c_void_p]
-    return lib
+    """The source with the probes in the wide kernel; the end before its
+    final write of N, the tested and accepted candidates counted at the
+    test and accept marks."""
+    return _clock_probe.instrument(
+        src, "rbf_round4_wide_kernel", tuple(a for a, _ in _ANCHORS),
+        end=r"^(?!.*return).*N_out\[b\] = N;\s*$", include='#include "rbf_phi.cuh"',
+        name="round4", leader="threadIdx.x == 0", slot="blockIdx.x", slots=_SLOTS,
+        counted=(PHASES.index("test"), PHASES.index("accept")), required=3)
 
 
 def record(path: str) -> None:
@@ -212,7 +147,10 @@ def phases_here(inputs) -> list:
     import chip_smoke as cs
     from morbit_tpu_torch.ops import cuda_build, prepare_fused
 
-    lib = _instrumented_library(prepare_fused, cuda_build)
+    src = prepare_fused.ROUND4_SOURCE
+    lib = _clock_probe.build(instrument(src.read_text()), "round4", cuda_build,
+                             prepare_fused._SIGNATURES[src],
+                             (*prepare_fused.NO_FMA, "-I", str(cuda_build.CSRC)))
     built = prepare_fused._library(prepare_fused.ROUND4_SOURCE)
     rows = []
     for dtype in (torch.float32, torch.float64):
@@ -223,9 +161,7 @@ def phases_here(inputs) -> list:
             acc, N = prepare_fused.round4_cuda(*args, **kw)
             ms = cs.event_ms(lambda: prepare_fused.round4_cuda(*args, **kw), 5)
             prof = torch.zeros((B, _SLOTS), dtype=torch.int64, device="cuda")
-            check = lib.round4_probe_set(prof.data_ptr())
-            if check != 0:
-                raise RuntimeError(f"cudaMemcpyToSymbol: {check}")
+            _clock_probe.attach(lib, "round4", prof)
             prepare_fused._libs[prepare_fused.ROUND4_SOURCE] = lib
             acc_p, N_p = prepare_fused.round4_cuda(*args, **kw)
             probed_ms = cs.event_ms(lambda: prepare_fused.round4_cuda(*args, **kw), 3)

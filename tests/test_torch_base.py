@@ -32,6 +32,7 @@ from morbit_tpu.models.configs import LagrangeConfig as JaxLagrangeConfig
 from morbit_tpu.models.configs import RbfConfig as JaxRbfConfig
 from morbit_tpu.models.configs import TaylorConfig as JaxTaylorConfig
 from morbit_tpu_torch.models.configs import RbfConfig
+from morbit_tpu_torch.parallel.multistart import build_solver
 from morbit_tpu_torch.utils.carry import config_from_dict
 
 TOL = 1e-12
@@ -198,13 +199,72 @@ def test_entry_points_default_to_cuda():
         mt.multistart_optimize(mop, np.zeros((2, 2)))
 
 
-def test_solver_pins_full_precision_matmuls():
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags True for the test (the caller's own setting), the
+    values from before restored afterwards."""
+    saved = _tf32_flags()
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    mop = tsyn.make_two_parabolas(lb=[-4.0, -4.0], ub=[4.0, 4.0])
-    mt.optimize(mop, [0.5, -2.0], device="cpu", max_iter=1)
-    assert torch.backends.cuda.matmul.allow_tf32 is False
-    assert torch.backends.cudnn.allow_tf32 is False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _recording_parabolas(seen, raise_after=None):
+    """Two parabolas whose first objective records the TF32 flags at each
+    call (and raises at call ``raise_after``)."""
+    def f1(x):
+        seen.append(_tf32_flags())
+        if raise_after is not None and len(seen) > raise_after:
+            raise ValueError("objective failed")
+        return torch.sum((x - 1.0) ** 2)
+
+    mop = mt.MOP([-4.0, -4.0], [4.0, 4.0])
+    mop.add_exact_objective(f1, jac=lambda x: 2.0 * (x - 1.0))
+    mop.add_exact_objective(lambda x: torch.sum((x + 1.0) ** 2),
+                            jac=lambda x: 2.0 * (x + 1.0))
+    return mop
+
+
+def test_solver_pins_full_precision_matmuls(tf32_on):
+    """Inside the solver both TF32 flags are False (every objective call
+    sees them so); after ``optimize`` returns they hold the caller's True
+    again, as the JAX package scopes ``default_matmul_precision``."""
+    seen = []
+    mt.optimize(_recording_parabolas(seen), [0.5, -2.0], device="cpu", max_iter=2)
+    assert seen and set(seen) == {(False, False)}
+    assert _tf32_flags() == (True, True)
+
+
+@pytest.mark.parametrize("entry", ["multistart_optimize", "iterate"])
+def test_solver_restores_tf32_flags_after_each_call(tf32_on, entry):
+    seen = []
+    mop = _recording_parabolas(seen)
+    starts = np.array([[0.5, -2.0], [1.5, 3.0]])
+    if entry == "multistart_optimize":
+        mt.multistart_optimize(mop, starts, mt.AlgorithmConfig(max_iter=2),
+                               dtype=torch.float64, device="cpu")
+    else:
+        solver = build_solver(mop, mt.AlgorithmConfig(max_iter=2),
+                              dtype=torch.float64, device="cpu")
+        state = solver.initialize(starts)
+        assert _tf32_flags() == (True, True)
+        solver.iterate(state)
+    assert seen and set(seen) == {(False, False)}
+    assert _tf32_flags() == (True, True)
+
+
+def test_solver_restores_tf32_flags_when_an_objective_raises(tf32_on):
+    seen = []
+    with pytest.raises(ValueError, match="objective failed"):
+        mt.optimize(_recording_parabolas(seen, raise_after=2), [0.5, -2.0],
+                    device="cpu", max_iter=5)
+    assert len(seen) == 3 and set(seen) == {(False, False)}
+    assert _tf32_flags() == (True, True)
 
 
 @pytest.mark.parametrize("cfg", [RbfConfig(use_max_points=True),

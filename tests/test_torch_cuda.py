@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ROUND4_EDGES, SEL_NAMES, SEL_STATICS, admm_iterations_case,
-                        descent_lps, gram_case, random_qps, round4_case,
-                        round4_edge_case, selection_case, selection_lattice_case)
+from chip_smoke import (K5_EDGES, ROUND4_EDGES, SEL_NAMES, SEL_STATICS,
+                        admm_iterations_case, admm_iterations_edge_case, descent_lps,
+                        gram_case, random_qps, round4_case, round4_edge_case,
+                        selection_case, selection_lattice_case)
 from morbit_tpu_torch.ops import qp_lane
 from morbit_tpu_torch.ops.qp import _rho_vec
 
@@ -243,3 +244,27 @@ def test_admm_iterations_kernel_matches_twin(cuda, n, m, dtype, tol):
     assert dense_kernels.admm_iterations_launches == before + 1
     for a, b in zip(k, t):
         assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("edge", K5_EDGES, ids=[e[0] for e in K5_EDGES])
+def test_admm_iterations_kernel_edges_match_twin(cuda, edge, dtype, tol):
+    """K5 on its edge sets (``chip_smoke.K5_EDGES``: (1, 1), (32, 64),
+    (64, 128), B=1, B not a multiple of the instances a block, no steps,
+    rows with infinite bounds) against its twin within tol * max(1,
+    max|twin|); with no steps the outputs are the inputs."""
+    from morbit_tpu_torch.ops import dense_kernels
+
+    _, n, m, B, iters, inf_rows = edge
+    args = [torch.as_tensor(a, dtype=dtype, device=cuda)
+            for a in admm_iterations_edge_case(B, n, m, inf_rows, seed=n)]
+    kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
+    k = dense_kernels.admm_iterations(*args, **kw)
+    t = dense_kernels.admm_iterations_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, t):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
+    if iters == 0:
+        assert all(torch.equal(a, b) for a, b in zip(k, args[6:]))

@@ -252,10 +252,13 @@ def test_kernels_refuse_beyond_their_limits(kernel):
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_kernel_blocks_fit_shared_memory(itemsize):
-    """Every shape the K1 and K2 wrappers take fits the H100's 227 KB of
+    """Every shape the K1, K2 and K5 wrappers take fits the H100's 227 KB of
     shared memory per block, at float32 and float64: K1 at each nv <= 32 and
-    m <= 64, K2 at each n <= 32 (the register instances take none)."""
-    from morbit_tpu_torch.ops import cuda_build, prepare_fused, qp_lane
+    m <= 64, K2 at each n <= 32 (the register instances take none), K5 at
+    each n <= 64 and m <= 128 with the instances a block its wrapper picks
+    (1 to 4, every one of them whole, and a fifth would not have fitted
+    where there are fewer than 4)."""
+    from morbit_tpu_torch.ops import cuda_build, dense_kernels, prepare_fused, qp_lane
 
     admm = [qp_lane.admm_smem_bytes(nv, m, itemsize)
             for nv in range(1, qp_lane.MAX_NV + 1) for m in range(1, qp_lane.MAX_M + 1)]
@@ -265,9 +268,32 @@ def test_kernel_blocks_fit_shared_memory(itemsize):
     assert qp_lane.admm_smem_bytes(3, 6, itemsize) == 0
     assert prepare_fused.selection_smem_bytes(2, itemsize) == 0
     assert prepare_fused.selection_stage_rows(20, itemsize) > 0
+    for n in range(1, dense_kernels.ADMM_ITERATIONS_MAX_N + 1):
+        for m in range(1, dense_kernels.ADMM_ITERATIONS_MAX_M + 1):
+            lanes = dense_kernels.admm_iterations_lanes(n, m, itemsize)
+            smem = dense_kernels.admm_iterations_smem_bytes(n, m, itemsize)
+            assert 1 <= lanes <= dense_kernels.ADMM_ITERATIONS_MAX_LANES
+            assert smem <= cuda_build.SMEM_LIMIT and smem % (lanes * 16) == 0
+            if lanes < dense_kernels.ADMM_ITERATIONS_MAX_LANES:
+                assert smem // lanes * (lanes + 1) > cuda_build.SMEM_LIMIT
+    # the largest instance: two a block at float64, four at float32
+    assert dense_kernels.admm_iterations_lanes(64, 128, itemsize) == (4 if itemsize == 4 else 2)
 
 
-@pytest.mark.parametrize("kernel", ["admm", "selection"])
+def test_admm_iterations_phase_probe_finds_its_marks():
+    """``tools/admm_iterations_phases.py`` instruments K5 at its phase
+    comments: each mark once, and the end once, before the outputs."""
+    from morbit_tpu_torch.ops import dense_kernels
+    from morbit_tpu_torch.tools.admm_iterations_phases import PHASES, instrument
+
+    text = instrument(dense_kernels.ADMM_ITERATIONS_SOURCE.read_text())
+    for k in range(1, len(PHASES)):
+        assert text.count(f"MORBIT_PROBE({k});") == 1
+    assert text.count("MORBIT_PROBE_END;") == 1
+    assert text.index("MORBIT_PROBE_END;\n  // ---- outputs") > text.index("MORBIT_PROBE(4);")
+
+
+@pytest.mark.parametrize("kernel", ["admm", "selection", "admm_iterations"])
 def test_kernels_refuse_blocks_past_shared_memory(monkeypatch, kernel):
     """A shape whose block would not fit the shared memory of the card
     raises before any launch (here with the limit set below the wide path's
@@ -277,7 +303,14 @@ def test_kernels_refuse_blocks_past_shared_memory(monkeypatch, kernel):
     monkeypatch.setattr(cuda_build, "SMEM_LIMIT", 1024)
     z = lambda *shape: torch.zeros(shape)
     i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
-    if kernel == "admm":
+    if kernel == "admm_iterations":
+        from morbit_tpu_torch.ops import dense_kernels
+
+        n, m = 21, 42
+        call = lambda: dense_kernels.admm_iterations_cuda(
+            z(1, n, n), z(1, m, n), z(1, m), z(1, n), z(1, m), z(1, m), z(1, n), z(1, m),
+            z(1, m), iters=1, sigma=1e-6, alpha=1.6)
+    elif kernel == "admm":
         nv, m = 21, 42
         call = lambda: qp_lane.admm_stages_cuda(
             z(1, nv, nv), z(1, nv), z(1, m, nv), z(1, m), z(1, m), z(1, m),
