@@ -15,6 +15,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    group, float32, max_iter=100, qp_iters=400; launch counts of K1-K3 in
    the first batch, trips, Pareto-set fraction, the sustained rate. Its
    first batch records the K2/K3 inputs of some trips.
+   ``staged_main_path`` — the main path as ``bench.py`` runs it, through
+   the bench twin's protocol (``morbit_tpu_torch/bench.py``: probe, probe
+   tuning, warm-up, blocked and sustained batches of the tuned
+   ``StagedMultistart``) at float32, B=1024, max_iter=10/qp_iters=100 and
+   max_iter=100/qp_iters=400, with no plain twin on the card; launches of
+   K1-K3 (each at least the trips of all batches), the probe's fill and
+   stage capacities, the tuned capacity, schedule and widths, the trips of
+   each stage, the overflow flag OR'ed over every batch (must be False),
+   the Pareto fraction; then the plain, default staged and tuned runners
+   in turns on the same starts (runs/s of each) and the lanes whose stop
+   code or iteration count differ between plain and tuned. It records the
+   K2/K3 inputs at a stage capacity (22 rows) and a compacted width.
 3. ``wide_main_path``   — the wide-n path: ZDT1 at n=20, both objectives in
    one cubic RBF group, the reference grid budget, float32, B_WIDE Halton
    starts; launches of K1-K4 per batch, trips, the front error, evaluations,
@@ -52,11 +64,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    state (integer leaves equal, floats within 1e-9 + 1e-6 |x|), and run
    freely on both (the lanes that end alike; on them x within 1e-9 and fx,
    whose slope is at most 10 on the box, within 1e-8).
+   ``staged_card_exact`` — at float64, 64 Halton starts, max_iter=100: the
+   probe-tuned runner, a starving width of 1 and ``fleet=False`` each equal
+   to the plain runner on the card (``compare_staged``). ``staged_quality_f64``
+   — the tuned runner at float64 on 1024 Halton starts, both budgets: equal
+   to the plain runner lane by lane, and its Pareto fraction at most 0.01
+   below the port's CPU figure (``STAGED_QUALITY_F64``). ``routing`` — K1-K3
+   against their twins at B=1 and at float64 B=64.
 10. ``card_vs_cpu`` and ``main_path`` — the same two checks with exact
     models (slice 1), at 64 and 1024 starts.
 
-Then the card's name and power limit, one JSON line with the kernel table,
-and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
+Then the card's name and power limit, one JSON line with the kernel table
+(K1-K3 also with the staged main path's launches at each budget and the
+``routing`` times), and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any result. Imports nothing of JAX.
 """
 
@@ -471,10 +491,12 @@ def bound(ops, nbytes, dtype):
 
 
 def pareto_fraction(x, tol=1e-2):
-    """Share of lanes within ``tol`` of the two-parabolas Pareto set, the
-    segment x1 = x2 in [-1, 1]."""
-    t = torch.clamp(x.mean(-1, keepdim=True), -1.0, 1.0)
-    return float(((x - t).norm(dim=-1) <= tol).double().mean())
+    """Share of lanes strictly within ``tol`` of the two-parabolas Pareto
+    set, the segment x1 = x2 in [-1, 1] (the gauge
+    ``morbit_tpu_torch/tools/check_convergence.py``, the reference's test)."""
+    from morbit_tpu_torch.tools.check_convergence import convergence
+
+    return convergence(x, tol)["convergence"]
 
 
 def rbf_mop():
@@ -721,8 +743,7 @@ def phase_rbf_main_path():
     """The main path at float32, B=1024. The counts are set to 0 just before
     the first batch and read just after; that batch also records the K2/K3
     inputs of the trips in CAPTURE_TRIPS (copies, outside the kernels)."""
-    from morbit_tpu_torch import STOP_CODE, AlgorithmConfig, multistart_optimize
-    from morbit_tpu_torch.ops import prepare_fused, qp_lane
+    from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
     from morbit_tpu_torch.problems.synthetic import halton_starts
 
     mop = rbf_mop()
@@ -732,22 +753,16 @@ def phase_rbf_main_path():
               for k in range(5)]
     captured = {"selection": [], "round4": []}
     torch.cuda.synchronize()
-    qp_lane.launches = prepare_fused.selection_launches = prepare_fused.round4_launches = 0
+    _zero_launch_counts()
     t0 = time.perf_counter()
     with kernels_only(), recording(captured, CAPTURE_TRIPS):
         res = multistart_optimize(mop, starts[0], ac, dtype=torch.float32)
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"qp_admm": qp_lane.launches,
-                "rbf_selection": prepare_fused.selection_launches,
-                "rbf_round4": prepare_fused.round4_launches}
+    launches = _launch_counts()
     for name, count in launches.items():
         check(count >= res.trips, f"{name} launched {count} times in {res.trips} trips")
-    check(bool(((res.stop_code >= STOP_CODE.MAX_ITER)
-                & (res.stop_code <= STOP_CODE.INFEASIBLE)).all()), "invalid stop code")
-    check(bool(torch.isfinite(res.x).all() and torch.isfinite(res.fx).all()),
-          "non-finite x or fx")
-    check(tuple(res.x.shape) == (B_MAIN, 2), f"x has shape {tuple(res.x.shape)}")
+    _check_result(res, B_MAIN)
 
     # sustained protocol: back-to-back batches on distinct pre-staged starts
     t0 = time.perf_counter()
@@ -755,7 +770,6 @@ def phase_rbf_main_path():
              for x0 in starts[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    codes = {STOP_CODE(c).name: int((res.stop_code == c).sum()) for c in range(2, 7)}
     phase("rbf_main_path", B=B_MAIN, dtype="float32", max_iter=100, qp_iters=QP_ITERS,
           model="RbfConfig(kernel='multiquadric')", launches=launches, trips=res.trips,
           first_batch_s=first_s, runs_per_s=len(trips) * B_MAIN / dt,
@@ -763,9 +777,304 @@ def phase_rbf_main_path():
           pareto_fraction_1e2=pareto_fraction(res.x),
           pareto_fraction_1e2_jax_cpu_f32=0.315,
           mean_iterations=float(res.n_iterations.double().mean()),
-          mean_evals=float(res.n_evals.double().mean()), stop_codes=codes,
+          mean_evals=float(res.n_evals.double().mean()), stop_codes=_stop_codes(res),
           db_capacity=int(res.state.groups[0].db.data.shape[1]))
     return launches, captured
+
+
+#: the staged main path's budgets: ``bench.py``'s headline and its
+#: reference-default point
+STAGED_BUDGETS = (dict(max_iter=10, qp_iters=100), dict(max_iter=100, qp_iters=QP_ITERS))
+#: sustained batches of the bench protocol per budget in ``staged_main_path``
+STAGED_REPS = (4, 2)
+#: interleaved rounds of the plain, default staged and tuned runners
+STAGED_ROUNDS = 3
+#: the port's plain runner on the CPU at float64, fraction of 1024 Halton
+#: starts within 1e-2 of the Pareto set, by budget
+#: (``python3 -m morbit_tpu_torch.tools.check_convergence 10 100 --device cpu
+#: --dtype f64``, and ``100 400``)
+STAGED_QUALITY_F64 = {10: 0.4296875, 100: 0.7705078125}
+#: the JAX package's figures at the same budgets, for context only: jitted
+#: on the CPU at float64 (``tools/check_convergence.py``, ``quality_r5.json``)
+#: and, at max_iter=10, the port's CPU float64 run from JAX's jitted initial
+#: state
+JAX_QUALITY_F64 = {10: {"jax_cpu_f64": 0.384, "port_cpu_f64_from_jax_initial_state": 0.3877},
+                   100: {"jax_cpu_f64": 0.784}}
+
+
+def _launch_counts():
+    from morbit_tpu_torch.ops import prepare_fused, qp_lane
+
+    return {"qp_admm": qp_lane.launches, "rbf_selection": prepare_fused.selection_launches,
+            "rbf_round4": prepare_fused.round4_launches}
+
+
+def _zero_launch_counts():
+    from morbit_tpu_torch.ops import prepare_fused, qp_lane
+
+    qp_lane.launches = prepare_fused.selection_launches = prepare_fused.round4_launches = 0
+
+
+def stage_shapes(B):
+    """A ``recording`` predicate: the first K2/K3 call at the smallest stage
+    capacity of the main path (22 rows at one iteration) and the first at
+    a compacted width (fewer than ``B`` lanes)."""
+    seen = set()
+
+    def keep(name, call, args):
+        lanes, rows = args[0].shape[:2]
+        kind = "cap22" if rows == 22 else ("compacted" if lanes < B else None)
+        if kind is None or (name, kind) in seen:
+            return False
+        seen.add((name, kind))
+        return True
+    return keep
+
+
+def _stop_codes(res):
+    from morbit_tpu_torch import STOP_CODE
+
+    return {STOP_CODE(c).name: int((res.stop_code == c).sum()) for c in range(2, 7)}
+
+
+def _check_result(res, B):
+    from morbit_tpu_torch import STOP_CODE
+
+    check(bool(((res.stop_code >= STOP_CODE.MAX_ITER)
+                & (res.stop_code <= STOP_CODE.INFEASIBLE)).all()), "invalid stop code")
+    check(bool(torch.isfinite(res.x).all() and torch.isfinite(res.fx).all()),
+          "non-finite x or fx")
+    check(tuple(res.x.shape) == (B, 2), f"x has shape {tuple(res.x.shape)}")
+
+
+def phase_staged_main_path():
+    """The main path as ``bench.py`` runs it, through the bench twin's
+    protocol (``morbit_tpu_torch.bench.run_point``) at float32, B=1024, both
+    budgets: probe, tuning, warm-up, one blocked batch and sustained
+    batches. The counts are set to 0 just before each budget's protocol and
+    read just after it, under ``kernels_only``; the runs record the K2/K3
+    inputs of ``stage_shapes``. Then the plain, default staged and tuned
+    runners in turns on the same starts, and the lanes whose stop code or
+    iteration count differ between plain and tuned. Returns the launches
+    of each budget and the recorded inputs."""
+    from morbit_tpu_torch import AlgorithmConfig, StagedMultistart, multistart_optimize
+    from morbit_tpu_torch.bench import run_point
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    cuda = torch.device("cuda")
+    captured = {"selection": [], "round4": []}
+    keep = stage_shapes(B_MAIN)
+    launches = []
+    for budget, n_rep in zip(STAGED_BUDGETS, STAGED_REPS):
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        with kernels_only(), recording(captured, keep):
+            point = run_point(budget, B_MAIN, n_rep, torch.float32, cuda)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+        batches = point["batches"]
+        trips = sum(r.trips for r in batches)
+        for name, count in counts.items():
+            check(count >= trips, f"{name} launched {count} times in {trips} staged trips")
+        check(not point["overflow"], "a staged batch overflowed its database")
+        # the warm-up ran on Halton starts from index 1, the gauge's fleet
+        probe, fleet, res = batches[0], batches[1], batches[-1]
+        for r in batches:
+            _check_result(r, B_MAIN)
+        runner = point["runner"]
+        mop, ac = runner.solver.mop, AlgorithmConfig(**budget)
+        default = StagedMultistart(mop, ac, torch.float32)
+
+        # plain, default staged and tuned in turns on distinct starts
+        rates = {"plain": [], "staged_default": [], "tuned": []}
+        flips = None
+        for k in range(STAGED_ROUNDS):
+            x0 = torch.as_tensor(halton_starts(B_MAIN, LB, UB, 1 + (k + 1) * B_MAIN),
+                                 dtype=torch.float32, device=cuda)
+            out = {}
+            for name, run in (("plain", lambda x: multistart_optimize(mop, x, ac)),
+                              ("staged_default", default), ("tuned", runner)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[name] = run(x0)
+                torch.cuda.synchronize()
+                rates[name].append(time.perf_counter() - t0)
+            if flips is None:
+                p, t = out["plain"], out["tuned"]
+                flips = int(((p.stop_code != t.stop_code)
+                             | (p.n_iterations != t.n_iterations)).sum())
+        phase("staged_main_path", B=B_MAIN, dtype="float32", **budget,
+              model="RbfConfig(kernel='multiquadric')", launches=counts,
+              trips_all_batches=trips, batches=len(batches), seconds=seconds,
+              probe_trips=probe.trips, probe_stage_trips=list(probe.stage_trips),
+              probe_schedule=[t for t, _ in default.schedule],
+              probe_stage_capacities=[c for _, c in default.schedule],
+              probe_db_fill=max(int(g.db.count.max()) for g in probe.state.groups),
+              default_db_capacity=default.solver.db_capacity,
+              db_capacity=runner.solver.db_capacity,
+              schedule=[t for t, _ in runner.schedule],
+              stage_capacities=[c for _, c in runner.schedule],
+              widths=list(runner.widths), trips=res.trips,
+              stage_trips=list(res.stage_trips),
+              stage_trips_sustained=[list(r.stage_trips) for r in batches[3:]],
+              capacity_overflow=point["overflow"],
+              runs_per_s=point["runs_per_sec"],
+              blocked_latency_ms=point["blocked_latency_s"] * 1e3,
+              setup_s=point["setup_s"],
+              interleaved_runs_per_s={k: len(v) * B_MAIN / sum(v) for k, v in rates.items()},
+              interleaved_batch_s=rates, lanes_differing_plain_vs_tuned=flips,
+              pareto_fraction_1e2=pareto_fraction(fleet.x),
+              pareto_fraction_1e2_jax_cpu_f32=0.315 if budget["max_iter"] == 100 else 0.234,
+              mean_iterations=float(fleet.n_iterations.double().mean()),
+              stop_codes=_stop_codes(fleet))
+        launches.append(counts)
+    check(len(captured["selection"]) == 2 and len(captured["round4"]) == 2,
+          f"recorded {len(captured['selection'])} K2 and {len(captured['round4'])} "
+          "K3 calls at the stage shapes, expected 2 each")
+    return launches, captured
+
+
+def _canonical(res, cap):
+    """The canonical state of a result (``canonicalize_buffer_tails``),
+    its databases at ``cap`` rows (the zero rows past every fill count
+    dropped or added)."""
+    from morbit_tpu_torch.parallel.multistart import (_resize_dbs,
+                                                      canonicalize_buffer_tails)
+
+    return _resize_dbs(canonicalize_buffer_tails(res.state), cap)
+
+
+def compare_staged(res, ref):
+    """A staged result against the plain runner's, lane by lane, after
+    ``canonicalize_buffer_tails``: integer leaves equal (stop codes,
+    iterations, evaluations, fill counts), floats within 1e-9 + 1e-6 |x|
+    (``_compare_states``). Returns the reported relative differences."""
+    cap = res.state.groups[0].db.data.shape[1]
+    for name in ("stop_code", "n_iterations", "n_evals"):
+        check(bool(torch.equal(getattr(res, name), getattr(ref, name))), f"{name} differs")
+    return _compare_states(_canonical(res, cap), _canonical(ref, cap))
+
+
+def phase_staged_card_exact():
+    """On the card at float64, B=64 Halton starts, max_iter=100: the tuned
+    runner (probe protocol), a starving ``widths`` (width 1 in the second
+    stage) and ``fleet=False`` each against the plain runner
+    (``compare_staged``)."""
+    from morbit_tpu_torch import AlgorithmConfig, StagedMultistart, multistart_optimize
+    from morbit_tpu_torch.bench import tuned_runner
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    B, mop = 64, rbf_mop()
+    ac = AlgorithmConfig(max_iter=100, qp_iters=QP_ITERS)
+    x0 = torch.as_tensor(halton_starts(B, LB, UB), dtype=torch.float64, device="cuda")
+    t0 = time.perf_counter()
+    ref = multistart_optimize(mop, x0, ac, dtype=torch.float64)
+    tuned, _ = tuned_runner(mop, ac, torch.float64, torch.device("cuda"), x0)
+    runners = {"tuned": tuned,
+               "starving_widths": StagedMultistart(mop, ac, torch.float64, schedule=(3, 6),
+                                                   widths=(B, 1)),
+               "fleet_off": StagedMultistart(mop, ac, torch.float64, fleet=False)}
+    rows = {}
+    for name, run in runners.items():
+        res = run(x0)
+        diffs = compare_staged(res, ref)
+        rows[name] = dict(schedule=[t for t, _ in run.schedule], widths=run.widths,
+                          fleet=run.fleet, db_capacity=run.solver.db_capacity,
+                          trips=res.trips, stage_trips=list(res.stage_trips),
+                          rho_max_rel_diff=diffs["rho"], fit_max_rel_diff=diffs["fit"])
+    phase("staged_card_exact", B=B, dtype="float64", max_iter=100, plain_trips=ref.trips,
+          runners=rows, seconds=time.perf_counter() - t0)
+
+
+def phase_staged_quality_f64():
+    """The tuned runner on the card at float64, 1024 Halton starts from
+    index 1, both budgets, against the plain runner on the card (stop codes,
+    iterations and evaluations equal lane by lane) and against the port's
+    CPU float64 plain-runner figure (STAGED_QUALITY_F64): the fraction
+    within 1e-2 of the Pareto set at most 0.01 below it. Card and CPU part
+    on about a tenth of the lanes at this size (last-bit differences of the
+    plain PyTorch operations, decided by exact ties; the card's run with
+    every kernel replaced by its twin lands where the kernels' run does), so
+    the figure is printed beside the CPU's with their difference, beside the
+    plain runner's on the starts times 1 + eps (moved by one or two ulps:
+    the figure's own rounding sensitivity) and beside the JAX package's
+    figures."""
+    from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
+    from morbit_tpu_torch.bench import tuned_runner
+    from morbit_tpu_torch.parallel.multistart import capacity_overflowed
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+    from morbit_tpu_torch.tools.check_convergence import convergence
+
+    x0 = torch.as_tensor(halton_starts(B_MAIN, LB, UB), dtype=torch.float64, device="cuda")
+    x0_ulp = x0 * (1 + torch.finfo(torch.float64).eps)
+    for budget in STAGED_BUDGETS:
+        ac = AlgorithmConfig(**budget)
+        t0 = time.perf_counter()
+        plain = multistart_optimize(rbf_mop(), x0, ac, dtype=torch.float64)
+        runner, probe = tuned_runner(rbf_mop(), ac, torch.float64, torch.device("cuda"), x0)
+        res = runner(x0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(not (capacity_overflowed(probe) or capacity_overflowed(res)),
+              "the f64 tuned run overflowed its database")
+        for name in ("stop_code", "n_iterations", "n_evals"):
+            check(bool(torch.equal(getattr(res, name), getattr(plain, name))),
+                  f"f64 tuned vs plain at B={B_MAIN}: {name} differs")
+        gauge = convergence(res.x)
+        want = STAGED_QUALITY_F64[budget["max_iter"]]
+        shifted = multistart_optimize(rbf_mop(), x0_ulp, ac, dtype=torch.float64)
+        phase("staged_quality_f64", B=B_MAIN, **budget, **gauge,
+              plain_runner_convergence=convergence(plain.x)["convergence"],
+              tuned_vs_plain_max_abs_dx=float((res.x - plain.x).abs().max()),
+              plain_runner_convergence_starts_times_1_plus_eps=convergence(
+                  shifted.x)["convergence"],
+              port_cpu_f64_plain=want, minus_port_cpu_f64_plain=gauge["convergence"] - want,
+              **JAX_QUALITY_F64[budget["max_iter"]],
+              db_capacity=runner.solver.db_capacity, trips=res.trips,
+              stage_trips=list(res.stage_trips), seconds=seconds)
+        check(gauge["convergence"] >= want - 0.01,
+              f"f64 Pareto fraction {gauge['convergence']} is more than 0.01 below {want}")
+
+
+def phase_routing():
+    """Kernel against twin at the shapes that the routing rule of the north
+    star would send to the twin: B=1 (``optimize``) at float64 and float32,
+    and B=64 at float64 (``card_vs_cpu``), at the main path's K1 (nv=3,
+    m=6, 400 steps), K2 (n=2, 1507 rows) and K3 ((6, 3, 60)) shapes; card
+    ms of each (median of event timings) by name and case."""
+    from morbit_tpu_torch.models.rbf_round4 import run_round4
+    from morbit_tpu_torch.ops import prepare_fused, qp_lane
+    from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
+    from morbit_tpu_torch.ops.qp import _rho_vec
+
+    out = {"qp_admm": {}, "rbf_selection": {}, "rbf_round4": {}}
+    for B, dtype in ((1, torch.float64), (1, torch.float32), (64, torch.float64)):
+        case = f"B{B}_{'f64' if dtype == torch.float64 else 'f32'}"
+        f = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+        P, q, A, lo, hi = (f(a) for a in random_qps(B, 3, 6, 0))
+        f32 = dtype == torch.float32
+        kw = dict(n_stages=4, n_steps=100, sigma=1e-4 if f32 else 1e-6, alpha=1.6,
+                  rho_lo=1e-3 if f32 else 1e-6, rho_hi=1e4 if f32 else 1e6)
+        qp = (P, q, A, lo, hi, _rho_vec(lo, hi, 0.1))
+        sel = _selection_tensors(selection_case(np.random.default_rng(5), B, 1507, 2,
+                                                "mixed"), dtype)
+        X, cand, init, count, param = round4_case(np.random.default_rng(6), B, 60, 2, 6, 0.4)
+        r4 = (f(X), torch.as_tensor(cand, device="cuda"), f(init),
+              torch.as_tensor(count, dtype=torch.int32, device="cuda"))
+        r4_kw = dict(kernel="multiquadric", param=f(param), poly_deg=1, max_points=6,
+                     chol_pivot=0.1)
+        pairs = {"qp_admm": (lambda: qp_lane.admm_stages_cuda(*qp, **kw),
+                             lambda: qp_lane.admm_stages_plain(*qp, **kw)),
+                 "rbf_selection": (lambda: prepare_fused.selection_cuda(*sel, **SEL_STATICS),
+                                   lambda: rbf_selection_core(*sel, **SEL_STATICS)),
+                 "rbf_round4": (lambda: prepare_fused.round4_cuda(*r4, **r4_kw),
+                                lambda: run_round4(*r4, **r4_kw))}
+        for name, (kernel, twin) in pairs.items():
+            out[name][case] = {"ms": event_ms(kernel, 20), "plain_ms": event_ms(twin, 5)}
+    phase("routing", **out)
+    return out
 
 
 #: the wrappers whose inputs a path records, by the name of their captures
@@ -778,17 +1087,20 @@ _RECORDED = {"qp_admm": ("qp_lane", "admm_stages"),
 @contextlib.contextmanager
 def recording(captured, calls_to_keep):
     """Record copies of the inputs of the wrappers named in ``captured``
-    (a dict of empty lists) at the call numbers in ``calls_to_keep``; the
-    copies are made outside the kernels and launch none."""
+    (a dict of empty lists) at the call numbers in ``calls_to_keep``, or
+    where ``calls_to_keep(name, call_number, args)`` is true; the copies are
+    made outside the kernels and launch none."""
     from morbit_tpu_torch.ops import dense_kernels, prepare_fused, qp_lane
 
     mods = {"qp_lane": qp_lane, "prepare_fused": prepare_fused,
             "dense_kernels": dense_kernels}
     calls = dict.fromkeys(captured, 0)
+    keep = (calls_to_keep if callable(calls_to_keep)
+            else lambda name, i, args: i in calls_to_keep)
 
     def wrap(name, fn):
         def wrapped(*args, **kw):
-            if calls[name] in calls_to_keep:
+            if keep(name, calls[name], args):
                 captured[name].append((tuple(
                     a.clone() if isinstance(a, torch.Tensor) else a for a in args), dict(kw)))
             calls[name] += 1
@@ -919,10 +1231,11 @@ def _selection_tensors(case, dtype):
             torch.as_tensor(efl, device="cuda"))
 
 
-def phase_kernel_selection(captured, wide_captured):
-    """K2 against its twin on the card; returns the rows of the last
-    recorded call of the RBF main path (cap 1507) and of the wide path
-    (n=20, cap 5332), both float32."""
+def phase_kernel_selection(captured, wide_captured, staged_captured):
+    """K2 against its twin on the card, the inputs recorded on the staged
+    main path (a stage capacity, a compacted width) included; returns the
+    rows of the last recorded call of the RBF main path (cap 1507) and of
+    the wide path (n=20, cap 5332), both float32."""
     from morbit_tpu_torch.ops import prepare_fused
     from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
 
@@ -940,6 +1253,8 @@ def phase_kernel_selection(captured, wide_captured):
              for t, (a, kw) in zip(CAPTURE_TRIPS, captured)]
     sets += [(f"wide_path_call{t}", recorded(a), kw)
              for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
+    sets += [(f"staged_B{a[0].shape[0]}_cap{a[0].shape[1]}", recorded(a), kw)
+             for a, kw in staged_captured]
     rows = {}
     for dtype in (torch.float64, torch.float32):
         for name, make, kw in sets:
@@ -978,9 +1293,10 @@ def phase_kernel_selection(captured, wide_captured):
     return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)]
 
 
-def phase_kernel_round4(captured, wide_captured):
-    """K3 against its twin on the card; returns the rows of the last
-    recorded call of the RBF main path and of the wide path, float32."""
+def phase_kernel_round4(captured, wide_captured, staged_captured):
+    """K3 against its twin on the card, the inputs recorded on the staged
+    main path included; returns the rows of the last recorded call of the
+    RBF main path and of the wide path, float32."""
     from morbit_tpu_torch.models.rbf_round4 import run_round4
     from morbit_tpu_torch.ops import prepare_fused
 
@@ -1033,6 +1349,8 @@ def phase_kernel_round4(captured, wide_captured):
              for t, (a, kw) in zip(CAPTURE_TRIPS, captured)]
     sets += [(f"wide_path_call{t}", recorded(a, kw), False)
              for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
+    sets += [(f"staged_B{a[0].shape[0]}_C{a[0].shape[1]}", recorded(a, kw), False)
+             for a, kw in staged_captured]
     rows = {}
     for dtype in (torch.float64, torch.float32):
         for name, make, must_reject in sets:
@@ -1374,15 +1692,21 @@ def main():
 
     phase_build()
     rbf_launches, captured = phase_rbf_main_path()
+    staged_launches, staged_captured = phase_staged_main_path()
     wide_launches, wide_captured = phase_wide_main_path(B_WIDE)
     admm_rows = phase_kernel_admm(wide_captured["qp_admm"])
-    sel_rows = phase_kernel_selection(captured["selection"], wide_captured["selection"])
-    r4_rows = phase_kernel_round4(captured["round4"], wide_captured["round4"])
+    sel_rows = phase_kernel_selection(captured["selection"], wide_captured["selection"],
+                                      staged_captured["selection"])
+    r4_rows = phase_kernel_round4(captured["round4"], wide_captured["round4"],
+                                  staged_captured["round4"])
     gram_row = phase_kernel_gram(wide_captured["gram"])
     k5_rows = phase_kernel_admm_iterations()
+    routing = phase_routing()
     phase_wide_quality_f64()
     phase_wide_card_vs_cpu()
     phase_rbf_card_vs_cpu()
+    phase_staged_card_exact()
+    phase_staged_quality_f64()
     phase_card_vs_cpu()
     phase_main_path()
 
@@ -1390,8 +1714,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    # per kernel: its row on the wide path (this slice's path), and for K1-K3
-    # also on the RBF main path; K5 has no caller
+    # per kernel: its row on the wide path, and for K1-K3 also on the RBF
+    # main path, the launches of the staged main path at each budget and the
+    # routing cases (B=1, f64 B=64); K5 has no caller
     rows = [("qp_admm", admm_rows, "morbit_tpu_torch/csrc/qp_admm.cu",
              "morbit_tpu/ops/qp_lane.py:289"),
             ("rbf_selection", sel_rows, "morbit_tpu_torch/csrc/rbf_selection.cu",
@@ -1413,6 +1738,10 @@ def main():
         if main_row is not None:
             entry["rbf_main_path"] = {"launches": rbf_launches[name],
                                       **{k: main_row[k] for k in keys}}
+            entry["staged_main_path"] = {
+                f"max_iter_{b['max_iter']}": {"launches": counts[name]}
+                for b, counts in zip(STAGED_BUDGETS, staged_launches)}
+            entry["routing"] = routing[name]
         if name == "admm_iterations":      # K5's (21, 42) row above; also (3, 6)
             entry["shape"] = [row["n"], row["m"]]
             entry["n3_m6"] = {k: k5_rows[0][k] for k in keys}

@@ -14,8 +14,11 @@ kernel that no path calls.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 a CUDA device the default raises. Ported so far: exact and RBF objectives,
 steepest descent, the unconstrained trust-region loop with criticality
-micro-steps, the plain batched multistart runner and the ZDT/DTLZ
-benchmark problems.
+micro-steps, the plain batched multistart runner, the staged runner
+(:class:`StagedMultistart`: capacity stages, the fleet loop, lane
+compaction and its probe tuning) with its bench
+(``python3 -m morbit_tpu_torch.bench``), and the ZDT/DTLZ benchmark
+problems.
 """
 
 from morbit_tpu_torch.core.algorithm import OptimizeResult, optimize
@@ -23,7 +26,9 @@ from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
 from morbit_tpu_torch.core.mop import MOP
 from morbit_tpu_torch.models.configs import ExactConfig, RbfConfig
-from morbit_tpu_torch.parallel.multistart import multistart_optimize
+from morbit_tpu_torch.parallel.multistart import (StagedMultistart,
+                                                  multistart_optimize,
+                                                  staged_multistart)
 
 __version__ = "0.1.0"
 
@@ -34,6 +39,8 @@ __all__ = [
     "RbfConfig",
     "optimize",
     "multistart_optimize",
+    "StagedMultistart",
+    "staged_multistart",
     "OptimizeResult",
     "ITER_TYPE",
     "STOP_CODE",

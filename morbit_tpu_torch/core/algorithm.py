@@ -190,6 +190,8 @@ class OptimizeResult(NamedTuple):
     #: outer trips of the solve loop (iterations plus criticality micro-steps
     #: of the slowest lane); one host sync each
     trips: int
+    #: trips of each stage of a staged runner, the to-completion stages last
+    stage_trips: tuple = ()
 
 
 def resolve_device(device) -> torch.device:
@@ -250,7 +252,11 @@ class Solver:
                              for g in mop.groups
                              if hasattr(g.cfg, "resolved_max_points")],
                             default=mop.n_vars + 1)
-        self.db_capacity = ac.resolved_db_capacity(mop.n_vars, max_model_pts, 0)
+        #: (max_model_points, sites_per_iter): the inputs of
+        #: resolved_db_capacity besides the config, kept so that the staged
+        #: runner can evaluate it at intermediate iteration bounds
+        self._cap_terms = (max_model_pts, 0)
+        self.db_capacity = ac.resolved_db_capacity(mop.n_vars, *self._cap_terms)
         self.container = SurrogateContainer(mop, dtype, ac, self.db_capacity,
                                             self.device)
         self.desc_cfg = resolve_descent_config(ac.descent_method)

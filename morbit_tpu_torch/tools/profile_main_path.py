@@ -15,9 +15,14 @@ time and the operators with the most host time. The models:
   cubic RBF group at the reference grid budget (``chip_smoke.py``
   ``wide_main_path``). Its batch runs ~200 trips of ~16,000 launches each,
   too many events for one trace, so the profile covers trips 10-14, and
-  the wall time and busy share are those of that window.
+  the wall time and busy share are those of that window;
+* ``staged``: the ``rbf`` model run by the probe-tuned ``StagedMultistart``
+  (the bench twin's protocol, ``morbit_tpu_torch/bench.py``). The line adds
+  the trips of each stage and the device kernels of one stage boundary at
+  full width, profiled alone: the capacity resizes, the active-first sort,
+  the gathers and the split of the state, and the rejoin.
 
-    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20]
+    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged]
 
 Needs a CUDA card.
 """
@@ -32,9 +37,30 @@ import time
 import torch
 
 
+def boundary_kernels(runner, x0) -> int:
+    """Device kernels of one stage boundary of ``runner`` on the initial
+    state of ``x0``, at full width: the resizes to the first stage's
+    capacities, the active-first sort and split at half the lanes, the
+    rejoin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from morbit_tpu_torch.parallel.multistart import (_compact, _rejoin, _resize_dbs,
+                                                      _resize_traj)
+
+    states = runner.solver.initialize(x0)
+    cap, tcap = runner.schedule[0][1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        states = _resize_traj(_resize_dbs(states, cap), tcap)
+        head, tail, _ = _compact(states, None, x0.shape[0] // 2)
+        _rejoin(head, tail)
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser()
-    args.add_argument("--model", choices=("rbf", "exact", "zdt20"), default="rbf")
+    args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged"), default="rbf")
     model = args.parse_args(argv).model
     B, window = 1024, 5
     if not torch.cuda.is_available():
@@ -52,11 +78,12 @@ def main(argv=None) -> int:
         ac = AlgorithmConfig(max_iter=100, max_evals=20000, delta_0=0.1, delta_max=0.5,
                              f_tol_rel=1e-3, x_tol_rel=1e-3, qp_iters=400)
     else:
-        cfg = RbfConfig(kernel="multiquadric") if model == "rbf" else None
+        cfg = None if model == "exact" else RbfConfig(kernel="multiquadric")
         mop = make_two_parabolas(cfg, lb=[-4.0, -4.0], ub=[4.0, 4.0])
         ac = AlgorithmConfig(max_iter=100, qp_iters=400)
     starts = [torch.as_tensor(halton_starts(B, mop.lb, mop.ub, 1 + k * B),
                               dtype=torch.float32, device="cuda") for k in range(2)]
+    extra = {}
     if model == "zdt20":
         from morbit_tpu_torch import STOP_CODE
         from morbit_tpu_torch.parallel.multistart import build_solver
@@ -80,13 +107,25 @@ def main(argv=None) -> int:
             wall_s = time.perf_counter() - t0
         trips = window
     else:
-        multistart_optimize(mop, starts[0], ac, dtype=torch.float32)
+        if model == "staged":
+            from morbit_tpu_torch.bench import tuned_runner
+
+            runner, _ = tuned_runner(mop, ac, torch.float32, torch.device("cuda"), starts[0])
+            run = runner
+            extra = dict(schedule=[t for t, _ in runner.schedule],
+                         widths=list(runner.widths), db_capacity=runner.solver.db_capacity,
+                         boundary_kernels=boundary_kernels(runner, starts[0]))
+        else:
+            run = lambda x: multistart_optimize(mop, x, ac, dtype=torch.float32)
+        run(starts[0])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            trips = multistart_optimize(mop, starts[1], ac, dtype=torch.float32).trips
+            res = run(starts[1])
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
+        trips = res.trips
+        extra["stage_trips"] = list(res.stage_trips)
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -105,7 +144,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "model": model, "B": B,
         "dtype": "float32",
-        "wall_s": wall_s, "trips": trips,
+        "wall_s": wall_s, "trips": trips, **extra,
         "device_kernels": len(kernels),
         "device_kernels_per_trip": len(kernels) / max(trips, 1),
         "device_kernel_ms": device_us / 1e3,

@@ -74,13 +74,15 @@ def test_kernel_rejects_cpu_mix(cuda):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n,cap,kind", [(2, 157, "random"), (3, 1507, "random"),
                                         (20, 5332, "random"), (20, 1200, "lattice"),
-                                        (32, 600, "lattice")])
+                                        (32, 600, "lattice"), (2, 22, "random"),
+                                        (2, 64, "random")])
 def test_selection_kernel_matches_twin(cuda, n, cap, kind, dtype):
     """K2 (rounds 1-3) against its twin: every output equal on every lane,
     floats to the bit (both round every operation alike and sum in the same
     order). The lattice cases tie exactly, with duplicate rows cap/2 apart
     that fall to different threads and warps of the block instance, empty
-    lanes and counts past the capacity."""
+    lanes and counts past the capacity. Capacities 22 and 64 are the staged
+    main path's first stage and its probe-tuned capacity."""
     from morbit_tpu_torch.ops import prepare_fused
     from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
 
@@ -268,3 +270,30 @@ def test_admm_iterations_kernel_edges_match_twin(cuda, edge, dtype, tol):
         assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
     if iters == 0:
         assert all(torch.equal(a, b) for a, b in zip(k, args[6:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["starving_widths", "tuned_capacity"])
+def test_staged_matches_plain_on_card(cuda, variant):
+    """The staged runner on the card at float64, B=16 Halton starts of the
+    main path, max_iter=100, against the plain runner lane by lane
+    (``chip_smoke.compare_staged``: integers exact, floats within 1e-9 +
+    1e-6 |x|): a width of 1 in the second stage, and the probe-tuned
+    capacity, schedule and widths."""
+    from chip_smoke import LB, QP_ITERS, UB, compare_staged, rbf_mop
+    from morbit_tpu_torch import AlgorithmConfig, StagedMultistart, multistart_optimize
+    from morbit_tpu_torch.bench import tuned_runner
+    from morbit_tpu_torch.parallel.multistart import capacity_overflowed
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    ac = AlgorithmConfig(max_iter=100, qp_iters=QP_ITERS)
+    x0 = torch.as_tensor(halton_starts(16, LB, UB), dtype=torch.float64, device=cuda)
+    ref = multistart_optimize(rbf_mop(), x0, ac, dtype=torch.float64)
+    if variant == "starving_widths":
+        run = StagedMultistart(rbf_mop(), ac, torch.float64, schedule=(3, 6), widths=(16, 1))
+    else:
+        run, _ = tuned_runner(rbf_mop(), ac, torch.float64, cuda, x0)
+        assert run.solver.db_capacity < 1507
+    res = run(x0)
+    assert not capacity_overflowed(res)
+    compare_staged(res, ref)

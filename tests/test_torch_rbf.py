@@ -341,7 +341,9 @@ def _assert_lane(port, ref, lane, tol):
 def test_rbf_multistart_matches_jax_and_single_runs():
     """The main path (one multiquadric group, optimized sampling, round 4
     on) at B=8, max_iter=10: lane by lane against JAX's batched solve, and
-    against the port's own B=1 runs.
+    against the port's own B=1 runs; and the port's ``StagedMultistart``
+    (schedule (3, 6), widths (8, 4, 2)) from JAX's initial state against
+    JAX lane by lane.
 
     JAX's jitted initialization folds the constant radius into the scaling
     offset (``0.125 x + 0.5 + 0.2`` becomes ``0.125 x + 0.7``), which moves
@@ -372,8 +374,14 @@ def test_rbf_multistart_matches_jax_and_single_runs():
     port = mt.multistart_optimize(
         tsyn.make_two_parabolas(RbfConfig(**cfg), LB2, UB2), starts,
         mt.AlgorithmConfig(**kw), dtype=F64, device="cpu")
+    # the staged runner, compacted, from JAX's initial state
+    staged = mt.StagedMultistart(
+        tsyn.make_two_parabolas(RbfConfig(**cfg), LB2, UB2), mt.AlgorithmConfig(**kw),
+        F64, schedule=(3, 6), widths=(8, 4, 2), device="cpu",
+    ).solve_from_state(state_from_numpy(_jax_leaves(jinit), device="cpu"))
     for i in range(B):
         _assert_lane(carried, _jax_lane(ref, i), i, 1e-10)
+        _assert_lane(staged, _jax_lane(ref, i), i, 1e-10)
         single = mt.optimize(tsyn.make_two_parabolas(RbfConfig(**cfg), LB2, UB2),
                              starts[i], mt.AlgorithmConfig(**kw), dtype=F64,
                              device="cpu")
