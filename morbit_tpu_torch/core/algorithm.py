@@ -14,8 +14,8 @@ flow reproduces vmap's semantics, not those of a sequential loop:
 * every ``lax.cond`` computes both branches, then selects per lane.
 
 A single :func:`optimize` run is B=1 of the same code. The port covers
-the unconstrained (box-constrained) path with exact and RBF models and
-steepest descent.
+exact and RBF models with steepest descent, box constraints, and linear and
+nonlinear constraints through the filter, the normal step and restoration.
 """
 
 from __future__ import annotations
@@ -30,11 +30,12 @@ import torch
 from morbit_tpu_torch.core import filter as flt
 from morbit_tpu_torch.core import scaling
 from morbit_tpu_torch.core.config import AlgorithmConfig
-from morbit_tpu_torch.core.descent import (backtrack, initial_stepsize,
+from morbit_tpu_torch.core.descent import (LinearizedConstraints, backtrack,
+                                           initial_stepsize, normal_step,
                                            resolve_descent_config,
                                            steepest_descent_direction)
 from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
-from morbit_tpu_torch.core.mop import CompiledMOP, compile_mop
+from morbit_tpu_torch.core.mop import NL_EQ, NL_INEQ, CompiledMOP, compile_mop
 from morbit_tpu_torch.models.container import SurrogateContainer
 from morbit_tpu_torch.ops.geometry import project_into_box
 from morbit_tpu_torch.utils.tree import lane_where, tree_map, tree_where
@@ -43,6 +44,14 @@ from morbit_tpu_torch.utils.tree import lane_where, tree_map, tree_where
 #: criticality routine (``algorithm.jl:523-613``) runs as micro-steps of the
 #: outer loop, one rebuild pass per trip, as in the JAX package
 _MODE_NORMAL, _MODE_CRIT_PRE, _MODE_CRIT_LOOP = 0, 1, 2
+#: the restoration loop checks for active lanes on the host once in this
+#: many iterations (lanes that finished in between run masked no-op trips)
+RESTORATION_SYNC_EVERY = 8
+
+
+def _mv(M, v):
+    """Batched matrix-vector product ``M (..., k, n) @ v (..., n)``."""
+    return (M @ v[..., None])[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +130,10 @@ class SolverState:
     x: torch.Tensor      # (B, n) unscaled iterate
     x_s: torch.Tensor    # (B, n) scaled iterate
     fx: torch.Tensor     # (B, m_obj)
+    l_e: torch.Tensor    # (B, p) linear equality values  A~ x_s - b~
+    l_i: torch.Tensor    # (B, q) linear inequality values
+    c_e: torch.Tensor    # (B, m_ce) nonlinear equality values
+    c_i: torch.Tensor    # (B, m_ci) nonlinear inequality values
     dlt: torch.Tensor    # (B, 2)
     ints: torch.Tensor   # (B, 5 + G) int32
     groups: tuple        # tuple[GroupState]
@@ -232,17 +245,18 @@ class Solver:
         self.ac = ac = ac or AlgorithmConfig()
         self.dtype = dtype
         self.device = torch.device(device)
+        # option -> (unported, its ROADMAP queue 1 item)
         _unported = {
-            "var_scaler_update": ac.var_scaler_update != "none",
-            "use_db": not ac.use_db,
-            "qp_exit_eps": ac.qp_exit_eps != 0,
-            "untransform_final_database": ac.untransform_final_database,
+            "var_scaler_update": (ac.var_scaler_update != "none", 10),
+            "use_db": (not ac.use_db, 10),
+            "qp_exit_eps": (ac.qp_exit_eps != 0, 11),
+            "untransform_final_database": (ac.untransform_final_database, 10),
         }
-        for name, bad in _unported.items():
+        for name, (bad, item) in _unported.items():
             if bad:
                 raise NotImplementedError(
                     f"AlgorithmConfig.{name}={getattr(ac, name)!r} is not "
-                    "ported to morbit_tpu_torch yet")
+                    f"ported to morbit_tpu_torch yet (ROADMAP queue 1 item {item})")
         self.scal = scaling.get_var_scaler(self._tensor(mop.lb),
                                            self._tensor(mop.ub), ac.var_scaler)
         # the largest per-rebuild working set of any group (n+1 without an
@@ -263,6 +277,19 @@ class Solver:
         self.T = ac.resolved_trajectory_capacity()
         #: width of the per-iteration training-set stamp (save_model_meta)
         self.MW = self.container.train_stamp_len if ac.save_model_meta else 0
+        # without nonlinear constraints the filter is the reference's
+        # DummyFilter (zero capacity, accepts everything)
+        self.filter_mode = "dummy" if mop.m_ce + mop.m_ci == 0 else ac.filter_type
+        self.f_dim = mop.m_obj if self.filter_mode == "strict" else 1
+        self.has_constraints = mop.has_nl_constraints or mop.has_lin_constraints
+        # the constant problem data on the device once: a host-to-device
+        # copy inside a trip would wait for the queued kernels
+        self._lb, self._ub = self._tensor(mop.lb), self._tensor(mop.ub)
+        self._A_eq, self._b_eq = self._tensor(mop.A_eq), self._tensor(mop.b_eq)
+        self._A_ineq, self._b_ineq = self._tensor(mop.A_ineq), self._tensor(mop.b_ineq)
+        #: iterations of the restoration loop since the counter was last set
+        #: to 0 (one per masked trip over the lanes, on the host)
+        self.restoration_iterations = 0
 
     # ------------------------------------------------------------------ helpers
     def _tensor(self, v, dtype=None):
@@ -271,6 +298,28 @@ class Solver:
     def _violation_zero(self, theta):
         """``constraint_violation_is_zero`` (``utilities.jl:335-342``)."""
         return theta.abs() <= 10 * torch.finfo(self.dtype).eps
+
+    def _lin_matrices(self, scal):
+        """Linear constraints in the scaled space of ``scal``, per lane
+        (``transformed_linear_constraints``, ``AbstractMOPInterface.jl:476``):
+        (A_eq_s (B, p, n), b_eq_s (B, p), A_ineq_s, b_ineq_s)."""
+        inv_s = (1.0 / scal.scale)[:, None, :]
+        A_eq_s = self._A_eq * inv_s
+        b_eq_s = self._b_eq + _mv(A_eq_s, scal.offset)
+        A_ineq_s = self._A_ineq * inv_s
+        b_ineq_s = self._b_ineq + _mv(A_ineq_s, scal.offset)
+        return A_eq_s, b_eq_s, A_ineq_s, b_ineq_s
+
+    def _linear_values(self, x_s, scal):
+        A_eq_s, b_eq_s, A_ineq_s, b_ineq_s = self._lin_matrices(scal)
+        return _mv(A_eq_s, x_s) - b_eq_s, _mv(A_ineq_s, x_s) - b_ineq_s
+
+    def _theta(self, st: "SolverState"):
+        return flt.compute_constraint_val(st.l_e, st.l_i, st.c_e, st.c_i)
+
+    def _filter_objective(self, fx):
+        return flt.compute_objective_val(
+            fx, "max" if self.filter_mode in ("max", "dummy") else "strict")
 
     def _stamp(self, traj: TrajectoryState, x, fx, delta, rho, omega,
                steplength, it_stat, x_indices, groups) -> TrajectoryState:
@@ -291,13 +340,48 @@ class Solver:
     def _total_evals(self, groups):
         return sum(st.n_evals for st in groups)
 
-    def _get_criticality(self, groups, x_s, x_n_s, delta, scal):
+    # -------------------------------------------------- criticality computation
+    def _linearized_constraints_at(self, groups, x_s, x_n_s, l_e_n, l_i_n, scal):
+        """Rows for the subproblem LPs at x+n (``descent.jl:199-236``): the
+        true linear constraints with right-hand side -l(x_n), and the
+        surrogate linearizations of the nonlinear ones around x, shifted to
+        x_n; each block row-equilibrated."""
+        n_step = x_n_s - x_s
+        A_eq_s, _, A_ineq_s, _ = self._lin_matrices(scal)
+        parts_Ae, parts_be = [A_eq_s], [-l_e_n]
+        parts_Ai, parts_bi = [A_ineq_s], [-l_i_n]
+        if self.mop.m_ce > 0:
+            Dm_e = self.container.jac_nl_eq(groups, x_s, scal)
+            m_e, _ = self.container.eval_nl_eq(groups, x_n_s, scal)
+            parts_Ae.append(Dm_e)
+            parts_be.append(-m_e - _mv(Dm_e, n_step))
+        if self.mop.m_ci > 0:
+            Dm_i = self.container.jac_nl_ineq(groups, x_s, scal)
+            m_i, _ = self.container.eval_nl_ineq(groups, x_n_s, scal)
+            parts_Ai.append(Dm_i)
+            parts_bi.append(-m_i - _mv(Dm_i, n_step))
+
+        def equilibrate(rows, rhs):
+            # row equilibration (a mathematical no-op), as OSQP scales its
+            # data: rows far from unit inf-norm stall the fixed-budget ADMM
+            # (the JAX package's note at algorithm.py:446-455)
+            r = rows.abs().amax(-1)
+            r = torch.where(r > 0, r, torch.ones_like(r))
+            return rows / r[..., None], rhs / r
+
+        A_eq, b_eq = equilibrate(torch.cat(parts_Ae, dim=-2), torch.cat(parts_be, dim=-1))
+        A_ineq, b_ineq = equilibrate(torch.cat(parts_Ai, dim=-2),
+                                     torch.cat(parts_bi, dim=-1))
+        return LinearizedConstraints(A_eq=A_eq, b_eq=b_eq, A_ineq=A_ineq, b_ineq=b_ineq)
+
+    def _get_criticality(self, groups, x_s, x_n_s, l_e_n, l_i_n, scal):
         """``get_criticality`` (``descent.jl:19-25``), steepest descent:
         returns ``(omega, d, groups)``; the LP reads model Jacobians only
         and charges nothing."""
         Dm = self.container.jac_objectives(groups, x_n_s, scal)
+        lin = self._linearized_constraints_at(groups, x_s, x_n_s, l_e_n, l_i_n, scal)
         d, omega = steepest_descent_direction(
-            x_n_s, Dm, scal.lb_scaled, scal.ub_scaled,
+            x_n_s, Dm, scal.lb_scaled, scal.ub_scaled, lin,
             normalize=self.desc_cfg.normalize, qp_iters=self.ac.qp_iters)
         return omega, d, groups
 
@@ -311,12 +395,14 @@ class Solver:
         if x0.dim() == 1:
             x0 = x0[None]
         B, n = x0.shape
-        x = project_into_box(x0, self._tensor(mop.lb), self._tensor(mop.ub))
+        x = project_into_box(x0, self._lb, self._ub)
         scal = scaling.VarScaler(*(f.expand(B, n).contiguous() for f in self.scal))
         x_s = scaling.transform(scal, x)
 
         groups = self.container.init_group_states(B)
-        fx, groups, x_indices = self.container.ensure_evaluated(groups, x_s, scal)
+        fx, c_e, c_i, groups, x_indices = self.container.ensure_evaluated(groups, x_s,
+                                                                          scal)
+        l_e, l_i = self._linear_values(x_s, scal)
         delta0 = torch.full((B,), self.ac.delta_0, dtype=dtype, device=dev)
 
         G = len(mop.groups)
@@ -334,10 +420,13 @@ class Solver:
         head = torch.tensor([1, ITER_TYPE.ACCEPTABLE, STOP_CODE.CONTINUE,
                              _MODE_NORMAL, 0], dtype=torch.int32, device=dev)
         ints = torch.cat([head.expand(B, 5), x_indices.to(torch.int32)], dim=-1)
+        # the dummy filter carries no buffers
+        cap = 0 if self.filter_mode == "dummy" else self.ac.resolved_filter_capacity()
         return SolverState(
-            x=x, x_s=x_s, fx=fx, dlt=torch.stack([delta0, delta0], dim=-1),
-            ints=ints, groups=groups,
-            filter=flt.init_filter(B, 0, 1, dtype, dev), traj=traj, scal=scal)
+            x=x, x_s=x_s, fx=fx, l_e=l_e, l_i=l_i, c_e=c_e, c_i=c_i,
+            dlt=torch.stack([delta0, delta0], dim=-1), ints=ints, groups=groups,
+            filter=flt.init_filter(B, cap, self.f_dim, dtype, dev), traj=traj,
+            scal=scal)
 
     # ------------------------------------------------------------------ stopping
     def _tol_tests(self, x, x_t, fx, fx_t):
@@ -448,9 +537,240 @@ class Solver:
             improve_flag, scal=state.scal, efl_flag=in_crit)
         state = state.replace(groups=tree_where(do_update, upd, state.groups))
 
-        theta_k = torch.zeros_like(state.delta)  # no constraints
+        theta_k = self._theta(state)
+        if self.has_constraints:
+            return self._constrained_phase(state, theta_k, crit_halt, pre_stats)
         return self._main_phase(state, state, theta_k, theta_k, crit_halt,
                                 pre_stats)
+
+    # ---------------------------------------------------------------- phase A
+    def _constrained_phase(self, state: SolverState, theta_k, crit_halt,
+                           pre_stats) -> SolverState:
+        """Normal step / restoration dispatch (``find_normal_step``,
+        ``algorithm.jl:406-521``). Each lane takes one of three outcomes:
+        the main phase (from x or from x+n), restoration, or an INFEASIBLE
+        finish; each is computed for every lane and selected per lane, as
+        the JAX package's vmapped conds do, and skipped on a trip where no
+        lane takes it (one host check each)."""
+        ac = self.ac
+        scal = state.scal
+        need_normal = ~self._violation_zero(theta_k)
+        if not bool(need_normal.any()):
+            return self._main_phase(state, state, theta_k, theta_k, crit_halt, pre_stats)
+
+        # the normal-step LP (``compute_normal_step``), solved for every
+        # lane and taken where a lane needs it (JAX: a 0/1-trip while_loop)
+        lin = self._linearized_constraints_at(state.groups, state.x_s, state.x_s,
+                                              state.l_e, state.l_i, scal)
+        variable_radius = state.last_it_stat == ITER_TYPE.RESTORATION
+        n_raw, delta_raw, feas_raw = normal_step(
+            state.x_s, scal.lb_scaled, scal.ub_scaled, lin, ac.filter_kappa_delta,
+            ac.delta_max, state.delta, variable_radius, qp_iters=ac.qp_iters)
+        n_step = lane_where(need_normal, n_raw, torch.zeros_like(n_raw))
+        delta_n = torch.where(need_normal, delta_raw, state.delta)
+        feasible = torch.where(need_normal, feas_raw, torch.ones_like(feas_raw))
+
+        # compatibility test (``is_compatible``, ``algorithm.jl:131-137``)
+        inf = torch.full_like(n_step, float("inf"))
+        norm_n = torch.where(torch.isnan(n_step), inf, n_step).abs().amax(-1)
+        compatible = feasible & (
+            norm_n <= ac.filter_kappa_delta * delta_n
+            * torch.clamp(ac.filter_kappa_mu * delta_n ** ac.filter_mu, max=1.0))
+        take_n = need_normal & compatible
+
+        # the bundle at x+n (``:461-514``), selected per lane against x's
+        changed = take_n & ~torch.isclose(delta_n, state.delta)
+        groups2 = tree_where(changed, self.container.set_fully_linear(state.groups, False),
+                             state.groups)
+        step = torch.where(take_n[:, None], torch.nan_to_num(n_step),
+                           torch.zeros_like(n_step))
+        x_n_s = state.x_s + step
+        fx_n, c_e_n, c_i_n, groups3, idx_n = self._gated_evaluate_true(groups2, x_n_s,
+                                                                       scal)
+        l_e_n, l_i_n = self._linear_values(x_n_s, scal)
+        state_b = state.replace(groups=groups3,
+                                delta=torch.where(changed, delta_n, state.delta))
+        inter_b = state_b.replace(
+            x=scaling.untransform(scal, x_n_s), x_s=x_n_s, fx=fx_n, l_e=l_e_n,
+            l_i=l_i_n, c_e=c_e_n, c_i=c_i_n, x_indices=idx_n)
+        theta_sel = torch.where(take_n, self._theta(inter_b), theta_k)
+        out_main = self._main_phase(tree_where(take_n, state_b, state),
+                                    tree_where(take_n, inter_b, state), theta_k,
+                                    theta_sel, crit_halt, pre_stats)
+
+        # incompatible lanes: restoration or INFEASIBLE (``:440-493``)
+        incompatible = need_normal & ~compatible
+        if not bool(incompatible.any()):
+            return out_main
+        out_other = self._incompatible_path(state, theta_k, n_step, feasible,
+                                            incompatible)
+        return tree_where(incompatible, out_other, out_main)
+
+    def _gated_evaluate_true(self, groups, x_s, scal):
+        """``container.evaluate_true`` at a candidate whose results a lane
+        may discard: the straight call (the JAX package gates it only for
+        host callbacks, which are not ported)."""
+        return self.container.evaluate_true(groups, x_s, scal)
+
+    def _incompatible_path(self, state: SolverState, theta_k, n_step, feasible,
+                           active) -> SolverState:
+        """Restoration, or INFEASIBLE right after a restoration
+        (``algorithm.jl:440-452``)."""
+        last_restoration = state.last_it_stat == ITER_TYPE.RESTORATION
+        infeasible = self._finish_early(state, STOP_CODE.INFEASIBLE)
+        if self.mop.has_nl_constraints:
+            restored = self._restoration(state, theta_k, n_step,
+                                         active & ~last_restoration)
+            return tree_where(last_restoration, infeasible, restored)
+        # linearly constrained only: n itself restores (``:447-452``)
+        n_ok = feasible & torch.isfinite(n_step).all(-1)
+        scal = state.scal
+        x_n_s = state.x_s + torch.nan_to_num(n_step)
+        fx_n, c_e_n, c_i_n, groups, idx_n = self.container.evaluate_true(
+            state.groups, x_n_s, scal)
+        l_e_n, l_i_n = self._linear_values(x_n_s, scal)
+        restored = self._finish_restoration(state.replace(
+            x=scaling.untransform(scal, x_n_s), x_s=x_n_s, fx=fx_n, l_e=l_e_n,
+            l_i=l_i_n, c_e=c_e_n, c_i=c_i_n, groups=groups, x_indices=idx_n))
+        return tree_where(n_ok & ~last_restoration, restored, infeasible)
+
+    def _true_constraints(self, xi, want_jac: bool):
+        """True constraint blocks (l_e, l_i, c_e, c_i) at unscaled sites
+        ``xi`` (B, n), evaluating only the groups that feed nonlinear
+        constraints (``algorithm.jl:355-362``: restoration never touches
+        objective-only groups); with ``want_jac`` also (J_e, J_i)."""
+        mop = self.mop
+        vals, jacs = [], []
+        for g in mop.groups:
+            con = any(mb.role in (NL_EQ, NL_INEQ) for mb in g.members)
+            vals.append(g.eval_unscaled(xi) if con else None)
+            jacs.append(g.jac_unscaled(xi) if con and want_jac else None)
+        blocks = (_mv(self._A_eq, xi) - self._b_eq, _mv(self._A_ineq, xi) - self._b_ineq,
+                  self._role(vals, NL_EQ, xi, -1), self._role(vals, NL_INEQ, xi, -1))
+        if not want_jac:
+            return blocks
+        return blocks, (self._role(jacs, NL_EQ, xi, -2), self._role(jacs, NL_INEQ, xi, -2))
+
+    def _role(self, group_values, role, xi, axis):
+        """``mop.scatter_role`` that also takes a role nobody serves."""
+        if self.mop.role_width(role) == 0:
+            shape = (xi.shape[0], 0) if axis == -1 else (xi.shape[0], 0, xi.shape[-1])
+            return xi.new_zeros(shape)
+        return self.mop.scatter_role(group_values, role, axis)
+
+    def _restoration(self, state: SolverState, theta_k, r_guess, active) -> SolverState:
+        """Nonlinear restoration (``restoration``, ``algorithm.jl:325-404``)
+        as the JAX package computes it: projected gradient descent with step
+        halving on the squared-hinge violation of the true constraints, from
+        x plus the normal step's guess; the reference's eval budget, its
+        ``stopval`` exit at theta zero and its counting. The filter takes the
+        current iterate first (``:470-471``). ``active`` (B,) marks the lanes
+        that restore; the others run no iteration. Each lane has its own
+        iteration cap and done flag; the loop runs, masked, until no lane is
+        active, checking on the host once in ``RESTORATION_SYNC_EVERY``
+        iterations."""
+        ac, dtype, mop = self.ac, self.dtype, self.mop
+        state = state.replace(filter=flt.add_entry(
+            state.filter, theta_k, self._filter_objective(state.fx), ac.filter_shift))
+        lb, ub, A_eq, A_ineq = self._lb, self._ub, self._A_eq, self._A_ineq
+        x = state.x
+        pos = lambda v: torch.clamp(v, min=0.0)
+        sq = lambda v: (v * v).sum(-1)
+
+        def merit_and_theta(xi):
+            l_e, l_i, c_e, c_i = self._true_constraints(xi, False)
+            m = sq(c_e) + sq(pos(c_i)) + sq(l_e) + sq(pos(l_i))
+            return m, flt.compute_constraint_val(l_e, l_i, c_e, c_i)
+
+        def grad(xi):
+            # 2 (J_e' c_e + J_i' max(c_i, 0) + A_eq' l_e + A_ineq' max(l_i, 0))
+            (l_e, l_i, c_e, c_i), (J_e, J_i) = self._true_constraints(xi, True)
+            tmv = lambda J, v: (v[..., None, :] @ J)[..., 0, :]
+            return 2.0 * (tmv(J_e, c_e) + tmv(J_i, pos(c_i)) + tmv(A_eq, l_e)
+                          + tmv(A_ineq, pos(l_i)))
+
+        bad = torch.isnan(r_guess).any(-1, keepdim=True)
+        r0 = torch.where(bad, torch.zeros_like(x), torch.nan_to_num(r_guess)
+                         / torch.clamp(state.scal.scale, min=1e-30))
+        xi = project_into_box(x + r0, lb, ub)
+        width = torch.where(torch.isfinite(ub - lb), ub - lb, torch.ones_like(lb))
+        min_width = width.min()
+
+        # budget (``algorithm.jl:370-384``): ``max_restoration_evals > 0``
+        # caps the solve and suspends counting; else min(500 n, the
+        # remaining budget of every nl-constraint group), two true passes an
+        # iteration (gradient and candidate), so cap // 2 iterations, at
+        # least 1 while any budget is left
+        con_groups = [i for i, g in enumerate(mop.groups)
+                      if any(mb.role in (NL_EQ, NL_INEQ) for mb in g.members)]
+        B = x.shape[0]
+        if ac.max_restoration_evals > 0:
+            ev_cap = torch.full((B,), ac.max_restoration_evals, dtype=torch.int32,
+                                device=self.device)
+        else:
+            ev_cap = torch.full((B,), 500 * mop.n_vars, dtype=torch.int32,
+                                device=self.device)
+            for i in con_groups:
+                gmax = min(ac.max_evals, mop.groups[i].max_evals, 2 ** 31 - 1)
+                ev_cap = torch.minimum(ev_cap, gmax - state.groups[i].n_evals)
+            ev_cap = torch.clamp(ev_cap, min=0)
+        cap = torch.where(ev_cap >= 1, torch.clamp(ev_cap // 2, min=1),
+                          torch.zeros_like(ev_cap))
+        stopval = 10 * torch.finfo(dtype).eps
+
+        m_cur, t_best = merit_and_theta(xi)
+        x_best = xi
+        sc = torch.full_like(m_cur, 0.1)
+        done = t_best <= stopval
+        i_used = torch.zeros_like(cap)
+        it = 0
+        while True:
+            go = ~done & (i_used < cap) & active
+            if it % RESTORATION_SYNC_EVERY == 0 and not bool(go.any()):
+                break
+            g = grad(xi)
+            gn = g.abs().amax(-1)
+            step = torch.where(gn > 0, sc * min_width / gn, torch.zeros_like(gn))
+            xi_n = project_into_box(xi - step[:, None] * g, lb, ub)
+            m_n, t_n = merit_and_theta(xi_n)
+            improved = m_n < m_cur
+            better = t_n < t_best
+            xi = lane_where(go & improved, xi_n, xi)
+            m_cur = torch.where(go & improved, m_n, m_cur)
+            sc = torch.where(go, torch.where(improved, torch.clamp(sc * 1.25, max=0.5),
+                                             sc * 0.5), sc)
+            x_best = lane_where(go & better, xi_n, x_best)
+            t_best = torch.where(go, torch.minimum(t_best, t_n), t_best)
+            done = torch.where(go, (t_best <= stopval) | (sc < 1e-10), done)
+            i_used = i_used + go.to(i_used.dtype)
+            it += 1
+        self.restoration_iterations += it
+
+        groups = state.groups
+        if ac.max_restoration_evals <= 0:
+            groups = tuple(st._replace(n_evals=st.n_evals + 2 * i_used)
+                           if i in con_groups else st for i, st in enumerate(groups))
+            state = state.replace(groups=groups)
+
+        scal = state.scal
+        x_r_s = scaling.transform(scal, x_best)
+        fx_r, c_e_r, c_i_r, groups, idx_r = self._gated_evaluate_true(groups, x_r_s, scal)
+        l_e_r, l_i_r = self._linear_values(x_r_s, scal)
+        acceptable = flt.is_acceptable(state.filter, t_best, self._filter_objective(fx_r))
+        accepted = self._finish_restoration(state.replace(
+            x=x_best, x_s=x_r_s, fx=fx_r, l_e=l_e_r, l_i=l_i_r, c_e=c_e_r, c_i=c_i_r,
+            groups=groups, x_indices=idx_r))
+        failed = self._finish_early(state.replace(groups=groups), STOP_CODE.INFEASIBLE)
+        return tree_where(acceptable, accepted, failed)
+
+    def _finish_restoration(self, state: SolverState) -> SolverState:
+        """Stamp and continue with it_stat RESTORATION (``algorithm.jl:702-709``)."""
+        ninf = -float("inf")
+        traj = self._stamp(state.traj, state.x, state.fx, state.delta, ninf, ninf,
+                           ninf, int(ITER_TYPE.RESTORATION), state.x_indices,
+                           state.groups)
+        return state.replace(traj=traj, last_it_stat=int(ITER_TYPE.RESTORATION),
+                             iter_counter=state.iter_counter + 1)
 
     def _finish_early(self, state: SolverState, code) -> SolverState:
         return state.replace(stop_code=int(code),
@@ -461,11 +781,12 @@ class Solver:
     def _main_phase(self, state: SolverState, inter: SolverState,
                     theta_k, theta_n, crit_halt, pre_stats) -> SolverState:
         """Criticality + trial point + acceptance. ``state`` is the current
-        iterate's bundle, ``inter`` the bundle at x+n (the same object
-        without a normal step, i.e. always in this slice)."""
+        iterate's bundle, ``inter`` the bundle at x+n (the same state on
+        lanes that took no normal step, and on every criticality micro-trip:
+        entry requires theta_k ~ 0)."""
         in_crit = state.crit_mode > _MODE_NORMAL
         omega, d, groups_c = self._get_criticality(
-            inter.groups, state.x_s, inter.x_s, state.delta, state.scal)
+            inter.groups, state.x_s, inter.x_s, inter.l_e, inter.l_i, state.scal)
         # a halted criticality pass performs no work (``algorithm.jl:563-573``)
         groups_c = tree_where(crit_halt, inter.groups, groups_c)
         state = state.replace(groups=groups_c)
@@ -579,6 +900,46 @@ class Solver:
                           tree_where(exit_critical, crit_exit, trial))
 
     # ------------------------------------------------------------- trial point
+    def _crossing_rows(self, state, inter, d):
+        """The constraint rows of the initial stepsize's sigma search in
+        crossing form ``(vals, dirs, rhs)`` (``descent.jl:276-292``): with
+        constraints and ``delta_max > 1`` only, else ``(None, None,
+        None)``. True linear rows along ``x_n + sigma d``, the nonlinear
+        ones linearized at x and shifted by the normal step; equality rows
+        twice with flipped sign."""
+        if not (self.has_constraints and self.ac.delta_max > 1.0):
+            return None, None, None
+        x_s, x_n_s, scal = state.x_s, inter.x_s, state.scal
+        groups, container = inter.groups, self.container
+        A_eq_s, b_eq_s, A_ineq_s, b_ineq_s = self._lin_matrices(scal)
+        n_step = x_n_s - x_s
+        vals, dirs, rhs = [], [], []
+        if A_ineq_s.shape[-2]:
+            vals.append(_mv(A_ineq_s, x_n_s))
+            dirs.append(_mv(A_ineq_s, d))
+            rhs.append(b_ineq_s)
+        if A_eq_s.shape[-2]:
+            ve, de = _mv(A_eq_s, x_n_s), _mv(A_eq_s, d)
+            vals += [ve, -ve]
+            dirs += [de, -de]
+            rhs += [b_eq_s, -b_eq_s]
+        if self.mop.m_ci > 0:
+            Dm_i = container.jac_nl_ineq(groups, x_s, scal)
+            m_i = container.eval_nl_ineq_raw(groups, x_s, scal)
+            vals.append(m_i + _mv(Dm_i, n_step))
+            dirs.append(_mv(Dm_i, d))
+            rhs.append(torch.zeros_like(m_i))
+        if self.mop.m_ce > 0:
+            Dm_e = container.jac_nl_eq(groups, x_s, scal)
+            m_e = container.eval_nl_eq_raw(groups, x_s, scal)
+            ve, de = m_e + _mv(Dm_e, n_step), _mv(Dm_e, d)
+            vals += [ve, -ve]
+            dirs += [de, -de]
+            rhs += [torch.zeros_like(m_e)] * 2
+        if not vals:
+            return None, None, None
+        return torch.cat(vals, -1), torch.cat(dirs, -1), torch.cat(rhs, -1)
+
     def _trial_point(self, state, inter, theta_k, omega, d):
         """Descent step, true evaluation, acceptance tests, radius update
         (``algorithm.jl:748-914``)."""
@@ -589,7 +950,7 @@ class Solver:
         container = self.container
 
         sigma = initial_stepsize(x_s, x_n_s, d, state.delta, scal.lb_scaled,
-                                 scal.ub_scaled)
+                                 scal.ub_scaled, *self._crossing_rows(state, inter, d))
 
         def eval_mx(groups, xq):
             return container.eval_objectives(groups, xq, scal)
@@ -612,14 +973,23 @@ class Solver:
         x_trial = scaling.untransform(scal, x_trial_s)
 
         # true evaluation at the trial point (``algorithm.jl:760-764``)
-        fx_t, groups, idx_t = container.evaluate_true(groups, x_trial_s, scal)
+        fx_t, c_e_t, c_i_t, groups, idx_t = container.evaluate_true(groups, x_trial_s,
+                                                                    scal)
+        l_e_t, l_i_t = self._linear_values(x_trial_s, scal)
         # fresh surrogate values at x and x_trial (``:766-767``)
         mx, groups = container.eval_objectives(groups, x_s, scal)
         mx_t, groups = container.eval_objectives(groups, x_trial_s, scal)
+        theta_t = flt.compute_constraint_val(l_e_t, l_i_t, c_e_t, c_i_t)
+        f_t_filter = self._filter_objective(fx_t)
         steplength = (x_s - x_trial_s).abs().amax(-1)
 
         # acceptance tests (``:779-863``); the dummy filter accepts all
-        acceptable_filter = torch.ones_like(usable)
+        if self.filter_mode == "dummy":
+            acceptable_filter = torch.ones_like(usable)
+        else:
+            acceptable_filter = flt.is_acceptable_vs(
+                state.filter, theta_t, f_t_filter, theta_k,
+                self._filter_objective(state.fx), ac.filter_shift)
         nan = torch.full_like(omega, float("nan"))
         if ac.strict_acceptance_test:
             denom = mx - mx_t
@@ -661,13 +1031,21 @@ class Solver:
             RU.SHRINK_MUCH)
         delta_new = self._apply_radius_update(radius_update, state.delta, steplength)
 
+        # filter entry (``:875-877``)
+        filt = state.filter
+        if self.filter_mode != "dummy":
+            filt = tree_where(it_stat == IT.FILTER_ADD,
+                              flt.add_entry(filt, theta_t, f_t_filter, ac.filter_shift),
+                              filt)
+
         # next iterate (``:881-888``)
+        take = lambda a, b: lane_where(accept, a, b)
         next_state = inter.replace(
-            x=lane_where(accept, x_trial, inter.x),
-            x_s=lane_where(accept, x_trial_s, inter.x_s),
-            fx=lane_where(accept, fx_t, inter.fx),
-            x_indices=lane_where(accept, idx_t, inter.x_indices),
-            delta=delta_new, groups=groups)
+            x=take(x_trial, inter.x), x_s=take(x_trial_s, inter.x_s),
+            fx=take(fx_t, inter.fx), l_e=take(l_e_t, inter.l_e),
+            l_i=take(l_i_t, inter.l_i), c_e=take(c_e_t, inter.c_e),
+            c_i=take(c_i_t, inter.c_i), x_indices=take(idx_t, inter.x_indices),
+            delta=delta_new, groups=groups, filter=filt)
 
         # stamp (``:899-903``), then the it_stat column of the stamped row
         traj = self._stamp(next_state.traj, next_state.x, next_state.fx,

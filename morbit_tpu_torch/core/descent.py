@@ -1,24 +1,29 @@
-"""Steepest descent: criticality LP, Armijo backtracking, initial stepsize.
+"""Steepest descent and the normal step: criticality LP, Armijo
+backtracking, initial stepsize, min-inf-norm normal step.
 
 Counterpart of the steepest-descent part of ``morbit_tpu/core/descent.py``
 (reference ``src/descent.jl``), batched over lanes. The multiobjective
 steepest-descent direction is the min-max LP (``descent.jl:74-135``)::
 
     min_{beta, d}  beta   s.t.  Df d <= beta * ||rows||,  -1 <= d <= 1,
-                               lb <= x + d <= ub
+                               lb <= x + d <= ub,  A_eq d = b_eq,  A_ineq d <= b_ineq
 
 solved with :func:`morbit_tpu_torch.ops.qp.solve_qp`; ``omega = -beta``.
-Constraint rows arrive with the constraints slice.
+The normal step (``descent.jl:691-758``) is the same kind of LP with an
+epigraph variable; its infeasibility is signalled by NaN, as in the
+reference (``:750-751``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
-from morbit_tpu_torch.ops.geometry import intersect_bounds, local_bounds
+from morbit_tpu_torch.ops.geometry import (_crossing_sigmas, intersect_bounds,
+                                           local_bounds)
 from morbit_tpu_torch.ops.qp import solve_qp
 
 _EPS64 = 2.0 ** -52
@@ -46,13 +51,33 @@ def resolve_descent_config(spec):
     if spec in ("ps", "pascoletti_serafini"):
         raise NotImplementedError(
             "Pascoletti-Serafini descent is not ported to morbit_tpu_torch "
-            "yet: it arrives with the Pascoletti-Serafini slice")
+            "yet: it arrives with the Pascoletti-Serafini slice (ROADMAP "
+            "queue 1 item 9)")
     raise ValueError(f"unknown descent method {spec!r}")
 
 
-def descent_lp(x_n, Dm, lb, ub, normalize: bool = True):
+class LinearizedConstraints(NamedTuple):
+    """Linear(ized) constraint rows of the subproblems, in scaled space, per
+    lane: ``A_eq d - b_eq == 0`` and ``A_ineq d - b_ineq <= 0`` for a step
+    ``d`` from the expansion point; the true linear constraints and the
+    surrogate linearizations of the nonlinear ones (``descent.jl:199-236``).
+    ``A_*`` are (B, p, n), ``b_*`` (B, p); zero rows when absent."""
+
+    A_eq: torch.Tensor
+    b_eq: torch.Tensor
+    A_ineq: torch.Tensor
+    b_ineq: torch.Tensor
+
+
+def _rows(M, extra_cols: int):
+    """Constraint rows ``M`` (B, k, n) with ``extra_cols`` zero columns."""
+    return torch.cat([M, M.new_zeros(M.shape[:-1] + (extra_cols,))], dim=-1)
+
+
+def descent_lp(x_n, Dm, lb, ub, normalize: bool = True, lin=None):
     """The min-max LP of every lane in OSQP form ``(P, q, A, l, u)``:
-    variables ``(d, beta)``, ``nv = n + 1`` and ``m_obj + 2n`` rows."""
+    variables ``(d, beta)``, ``nv = n + 1`` and ``m_obj + 2n + p + q`` rows
+    (descent rows, ``|d| <= 1``, the box, then ``lin``'s rows)."""
     B, n = x_n.shape
     m = Dm.shape[-2]
     dtype, dev = x_n.dtype, x_n.device
@@ -63,28 +88,30 @@ def descent_lp(x_n, Dm, lb, ub, normalize: bool = True):
         c = torch.ones((B, m), dtype=dtype, device=dev)
     eye = torch.eye(n, dtype=dtype, device=dev).expand(B, n, n)
     zcol = torch.zeros((B, n, 1), dtype=dtype, device=dev)
-    A = torch.cat([
-        torch.cat([Dm, -c[..., None]], dim=-1),      # descent rows
-        torch.cat([eye, zcol], dim=-1),              # |d| <= 1
-        torch.cat([eye, zcol], dim=-1),              # box
-    ], dim=-2)
+    blocks = [torch.cat([Dm, -c[..., None]], dim=-1),      # descent rows
+              torch.cat([eye, zcol], dim=-1),              # |d| <= 1
+              torch.cat([eye, zcol], dim=-1)]              # box
     inf = torch.full((B, m), float("inf"), dtype=dtype, device=dev)
     ones = torch.ones((B, n), dtype=dtype, device=dev)
-    l = torch.cat([-inf, -ones, lb - x_n], dim=-1)
-    u = torch.cat([torch.zeros_like(inf), ones, ub - x_n], dim=-1)
+    l = [-inf, -ones, lb - x_n]
+    u = [torch.zeros_like(inf), ones, ub - x_n]
+    if lin is not None:
+        blocks += [_rows(lin.A_eq, 1), _rows(lin.A_ineq, 1)]
+        l += [lin.b_eq, torch.full_like(lin.b_ineq, -float("inf"))]
+        u += [lin.b_eq, lin.b_ineq]
     qv = torch.zeros((B, n + 1), dtype=dtype, device=dev)
     qv[:, n] = 1.0
     P = torch.zeros((B, n + 1, n + 1), dtype=dtype, device=dev)
-    return P, qv, A, l, u
+    return P, qv, torch.cat(blocks, dim=-2), torch.cat(l, dim=-1), torch.cat(u, dim=-1)
 
 
-def steepest_descent_direction(x_n, Dm, lb, ub, normalize: bool = True,
+def steepest_descent_direction(x_n, Dm, lb, ub, lin=None, normalize: bool = True,
                                qp_iters: int = 400):
     """Solve the min-max LP per lane; returns (d (B, n), omega (B,)).
     ``descent.jl:91-135``. On solver failure the reference returns a zero
     step with ``omega = -inf`` (``:130-134``)."""
     n = x_n.shape[-1]
-    sol = solve_qp(*descent_lp(x_n, Dm, lb, ub, normalize), iters=qp_iters)
+    sol = solve_qp(*descent_lp(x_n, Dm, lb, ub, normalize, lin), iters=qp_iters)
     d = sol.z[:, :n]
     omega = -sol.z[:, n]
     ok = sol.status_ok & torch.isfinite(d).all(-1)
@@ -131,9 +158,15 @@ def backtrack(x_n, d, sigma0, omega, eval_mx, states, cfg: SteepestDescentConfig
     return x_t, mx_t, sigma[:, None] * d, states
 
 
-def initial_stepsize(x, x_n, d, delta, lb, ub):
-    """Initial backtracking stepsize sigma per lane (``descent.jl:253-310``),
-    box-constrained form."""
+def initial_stepsize(x, x_n, d, delta, lb, ub, con_vals=None, con_dirs=None,
+                     con_rhs=None):
+    """Initial backtracking stepsize sigma per lane (``descent.jl:253-310``).
+
+    For ``Delta > 1`` with ``||d|| ~ 1`` the reference intersects the ray
+    ``x_n + sigma*d`` with the local box and every (true linear and
+    surrogate-linearized) constraint row (``descent.jl:276-292``); callers
+    pass those rows in crossing form ``con_vals + sigma * con_dirs <=
+    con_rhs`` (B, k), equality rows twice with flipped sign, or ``None``."""
     lb_eff, ub_eff = local_bounds(x, delta, lb, ub)
     took_normal = ~torch.isclose(x, x_n).all(-1)
     sigma_box = intersect_bounds(x_n, d, lb_eff, ub_eff, ret_mode="pos")
@@ -141,7 +174,85 @@ def initial_stepsize(x, x_n, d, delta, lb, ub):
     norm_d = d.abs().amax(-1)
     norm_d_safe = torch.where(norm_d > 0, norm_d, torch.ones_like(norm_d))
     sigma_small = torch.clamp(delta_eff / norm_d_safe, max=1.0)
-    # Delta > 1 branch: step until the local box is hit, when ||d||_inf ~ 1
+    # Delta > 1 branch: step until the local box (or a linearized
+    # constraint) is hit, when ||d||_inf ~ 1
+    if con_vals is not None and con_vals.shape[-1] > 0:
+        s = _crossing_sigmas(con_vals, con_rhs, con_dirs, sense_lb=False)
+        # rows never crossed along the ray impose no cap (+inf, as the
+        # reference's positive minimum over box and rows together)
+        sigma_con = torch.where(s >= 0, s, torch.full_like(s, float("inf"))).amin(-1)
+        sigma_box = torch.minimum(sigma_box, sigma_con)
     one = torch.ones_like(norm_d)
     sigma_big = torch.where(torch.isclose(norm_d, one), sigma_box, one)
     return torch.where(delta_eff <= 1.0, sigma_small, sigma_big)
+
+
+def normal_lp(x, lb, ub, lin: LinearizedConstraints, kappa_delta: float,
+              delta_max: float, variable_radius):
+    """The normal-step LP of every lane in OSQP form ``(P, q, A, l, u)``
+    (``compute_normal_step``, ``descent.jl:691-758``): variables ``(n, a,
+    del)``, ``nv = n + 2``; rows ``n_i - a <= 0``, ``-n_i - a <= 0``, ``a >=
+    0``, the box, ``lin``'s rows, ``a - kappa_delta del <= 0`` (binding only
+    with ``variable_radius``, (B,) bool) and ``del <= delta_max``. The
+    objective is ``a``, or ``del`` with ``variable_radius``."""
+    B, n = x.shape
+    dtype, dev = x.dtype, x.device
+    eye = torch.eye(n, dtype=dtype, device=dev).expand(B, n, n)
+    ones = torch.ones((B, n, 1), dtype=dtype, device=dev)
+    zn = torch.zeros((B, n, 1), dtype=dtype, device=dev)
+    # the rows of (a, del): a >= 0, a - kappa_delta del <= 0, del <= delta_max
+    tail = torch.zeros((B, 3, n + 2), dtype=dtype, device=dev)
+    tail[:, 0, n] = 1.0
+    tail[:, 1, n] = 1.0
+    tail[:, 1, n + 1] = -kappa_delta
+    tail[:, 2, n + 1] = 1.0
+    A = torch.cat([
+        torch.cat([eye, -ones, zn], dim=-1),
+        torch.cat([-eye, -ones, zn], dim=-1),
+        tail[:, :1],
+        torch.cat([eye, zn, zn], dim=-1),
+        _rows(lin.A_eq, 2), _rows(lin.A_ineq, 2),
+        tail[:, 1:]], dim=-2)
+    full = lambda k, v: torch.full((B, k), v, dtype=dtype, device=dev)
+    inf = float("inf")
+    zero_or_inf = torch.where(variable_radius, 0.0, inf).to(dtype)[:, None]
+    l = torch.cat([full(2 * n, -inf), full(1, 0.0), lb - x, lin.b_eq,
+                   torch.full_like(lin.b_ineq, -inf), full(1, -inf), full(1, 0.0)], dim=-1)
+    u = torch.cat([full(2 * n, 0.0), full(1, inf), ub - x, lin.b_eq, lin.b_ineq,
+                   zero_or_inf, full(1, delta_max)], dim=-1)
+    qv = torch.zeros((B, n + 2), dtype=dtype, device=dev)
+    qv[:, n] = torch.where(variable_radius, 0.0, 1.0).to(dtype)
+    qv[:, n + 1] = torch.where(variable_radius, 1.0, 0.0).to(dtype)
+    P = torch.zeros((B, n + 2, n + 2), dtype=dtype, device=dev)
+    return P, qv, A, l, u
+
+
+def normal_step(x, lb, ub, lin: LinearizedConstraints, kappa_delta: float,
+                delta_max: float, delta, variable_radius, qp_iters: int = 400):
+    """Min-inf-norm step onto the linearized feasible set per lane
+    (``compute_normal_step``, ``descent.jl:691-758``). ``lin`` carries rows
+    with their right-hand sides at ``x``. Returns (n (B, n), Delta (B,),
+    feasible (B,)); an infeasible lane's step is NaN."""
+    n = x.shape[-1]
+    dtype = x.dtype
+    sol = solve_qp(*normal_lp(x, lb, ub, lin, kappa_delta, delta_max,
+                              variable_radius), iters=qp_iters)
+    # clip tiny box violations (``descent.jl:756``)
+    n_step = torch.minimum(torch.maximum(x + sol.z[:, :n], lb), ub) - x
+    # post-clip feasibility test against the (row-equilibrated) constraint
+    # rows, the JAX package's stand-in for OSQP's primal-infeasibility
+    # certificate (``descent.jl:750``): the clip concentrates an infeasible
+    # LP's violation in those rows
+    # 10 sqrt(eps) rounded in the dtype, as the JAX package computes it
+    eps = 1e-6 if torch.finfo(dtype).bits <= 32 else 1e-8
+    feas_tol = float(10.0 * torch.sqrt(torch.tensor(eps, dtype=dtype)))
+    viol = torch.zeros_like(sol.z[:, 0])
+    mv = lambda M, v: (M @ v[..., None])[..., 0]
+    if lin.A_eq.shape[-2]:
+        viol = torch.maximum(viol, (mv(lin.A_eq, n_step) - lin.b_eq).abs().amax(-1))
+    if lin.A_ineq.shape[-2]:
+        viol = torch.maximum(viol, (mv(lin.A_ineq, n_step) - lin.b_ineq).amax(-1))
+    feasible = sol.status_ok & (viol <= feas_tol)
+    n_step = torch.where(feasible[:, None], n_step, torch.full_like(n_step, float("nan")))
+    delta_out = torch.where(variable_radius, sol.z[:, n + 1], delta)
+    return n_step, delta_out, feasible

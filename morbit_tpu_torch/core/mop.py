@@ -6,9 +6,9 @@ User functions are plain torch functions of ONE unscaled site ``x (n,) ->
 ``torch.func.vmap``. Jacobians come from the user's ``jac`` callback, else
 ``torch.func.jacrev``.
 
-This package solves unconstrained and box-constrained problems with exact
-and RBF objectives; constraints, composites and the other surrogate models
-raise ``NotImplementedError``.
+Exact and RBF objectives and nonlinear constraints, box constraints and
+linear equality and inequality rows are ported; composites and the other
+surrogate models raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,10 +24,12 @@ from morbit_tpu_torch.models.configs import (ExactConfig, RbfConfig,
                                              SurrogateConfig, check_ported)
 
 OBJECTIVE = "objective"
+NL_EQ = "nl_eq"
+NL_INEQ = "nl_ineq"
 
-_CONSTRAINTS_LATER = ("constraints are not ported to morbit_tpu_torch yet: "
-                      "they arrive with the constraints slice (filter, "
-                      "normal step, restoration)")
+_COMPOSITES_LATER = ("composite functions are not ported to morbit_tpu_torch "
+                     "yet: they arrive with ROADMAP queue 1 item 10 "
+                     "(composites, scaling modes and database options)")
 
 
 def _flat_map(fn, X, out_shape):
@@ -84,32 +86,59 @@ class MOP:
                 raise ValueError("lb and ub must have the same shape")
             self.n_vars = self.lb.shape[0]
         self.functions: list[VecFun] = []
+        self._A_eq: list[np.ndarray] = []
+        self._b_eq: list[np.ndarray] = []
+        self._A_ineq: list[np.ndarray] = []
+        self._b_ineq: list[np.ndarray] = []
 
-    def add_objective(self, fn, n_out=1, model_cfg=None, jac=None,
-                      max_evals=2 ** 31 - 1):
-        """Add an objective; like the JAX package the default model is an
+    def _add(self, fn, n_out, model_cfg, role, jac, max_evals):
+        """Register a function; like the JAX package the default model is an
         RBF surrogate (``RbfConfig()``)."""
         cfg = check_ported(RbfConfig() if model_cfg is None else model_cfg)
         self.functions.append(VecFun(fn=fn, n_out=int(n_out), model_cfg=cfg,
-                                     role=OBJECTIVE, jac=jac,
-                                     max_evals=max_evals))
+                                     role=role, jac=jac, max_evals=max_evals))
         return len(self.functions) - 1
+
+    def add_objective(self, fn, n_out=1, model_cfg=None, jac=None,
+                      max_evals=2 ** 31 - 1):
+        return self._add(fn, n_out, model_cfg, OBJECTIVE, jac, max_evals)
 
     def add_exact_objective(self, fn, n_out=1, jac=None, max_evals=2 ** 31 - 1):
         """``add_exact_objective!`` — Jacobians from ``jac`` or autodiff."""
-        return self.add_objective(fn, n_out, ExactConfig(), jac, max_evals)
+        return self._add(fn, n_out, ExactConfig(), OBJECTIVE, jac, max_evals)
 
+    # -- nonlinear constraints (``MOP.jl:84-107``): ``fn(x) == 0`` / ``<= 0``
+    def add_nl_eq_constraint(self, fn, n_out=1, model_cfg=None, jac=None,
+                             max_evals=2 ** 31 - 1):
+        return self._add(fn, n_out, model_cfg, NL_EQ, jac, max_evals)
+
+    def add_nl_ineq_constraint(self, fn, n_out=1, model_cfg=None, jac=None,
+                               max_evals=2 ** 31 - 1):
+        return self._add(fn, n_out, model_cfg, NL_INEQ, jac, max_evals)
+
+    # -- linear constraints (``AbstractMOPInterface.jl:354-375``)
     def add_eq_constraint(self, A, b):
-        raise NotImplementedError(_CONSTRAINTS_LATER)
+        """Rows of ``A x - b == 0``."""
+        self._A_eq.append(np.atleast_2d(np.asarray(A, float)))
+        self._b_eq.append(np.atleast_1d(np.asarray(b, float)))
 
     def add_ineq_constraint(self, A, b):
-        raise NotImplementedError(_CONSTRAINTS_LATER)
+        """Rows of ``A x - b <= 0``."""
+        self._A_ineq.append(np.atleast_2d(np.asarray(A, float)))
+        self._b_ineq.append(np.atleast_1d(np.asarray(b, float)))
 
-    def add_nl_eq_constraint(self, fn, n_out=1, **kw):
-        raise NotImplementedError(_CONSTRAINTS_LATER)
+    # -- composite functions: not ported yet
+    def add_function(self, fn, n_out=1, model_cfg=None, jac=None):
+        raise NotImplementedError(_COMPOSITES_LATER)
 
-    def add_nl_ineq_constraint(self, fn, n_out=1, **kw):
-        raise NotImplementedError(_CONSTRAINTS_LATER)
+    def add_composite_objective(self, outer, inner_index, n_out=1):
+        raise NotImplementedError(_COMPOSITES_LATER)
+
+    def add_composite_nl_eq_constraint(self, outer, inner_index, n_out=1):
+        raise NotImplementedError(_COMPOSITES_LATER)
+
+    def add_composite_nl_ineq_constraint(self, outer, inner_index, n_out=1):
+        raise NotImplementedError(_COMPOSITES_LATER)
 
     @property
     def num_objectives(self):
@@ -120,7 +149,7 @@ class MOP:
 class GroupMember:
     fn_index: int        # index into mop.functions
     group_offset: int    # offset of this function's outputs inside the group
-    global_offset: int   # offset inside the objective vector
+    global_offset: int   # offset inside the role vector (fx / c_e / c_i)
     n_out: int
     role: str
 
@@ -152,18 +181,50 @@ class CompiledMOP:
     n_vars: int
     lb: np.ndarray
     ub: np.ndarray
+    A_eq: np.ndarray     # (p, n)
+    b_eq: np.ndarray     # (p,)
+    A_ineq: np.ndarray   # (q, n)
+    b_ineq: np.ndarray   # (q,)
     groups: tuple        # tuple[GroupSpec]
     m_obj: int
+    m_ce: int
+    m_ci: int
 
-    def scatter_objectives(self, group_values) -> torch.Tensor:
-        """Per-group output vectors ``(..., m_g)`` -> objective vector
-        ``(..., m_obj)``."""
-        parts = [None] * self.m_obj
+    @property
+    def has_nl_constraints(self):
+        return (self.m_ce + self.m_ci) > 0
+
+    @property
+    def has_lin_constraints(self):
+        return self.A_eq.shape[0] + self.A_ineq.shape[0] > 0
+
+    def role_width(self, role: str) -> int:
+        return {OBJECTIVE: self.m_obj, NL_EQ: self.m_ce, NL_INEQ: self.m_ci}[role]
+
+    def scatter_role(self, group_values, role: str, axis: int = -1) -> torch.Tensor:
+        """Per-group outputs -> the ``role`` vector (fx, c_e or c_i), along
+        ``axis`` of the group outputs (-1 for values ``(..., m_g)``, -2 for
+        Jacobians ``(..., m_g, n)``). ``None`` stands for a group without
+        members of the role."""
+        parts = [None] * self.role_width(role)
+        ref = None
         for g, vals in zip(self.groups, group_values):
             for mb in g.members:
+                if mb.role != role:
+                    continue
+                ref = vals
                 for k in range(mb.n_out):
-                    parts[mb.global_offset + k] = vals[..., mb.group_offset + k]
-        return torch.stack(parts, dim=-1)
+                    parts[mb.global_offset + k] = vals.select(axis, mb.group_offset + k)
+        if ref is None:
+            ref = next(v for v in group_values if v is not None)
+            shape = list(ref.shape)
+            shape[axis] = 0
+            return ref.new_zeros(shape)
+        return torch.stack(parts, dim=axis)
+
+    def scatter_role_vectors(self, group_values):
+        """Per-group output vectors ``(..., m_g)`` -> ``(fx, c_e, c_i)``."""
+        return tuple(self.scatter_role(group_values, r) for r in (OBJECTIVE, NL_EQ, NL_INEQ))
 
 
 def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
@@ -198,10 +259,12 @@ def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
             group_lists.append([i])
             group_cfgs.append(f.model_cfg)
 
-    offsets, off = {}, 0
+    # offsets inside each role vector, in the order of addition
+    role_offsets = {OBJECTIVE: 0, NL_EQ: 0, NL_INEQ: 0}
+    offsets = {}
     for i, f in enumerate(mop.functions):
-        offsets[i] = off
-        off += f.n_out
+        offsets[i] = role_offsets[f.role]
+        role_offsets[f.role] += f.n_out
 
     groups, location = [], {}
     for gi, fn_ids in enumerate(group_lists):
@@ -213,9 +276,10 @@ def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
             goff += f.n_out
             fns.append(f)
             max_ev = min(max_ev, f.max_evals, f.model_cfg.max_evals)
-        groups.append(GroupSpec(index=gi, cfg=group_cfgs[gi], fns=tuple(fns),
-                                members=tuple(members), m=goff,
-                                max_evals=max_ev, has_objective=True))
+        groups.append(GroupSpec(
+            index=gi, cfg=group_cfgs[gi], fns=tuple(fns), members=tuple(members),
+            m=goff, max_evals=max_ev,
+            has_objective=any(mop.functions[i].role == OBJECTIVE for i in fn_ids)))
     for i, can in canonical.items():
         if can == i:
             continue
@@ -225,7 +289,15 @@ def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
         groups[gi] = dataclasses.replace(
             g, members=g.members + (GroupMember(i, goff, offsets[i], f.n_out,
                                                 f.role),),
-            max_evals=min(g.max_evals, f.max_evals, f.model_cfg.max_evals))
+            max_evals=min(g.max_evals, f.max_evals, f.model_cfg.max_evals),
+            has_objective=g.has_objective or f.role == OBJECTIVE)
 
-    return CompiledMOP(n_vars=mop.n_vars, lb=mop.lb, ub=mop.ub,
-                       groups=tuple(groups), m_obj=off)
+    n = mop.n_vars
+    rows = lambda A: np.vstack(A) if A else np.zeros((0, n))
+    rhs = lambda b: np.concatenate(b) if b else np.zeros((0,))
+    return CompiledMOP(
+        n_vars=n, lb=mop.lb, ub=mop.ub,
+        A_eq=rows(mop._A_eq), b_eq=rhs(mop._b_eq),
+        A_ineq=rows(mop._A_ineq), b_ineq=rhs(mop._b_ineq),
+        groups=tuple(groups), m_obj=role_offsets[OBJECTIVE],
+        m_ce=role_offsets[NL_EQ], m_ci=role_offsets[NL_INEQ])

@@ -53,7 +53,8 @@ def get_var_scaler(lb, ub, mode: str = "default") -> VarScaler:
     scaling. The Jacobian-estimating 'auto' mode is not ported yet."""
     if mode == "auto":
         raise NotImplementedError(
-            "var_scaler='auto' is not ported to morbit_tpu_torch yet")
+            "var_scaler='auto' is not ported to morbit_tpu_torch yet "
+            "(ROADMAP queue 1 item 10)")
     if mode not in ("default", "none"):
         raise ValueError(f"unknown var_scaler {mode!r}")
     finite = bool(torch.isfinite(lb).all() and torch.isfinite(ub).all())

@@ -11,6 +11,7 @@ functions per model family on batched state::
     jac(state, x_s, scal)                        -> (B, m, n)
     fully_linear(state)                          -> (B,) bool, or a bool
                                                     for every lane
+    set_fully_linear(state, val)                 -> state
 """
 
 from __future__ import annotations
@@ -72,6 +73,10 @@ class SurrogateOps:
 
     def fully_linear(self, state):
         raise NotImplementedError
+
+    def set_fully_linear(self, state, val):
+        """Families without a fully-linear flag (exact) keep their state."""
+        return state
 
     def train_stamp(self, state):
         """Per-iteration training-set provenance, (B, train_stamp_len) int32:

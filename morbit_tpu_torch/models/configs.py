@@ -16,8 +16,8 @@ from morbit_tpu_torch.ops.rbf import RBF_KERNELS
 
 #: where each surrogate family not yet ported lands in the port's order
 LATER_SLICE = {
-    "TaylorConfig": "the Taylor slice",
-    "LagrangeConfig": "the Lagrange slice",
+    "TaylorConfig": "the Taylor slice (ROADMAP queue 1 item 7)",
+    "LagrangeConfig": "the Lagrange slice (ROADMAP queue 1 item 8)",
 }
 
 
@@ -91,7 +91,8 @@ def check_ported(cfg):
             raise NotImplementedError(
                 "RbfConfig(use_max_points=True) is not ported to "
                 "morbit_tpu_torch yet: its random round-4 candidates come from "
-                "jax.random in the reference, and they arrive with a later slice")
+                "jax.random in the reference, and they arrive with ROADMAP "
+                "queue 1 item 11")
         return cfg
     name = type(cfg).__name__
     where = LATER_SLICE.get(name, "a later slice of the port")

@@ -2,7 +2,9 @@
 
 Counterpart of ``morbit_tpu/models/container.py`` (reference
 ``src/SurrogateContainer.jl``), batched over lanes, for exact and RBF
-groups. Each group carries an ``n_evals`` counter per lane (the
+groups. Group outputs map into the role vectors fx (objectives), c_e and
+c_i (nonlinear equality and inequality constraints). Each group carries an
+``n_evals`` counter per lane (the
 ``CountedFunc`` analogue, ``src/globals.jl:74-112``); exact groups also
 count on *model* evaluation, because their model is the counted function.
 An RBF group whose geometry signature equals an earlier RBF group's takes
@@ -18,7 +20,7 @@ import torch
 
 from morbit_tpu_torch.core import database as dbm
 from morbit_tpu_torch.core import scaling
-from morbit_tpu_torch.core.mop import CompiledMOP
+from morbit_tpu_torch.core.mop import NL_EQ, NL_INEQ, OBJECTIVE, CompiledMOP
 from morbit_tpu_torch.models.base import ModelContext
 from morbit_tpu_torch.models.configs import ExactConfig, RbfConfig, check_ported
 from morbit_tpu_torch.models.exact import ExactOps, broadcast_scaler
@@ -77,7 +79,8 @@ class SurrogateContainer:
     def evaluate_true(self, states, x_s, scal):
         """Evaluate every group's true functions at one scaled site per
         lane, insert the results and bump the counters
-        (``algorithm.jl:760-764``). Returns (fx, states, x_indices (B, G))."""
+        (``algorithm.jl:760-764``). Returns (fx, c_e, c_i, states,
+        x_indices (B, G))."""
         x = scaling.untransform(scal, x_s)
         vals, new_states, x_indices = [], [], []
         for g, st in zip(self.mop.groups, states):
@@ -86,7 +89,7 @@ class SurrogateContainer:
             vals.append(v)
             x_indices.append(idx)
             new_states.append(st._replace(db=db, n_evals=st.n_evals + 1))
-        return (self.mop.scatter_objectives(vals), tuple(new_states),
+        return (*self.mop.scatter_role_vectors(vals), tuple(new_states),
                 torch.stack(x_indices, dim=-1))
 
     def ensure_evaluated(self, states, x_s, scal):
@@ -111,7 +114,7 @@ class SurrogateContainer:
             x_indices.append(idx)
             new_states.append(st._replace(
                 db=db, n_evals=st.n_evals + (~found).to(torch.int32)))
-        return (self.mop.scatter_objectives(vals), tuple(new_states),
+        return (*self.mop.scatter_role_vectors(vals), tuple(new_states),
                 torch.stack(x_indices, dim=-1))
 
     # ------------------------------------------------------------ model update
@@ -170,22 +173,38 @@ class SurrogateContainer:
         return tuple(out)
 
     # ------------------------------------------------------------- model evals
+    def _gather(self, states, x_s, which, role, scal, counted=True):
+        """Evaluate (``which='eval'``) or differentiate (``'jac'``) the
+        models of the groups serving ``role`` and scatter them into the role
+        vector; a counted evaluation bumps those groups' counters where the
+        model is the true function. Returns (values, states)."""
+        out, new_states = [], list(states)
+        for i, (g, ops, st) in enumerate(zip(self.mop.groups, self.ops, states)):
+            if not any(mb.role == role for mb in g.members):
+                out.append(None)
+                continue
+            if which == "eval":
+                if ops.counts_on_eval and counted:
+                    new_states[i] = st._replace(n_evals=st.n_evals + 1)
+                out.append(ops.eval(st.model, x_s, scal))
+            else:
+                out.append(ops.jac(st.model, x_s, scal))
+        if all(v is None for v in out):
+            B, n = x_s.shape[0], self.mop.n_vars
+            shape = (B, 0) if which == "eval" else (B, 0, n)
+            return x_s.new_zeros(shape), tuple(new_states)
+        axis = -1 if which == "eval" else -2
+        return self.mop.scatter_role(out, role, axis), tuple(new_states)
+
     def eval_objectives(self, states, x_s, scal):
         """Model objective values at one site per lane, counted
         (``SurrogateContainer.jl:234-269``). Returns (values, states)."""
-        vals, new_states = [], []
-        for ops, st in zip(self.ops, states):
-            if ops.counts_on_eval:
-                st = st._replace(n_evals=st.n_evals + 1)
-            vals.append(ops.eval(st.model, x_s, scal))
-            new_states.append(st)
-        return self.mop.scatter_objectives(vals), tuple(new_states)
+        return self._gather(states, x_s, "eval", OBJECTIVE, scal)
 
     def eval_objectives_batch(self, states, X, scal):
         """(B, K, m_obj) model objective values at K sites per lane,
         uncounted."""
-        return self.mop.scatter_objectives(
-            [ops.eval(st.model, X, scal) for ops, st in zip(self.ops, states)])
+        return self._gather(states, X, "eval", OBJECTIVE, scal, counted=False)[0]
 
     def charge_evals(self, states, k, objectives_only: bool = False):
         """Add ``k`` (per lane) true-function evals to exact groups: what
@@ -201,13 +220,27 @@ class SurrogateContainer:
 
     def jac_objectives(self, states, x_s, scal):
         """(B, m_obj, n) model objective Jacobians at one site per lane."""
-        Js = [ops.jac(st.model, x_s, scal) for ops, st in zip(self.ops, states)]
-        rows = [None] * self.mop.m_obj
-        for g, J in zip(self.mop.groups, Js):
-            for mb in g.members:
-                for k in range(mb.n_out):
-                    rows[mb.global_offset + k] = J[..., mb.group_offset + k, :]
-        return torch.stack(rows, dim=-2)
+        return self._gather(states, x_s, "jac", OBJECTIVE, scal)[0]
+
+    def eval_nl_eq(self, states, x_s, scal):
+        return self._gather(states, x_s, "eval", NL_EQ, scal)
+
+    def eval_nl_ineq(self, states, x_s, scal):
+        return self._gather(states, x_s, "eval", NL_INEQ, scal)
+
+    def eval_nl_eq_raw(self, states, x_s, scal):
+        return self._gather(states, x_s, "eval", NL_EQ, scal, counted=False)[0]
+
+    def eval_nl_ineq_raw(self, states, x_s, scal):
+        return self._gather(states, x_s, "eval", NL_INEQ, scal, counted=False)[0]
+
+    def jac_nl_eq(self, states, x_s, scal):
+        """(B, m_ce, n) model Jacobians of the equality constraints."""
+        return self._gather(states, x_s, "jac", NL_EQ, scal)[0]
+
+    def jac_nl_ineq(self, states, x_s, scal):
+        """(B, m_ci, n) model Jacobians of the inequality constraints."""
+        return self._gather(states, x_s, "jac", NL_INEQ, scal)[0]
 
     # ------------------------------------------------- model-meta provenance
     @property
@@ -233,6 +266,12 @@ class SurrogateContainer:
         for ops, st in zip(self.ops, states):
             flag = flag & ops.fully_linear(st.model)
         return flag
+
+    def set_fully_linear(self, states, val):
+        """Set every group's fully-linear flag (where the family keeps one)
+        to ``val``, a bool or a (B,) mask."""
+        return tuple(st._replace(model=ops.set_fully_linear(st.model, val))
+                     for ops, st in zip(self.ops, states))
 
     # ------------------------------------------------------------------ budget
     def budget_exhausted(self, states):

@@ -297,6 +297,11 @@ class RbfOps(SurrogateOps):
     def fully_linear(self, state):
         return state.fully_linear
 
+    def set_fully_linear(self, state, val):
+        """``val``: a bool, or a (B,) mask of the lanes' new flags."""
+        flag = torch.as_tensor(val, device=state.fully_linear.device)
+        return state._replace(fully_linear=flag.expand_as(state.fully_linear).clone())
+
     def train_stamp(self, state):
         """``[n_train, idx...]``: which db rows built this model
         (``RbfModel.jl:162-175``)."""

@@ -2,7 +2,8 @@
 
 Counterpart of ``morbit_tpu/problems/synthetic.py``: the ZDT suite (ZDT1-4
 and 6; ZDT5 is binary-coded and has no box domain), DTLZ1, 2 and 6, the two
-parabolas, the analytic ZDT fronts and the Halton starts. The objectives
+parabolas (also under the constrained configuration), the analytic ZDT
+fronts and the Halton starts. The objectives
 are torch functions of one site ``x (n,)``; the port's ``MOP`` batches and
 differentiates them. The Halton sequence is computed the same way as in
 the JAX package, so both get bit-equal starts.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from morbit_tpu_torch.core.mop import MOP
+from morbit_tpu_torch.models.configs import ExactConfig
 
 
 # --------------------------------------------------------------------- ZDT
@@ -173,6 +175,23 @@ def make_two_parabolas(model_cfg=None, lb=None, ub=None) -> MOP:
     else:
         mop.add_objective(_f1, model_cfg=model_cfg)
         mop.add_objective(_f2, model_cfg=model_cfg)
+    return mop
+
+
+def _ball(x):
+    return torch.sum(x ** 2) - 2.25
+
+
+def make_constrained_two_parabolas(model_cfg=None, lb=(-4.0, -4.0),
+                                   ub=(4.0, 4.0)) -> MOP:
+    """The constrained configuration (BASELINE config 4, as
+    ``tools/bench_constrained.py`` and the constrained golden run it): the
+    two parabolas on the box, the linear row ``x1 + x2 <= 1`` and the
+    exact nonlinear row ``||x||^2 - 2.25 <= 0``. The constrained Pareto set
+    is the segment x1 = x2 in [-1, 0.5]."""
+    mop = make_two_parabolas(model_cfg, list(lb), list(ub))
+    mop.add_ineq_constraint([[1.0, 1.0]], [1.0])
+    mop.add_nl_ineq_constraint(_ball, model_cfg=ExactConfig())
     return mop
 
 

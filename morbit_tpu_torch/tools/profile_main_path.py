@@ -20,9 +20,13 @@ time and the operators with the most host time. The models:
   (the bench twin's protocol, ``morbit_tpu_torch/bench.py``). The line adds
   the trips of each stage and the device kernels of one stage boundary at
   full width, profiled alone: the capacity resizes, the active-first sort,
-  the gathers and the split of the state, and the rejoin.
+  the gathers and the split of the state, and the rejoin;
+* ``constrained``: the ``rbf`` model under the constrained configuration
+  (``make_constrained_two_parabolas``: ``x1 + x2 <= 1`` and the exact ball
+  ``||x||^2 <= 2.25``), run by the plain runner; the line adds the
+  restoration loop's iterations.
 
-    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged]
+    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained]
 
 Needs a CUDA card.
 """
@@ -60,7 +64,8 @@ def boundary_kernels(runner, x0) -> int:
 
 def main(argv=None) -> int:
     args = argparse.ArgumentParser()
-    args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged"), default="rbf")
+    args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged", "constrained"),
+                      default="rbf")
     model = args.parse_args(argv).model
     B, window = 1024, 5
     if not torch.cuda.is_available():
@@ -70,8 +75,9 @@ def main(argv=None) -> int:
 
     from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
     from morbit_tpu_torch.models.configs import RbfConfig
-    from morbit_tpu_torch.problems.synthetic import (halton_starts, make_two_parabolas,
-                                                     make_zdt)
+    from morbit_tpu_torch.problems.synthetic import (halton_starts,
+                                                     make_constrained_two_parabolas,
+                                                     make_two_parabolas, make_zdt)
 
     if model == "zdt20":
         mop = make_zdt("zdt1", 20, model_cfg=RbfConfig(kernel="cubic"))
@@ -79,7 +85,8 @@ def main(argv=None) -> int:
                              f_tol_rel=1e-3, x_tol_rel=1e-3, qp_iters=400)
     else:
         cfg = None if model == "exact" else RbfConfig(kernel="multiquadric")
-        mop = make_two_parabolas(cfg, lb=[-4.0, -4.0], ub=[4.0, 4.0])
+        make = make_constrained_two_parabolas if model == "constrained" else make_two_parabolas
+        mop = make(cfg, lb=[-4.0, -4.0], ub=[4.0, 4.0])
         ac = AlgorithmConfig(max_iter=100, qp_iters=400)
     starts = [torch.as_tensor(halton_starts(B, mop.lb, mop.ub, 1 + k * B),
                               dtype=torch.float32, device="cuda") for k in range(2)]
@@ -115,9 +122,16 @@ def main(argv=None) -> int:
             extra = dict(schedule=[t for t, _ in runner.schedule],
                          widths=list(runner.widths), db_capacity=runner.solver.db_capacity,
                          boundary_kernels=boundary_kernels(runner, starts[0]))
+        elif model == "constrained":
+            from morbit_tpu_torch.parallel.multistart import build_solver
+
+            solver = build_solver(mop, ac, torch.float32)
+            run = solver.solve
         else:
             run = lambda x: multistart_optimize(mop, x, ac, dtype=torch.float32)
         run(starts[0])
+        if model == "constrained":
+            solver.restoration_iterations = 0
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -126,6 +140,8 @@ def main(argv=None) -> int:
             wall_s = time.perf_counter() - t0
         trips = res.trips
         extra["stage_trips"] = list(res.stage_trips)
+        if model == "constrained":
+            extra["restoration_iterations"] = solver.restoration_iterations
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]

@@ -5,7 +5,8 @@ The port imports nothing of the JAX package, so both cross as plain data:
 * :func:`config_from_dict` takes ``dataclasses.asdict`` of the JAX
   ``AlgorithmConfig``;
 * :func:`state_from_numpy` takes a JAX ``SolverState`` as a dict of numpy
-  arrays, leaf name to array: ``x``, ``x_s``, ``fx``, ``dlt``, ``ints``,
+  arrays, leaf name to array: ``x``, ``x_s``, ``fx``, the constraint values
+  ``l_e``, ``l_i``, ``c_e``, ``c_i``, ``dlt``, ``ints``,
   ``traj.data``, ``traj.count``, ``scal.<field>`` (scale, offset,
   lb_scaled, ub_scaled), ``filter.<field>`` (theta, fvals, count,
   overflow), ``groups.<i>.db.<field>`` (data, count, overflow) and
@@ -14,9 +15,9 @@ The port imports nothing of the JAX package, so both cross as plain data:
   n_train | fully_linear | dirs_head | dirs_count]``),
   ``groups.<i>.model.dirs``, ``groups.<i>.model.fit.fdata`` (``[sites | w |
   mask]``) and ``groups.<i>.model.fit.flam`` (``[lam ; param row]``). A
-  state without a lane axis (one ``optimize`` run) gets one. Leaves the
-  port does not carry (the empty constraint blocks and the PRNG key of the
-  JAX state) are ignored.
+  state without a lane axis (one ``optimize`` run) gets one. The filter
+  crosses with its entries (a dummy filter has capacity 0). The PRNG key of
+  the JAX state is not carried.
 
 :func:`state_to_numpy` produces the same dict from the port's state, so two
 states compare leaf by leaf.
@@ -83,7 +84,8 @@ def state_from_numpy(leaves: dict, device=None, dtype=None) -> SolverState:
                         n=n, m=data.shape[-1] - n - 1),
             model=model, n_evals=t(f"groups.{i}.n_evals", torch.int32)))
     return SolverState(
-        x=x, x_s=t("x_s"), fx=fx, dlt=t("dlt"), ints=ints,
+        x=x, x_s=t("x_s"), fx=fx, l_e=t("l_e"), l_i=t("l_i"), c_e=t("c_e"),
+        c_i=t("c_i"), dlt=t("dlt"), ints=ints,
         groups=tuple(groups),
         filter=flt.FilterState(theta=t("filter.theta"),
                                fvals=t("filter.fvals"),
@@ -97,7 +99,8 @@ def state_from_numpy(leaves: dict, device=None, dtype=None) -> SolverState:
 def state_to_numpy(state: SolverState) -> dict:
     """The port's state as a dict of numpy leaves, named as above."""
     host = lambda v: v.detach().cpu().numpy()
-    out = {f: host(getattr(state, f)) for f in ("x", "x_s", "fx", "dlt", "ints")}
+    out = {f: host(getattr(state, f))
+           for f in ("x", "x_s", "fx", "l_e", "l_i", "c_e", "c_i", "dlt", "ints")}
     out["traj.data"] = host(state.traj.data)
     out["traj.count"] = host(state.traj.count)
     for f in scaling.VarScaler._fields:

@@ -271,10 +271,12 @@ def test_solver_restores_tf32_flags_when_an_objective_raises(tf32_on):
                                  JaxTaylorConfig(), JaxLagrangeConfig()])
 def test_unported_models_raise(cfg):
     mop = mt.MOP([-1.0], [1.0])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match=r"not ported[\s\S]*queue 1 item"):
         mop.add_objective(lambda x: x.sum(), model_cfg=cfg)
-    with pytest.raises(NotImplementedError, match="constraints"):
-        mop.add_ineq_constraint([[1.0]], [0.5])
+    # constraints are ported; composites raise, naming their queue item
+    mop.add_ineq_constraint([[1.0]], [0.5])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        mop.add_composite_objective(lambda x, g: g.sum(), 0)
     # the RBF config carries the JAX package's fields and defaults
     ref = dataclasses.asdict(JaxRbfConfig())
     port = dataclasses.asdict(RbfConfig())
@@ -362,5 +364,5 @@ def test_compile_mop_groups_match_jax():
             for mb in gj.members]
     x = np.array([0.3, -0.7])
     vals = [g.eval_unscaled(_t(x)[None]) for g in cp.groups]
-    _close(cp.scatter_objectives(vals)[0], cj.scatter_role_vectors(
+    _close(cp.scatter_role_vectors(vals)[0][0], cj.scatter_role_vectors(
         [g.eval_unscaled(jnp.asarray(x)) for g in cj.groups], jnp.float64)[0])

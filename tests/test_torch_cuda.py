@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from chip_smoke import (K5_EDGES, ROUND4_EDGES, SEL_NAMES, SEL_STATICS,
-                        admm_iterations_case, admm_iterations_edge_case, descent_lps,
-                        gram_case, random_qps, round4_case, round4_edge_case,
-                        selection_case, selection_lattice_case)
+                        admm_iterations_case, admm_iterations_edge_case,
+                        constrained_lps, descent_lps, gram_case, lane_limits, random_qps,
+                        round4_case, round4_edge_case, selection_case,
+                        selection_lattice_case)
 from morbit_tpu_torch.ops import qp_lane
 from morbit_tpu_torch.ops.qp import _rho_vec
 
@@ -30,11 +31,14 @@ def cuda():
                                        (torch.float32, 2e-3)])
 @pytest.mark.parametrize("problem", ["random36", "random48", "descent36", "random2142",
                                      "B1000_2142", "B1000_3264", "B1000_510",
-                                     "B1000_12"])
+                                     "B1000_12", "descent38", "descent38_eq",
+                                     "normal411", "normal411_eq"])
 def test_kernel_matches_twin(cuda, problem, dtype, tol):
     """K1 against its twin. The warp-per-lane instance also at its edges:
     two constraint rows a thread (m > 32), the largest shape, nv = 1, and
-    B = 1000, not a multiple of the four lanes in a block."""
+    B = 1000, not a multiple of the four lanes in a block; and at the
+    constrained path's LPs: the descent LP with constraint rows (3, 8) and
+    the normal-step LP (4, 11), each also with an equality row."""
     arrays = {"random36": lambda: random_qps(1024, 3, 6, 0),
               "random48": lambda: random_qps(1024, 4, 8, 1),
               "descent36": lambda: descent_lps(1024, 2),
@@ -43,7 +47,11 @@ def test_kernel_matches_twin(cuda, problem, dtype, tol):
               "B1000_2142": lambda: random_qps(1000, 21, 42, 24),
               "B1000_3264": lambda: random_qps(1000, 32, 64, 35),
               "B1000_510": lambda: random_qps(1000, 5, 10, 8),
-              "B1000_12": lambda: random_qps(1000, 1, 2, 4)}[problem]()
+              "B1000_12": lambda: random_qps(1000, 1, 2, 4),
+              "descent38": lambda: constrained_lps(1024, "descent_con", 40),
+              "descent38_eq": lambda: constrained_lps(1024, "descent_con_eq", 41),
+              "normal411": lambda: constrained_lps(1024, "normal", 42),
+              "normal411_eq": lambda: constrained_lps(1024, "normal_eq", 43)}[problem]()
     P, q, A, lo, hi = (torch.as_tensor(a, dtype=dtype, device=cuda)
                        for a in arrays)
     r = A.abs().amax(-1)
@@ -57,7 +65,16 @@ def test_kernel_matches_twin(cuda, problem, dtype, tol):
     zp, _, _ = qp_lane.admm_stages_plain(P, q, A, lo, hi, rho0, **kw)
     torch.cuda.synchronize()
     assert qp_lane.launches == before + 1
-    torch.testing.assert_close(zk, zp, rtol=0, atol=tol)
+    if problem.startswith(("descent38", "normal411")):
+        # LPs whose unconverged lanes amplify rounding: each lane held, as
+        # in chip_smoke.py kernel_admm, to ten times its own one-ulp
+        # sensitivity where that exceeds the fixed tolerance
+        limit = lane_limits(tol, lambda A1: qp_lane.admm_stages_plain(
+            P, q, A1, lo, hi, rho0, **kw)[0], A, zp)
+        dz = (zk - zp).abs().amax(-1)
+        assert not (dz > limit).any(), (dz[dz > limit], limit[dz > limit])
+    else:
+        torch.testing.assert_close(zk, zp, rtol=0, atol=tol)
 
 
 @pytest.mark.cuda

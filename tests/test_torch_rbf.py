@@ -450,7 +450,8 @@ def test_optimize_variants_match_jax(label):
 
 
 def _jax_leaves(st):
-    out = {f: np.asarray(getattr(st, f)) for f in ("x", "x_s", "fx", "dlt", "ints")}
+    out = {f: np.asarray(getattr(st, f))
+           for f in ("x", "x_s", "fx", "l_e", "l_i", "c_e", "c_i", "dlt", "ints")}
     out["traj.data"] = np.asarray(st.traj.data)
     out["traj.count"] = np.asarray(st.traj.count)
     for f in ("scale", "offset", "lb_scaled", "ub_scaled"):
