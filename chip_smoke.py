@@ -91,10 +91,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     starts, max_iter=25, on the card and on the CPU, trip by trip from the
     same state (the filter and constraint values included); only the
     recorded pair ``CONSTRAINED_MAY_PART`` may part, on a duplicate site.
+12. ``taylor_main_path``, ``lagrange_main_path``, ``ps_main_path`` — the
+    main path's problem (two parabolas, 1024 Halton starts from index 1,
+    f32, max_iter=100, qp_iters=400) with a degree-2 finite-difference
+    ``TaylorConfig`` group, a degree-2 ``LagrangeConfig`` group (both with
+    steepest descent), and the main path's multiquadric RBF group with
+    ``PascolettiSerafiniConfig()``: the probe-tuned ``StagedMultistart`` and
+    the plain runner in turns under ``kernels_only``; runs/s, trips,
+    launches per trip, K1 launches (at least one a trip on the Taylor and
+    Lagrange paths), K2 and K3 launches (at least one each a trip on the
+    PS path), ascent steps per trip, stop codes, database rows and
+    ``capacity_overflow`` (must be False), the Pareto fraction (a gauge)
+    and the lanes whose stop code or iteration count differ between the
+    runners (must be 0). ``taylor_card_vs_cpu``, ``lagrange_card_vs_cpu``,
+    ``ps_card_vs_cpu`` — each at float64, 64 starts,
+    max_iter=FAMILY_LOCKSTEP_ITERS, card against CPU trip by trip
+    (``lockstep``); only the (trip, lane) pairs of ``FAMILY_MAY_PART`` may
+    part, each for its recorded cause.
 
 Then the card's name and power limit, one JSON line with the kernel table
-(K1-K3 also with the staged main path's launches at each budget and the
-``routing`` times), and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
+(K1-K3 also with the staged main path's launches at each budget, the
+``routing`` times and the launches of the three paths of phase 12), the
+script's total seconds, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any result. Imports nothing of JAX.
 """
 
@@ -1603,15 +1621,17 @@ def duplicate_site_lanes(state):
     return dup.numpy()
 
 
-def lockstep(make_mop, starts, ac, may_part=None):
+def lockstep(make_mop, starts, ac, may_part=None, eligible=None, describe=None):
     """Trip by trip at float64: the card's trip from the CPU's state equals
-    the CPU's trip (``_compare_states``). With ``may_part``, a set of
-    (trip, lane) pairs, such a lane may part at such a trip if its database
-    then holds one site twice (``duplicate_site_lanes``); any other parting
-    lane fails. Returns the trips, the seconds, the largest relative
-    differences of the reported floats, the (trip, lane) pairs that parted
-    and, with ``may_part``, the lanes holding a duplicate site at each trip
-    that has some."""
+    the CPU's trip (``_compare_states``). With ``may_part``, a collection of
+    (trip, lane) pairs, such a lane may part at such a trip if
+    ``eligible(state)`` (default ``duplicate_site_lanes``: its database then
+    holds one site twice) marks it; any other parting lane fails. Returns
+    the trips, the seconds, the largest relative differences of the
+    reported floats, the (trip, lane) pairs that parted (with ``describe``,
+    a dict of them to ``describe(card, cpu, lane)``) and, with
+    ``may_part``, the eligible lanes at each trip that has some."""
+    eligible = eligible or duplicate_site_lanes
     from morbit_tpu_torch import STOP_CODE
     from morbit_tpu_torch.parallel.multistart import build_solver
     from morbit_tpu_torch.utils.tree import tree_map, tree_where
@@ -1620,7 +1640,7 @@ def lockstep(make_mop, starts, ac, may_part=None):
     t0 = time.perf_counter()
     state = on["cpu"].initialize(starts)
     diffs, _ = _compare_states(on["cuda"].initialize(starts), state)
-    trips, parted, eligible = 0, [], {}
+    trips, parted, seen, cards, states = 0, [], {}, {}, {}
     while bool((state.stop_code == STOP_CODE.CONTINUE).any()):
         card_in = tree_map(lambda t: t.to("cuda"), state)
         run_card = card_in.stop_code == STOP_CODE.CONTINUE
@@ -1628,17 +1648,21 @@ def lockstep(make_mop, starts, ac, may_part=None):
         running = state.stop_code == STOP_CODE.CONTINUE
         allowed = None
         if may_part is not None:
-            dup = duplicate_site_lanes(state)
+            dup = eligible(state)
             if dup.any():
-                eligible[trips] = np.nonzero(dup)[0].tolist()
+                seen[trips] = np.nonzero(dup)[0].tolist()
             allowed = dup & np.isin(np.arange(dup.size),
                                     [lane for trip, lane in may_part if trip == trips])
         state = tree_where(running, on["cpu"].iterate(state), state)
         d, apart = _compare_states(card, state, allowed)
+        if describe is not None and apart.any():
+            cards[trips], states[trips] = card, state
         diffs = {k: max(v, d[k]) for k, v in diffs.items()}
         parted += [(trips, int(i)) for i in np.nonzero(apart)[0]]
         trips += 1
-    return trips, time.perf_counter() - t0, diffs, parted, eligible
+    if describe is not None:
+        parted = {(t, i): describe(cards[t], states[t], i) for t, i in parted}
+    return trips, time.perf_counter() - t0, diffs, parted, seen
 
 
 def phase_rbf_card_vs_cpu():
@@ -1854,6 +1878,184 @@ def phase_constrained_card_vs_cpu():
           may_part=sorted(CONSTRAINED_MAY_PART))
 
 
+#: the Taylor, Lagrange and Pascoletti-Serafini paths on
+#: the main path's problem (two parabolas on [-4, 4]^2, both objectives in
+#: one group): a degree-2 finite-difference Taylor group and a degree-2
+#: Lagrange group with steepest descent, and the main path's multiquadric
+#: RBF group with Pascoletti-Serafini descent at the reference budgets
+#: (ideal-point sweeps, a 1,500-point grid, no polish)
+FAMILY_KINDS = ("taylor", "lagrange", "ps")
+#: interleaved rounds of the plain and the tuned runner after the probe
+FAMILY_ROUNDS = 1
+#: max_iter of the float64 card-vs-CPU lockstep of each family
+FAMILY_LOCKSTEP_ITERS = 25
+#: the (trip, lane) pairs of each family's lockstep recorded parting, with
+#: the cause ``family_part_cause`` names
+FAMILY_MAY_PART = {"taylor": {}, "lagrange": {}, "ps": {}}
+
+
+def family_mop(kind):
+    from morbit_tpu_torch.models.configs import LagrangeConfig, RbfConfig, TaylorConfig
+    from morbit_tpu_torch.problems.synthetic import make_two_parabolas
+
+    cfg = {"taylor": TaylorConfig(degree=2, mode="fd"), "lagrange": LagrangeConfig(degree=2),
+           "ps": RbfConfig(kernel="multiquadric")}[kind]
+    return make_two_parabolas(cfg, LB, UB)
+
+
+def family_config(kind, **budget):
+    from morbit_tpu_torch import AlgorithmConfig
+    from morbit_tpu_torch.core.descent import PascolettiSerafiniConfig
+
+    if kind == "ps":
+        budget["descent_method"] = PascolettiSerafiniConfig()
+    return AlgorithmConfig(**budget)
+
+
+def family_part_cause(card, cpu, lane):
+    """Why one lane of a lockstep trip parted: the first leaf (in name
+    order) that differs, and for a Lagrange group whether a candidate pick
+    differs (the poised set's database rows: a pick between |l_i| values
+    that tie up to rounding) or a point the ascent generated."""
+    from morbit_tpu_torch.utils.carry import state_to_numpy
+
+    a, b = state_to_numpy(card), state_to_numpy(cpu)
+    for name in sorted(a):
+        va, vb = a[name][lane], b[name][lane]
+        if va.dtype.kind in "biu":
+            same = np.array_equal(va, vb)
+        else:
+            same = np.allclose(va, vb, rtol=1e-6, atol=1e-9, equal_nan=True)
+        if not same:
+            break
+    else:
+        return "none"
+    if "groups.0.model.idx" in a and not np.array_equal(a["groups.0.model.idx"][lane],
+                                                         b["groups.0.model.idx"][lane]):
+        return f"{name}: a candidate pick (poised-set rows differ)"
+    if "groups.0.model.idx" in a:
+        return f"{name}: an ascent-generated point entering the model"
+    return name
+
+
+def phase_family_main_path(kind):
+    """The Taylor, Lagrange or PS path at float32, B=1024, the reference budget: the probe
+    protocol (``bench.tuned_runner``), then the plain runner and the tuned
+    ``StagedMultistart`` in turns on the probe's starts and on FAMILY_ROUNDS
+    more batches, under ``kernels_only``. The counts are set to 0 just
+    before and read just after. K1 must launch at least once a trip on the
+    steepest-descent paths, K2 and K3 on the PS path; the tuned and plain
+    runners must agree on every lane's stop code and iteration count, and
+    no database may overflow. Returns the launches."""
+    from morbit_tpu_torch.bench import tuned_runner
+    from morbit_tpu_torch.ops import boxopt
+    from morbit_tpu_torch.parallel.multistart import build_solver, capacity_overflowed
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    cuda = torch.device("cuda")
+    budget = dict(max_iter=100, qp_iters=QP_ITERS)
+    ac = family_config(kind, **budget)
+    starts = [torch.as_tensor(halton_starts(B_MAIN, LB, UB, 1 + k * B_MAIN),
+                              dtype=torch.float32, device=cuda)
+              for k in range(1 + FAMILY_ROUNDS)]
+    results, batch_s = [], {"plain": [], "tuned": []}
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    boxopt.ascent_steps = 0
+    t0 = time.perf_counter()
+    with kernels_only():
+        runner, probe = tuned_runner(family_mop(kind), ac, torch.float32, cuda, starts[0])
+        plain = build_solver(family_mop(kind), ac, torch.float32, cuda)
+        for x0 in starts:
+            for name, run in (("plain", plain.solve), ("tuned", runner)):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                results.append((name, run(x0)))
+                torch.cuda.synchronize()
+                batch_s[name].append(time.perf_counter() - t1)
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    trips = probe.trips + sum(r.trips for _, r in results)
+    need = ("rbf_selection", "rbf_round4") if kind == "ps" else ("qp_admm",)
+    for name in need:
+        check(counts[name] >= trips, f"{name} launched {counts[name]} times in {trips} trips")
+    overflow = capacity_overflowed(probe) or any(capacity_overflowed(r) for _, r in results)
+    check(not overflow, f"a {kind} batch overflowed its database")
+    for _, r in results:
+        _check_result(r, B_MAIN)
+    flips = 0
+    for k in range(0, len(results), 2):
+        p, t = results[k][1], results[k + 1][1]
+        flips += int(((p.stop_code != t.stop_code) | (p.n_iterations != t.n_iterations)).sum())
+    check(flips == 0, f"{flips} lanes differ between the plain and the tuned {kind} runner")
+    p, t = results[0][1], results[1][1]
+    ascent_steps = boxopt.ascent_steps
+    skips = {}
+    if kind == "lagrange":
+        # the skipped ascents change no result: the plain runner on the
+        # probe's starts with every ascent run, against the same with skips
+        from morbit_tpu_torch.models import lagrange
+
+        boxopt.ascent_steps = 0
+        with kernels_only(), mock.patch.object(lagrange, "SKIP_IDLE_ASCENTS", False):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            full = plain.solve(starts[0])
+            torch.cuda.synchronize()
+        same = all(torch.equal(getattr(full, f), getattr(p, f))
+                   for f in ("x", "fx", "stop_code", "n_iterations", "n_evals"))
+        check(same, "the Lagrange path without the skips differs from the path with them")
+        skips = dict(no_skips_batch_s=time.perf_counter() - t1,
+                     no_skips_ascent_steps_per_trip=boxopt.ascent_steps / full.trips,
+                     skips_batch_s=batch_s["plain"][0], equal_with_and_without_skips=same)
+    fill = lambda r: max(int(g.db.count.max()) for g in r.state.groups)
+    phase(f"{kind}_main_path", B=B_MAIN, dtype="float32", **budget,
+          model={"taylor": "TaylorConfig(degree=2, mode='fd')",
+                 "lagrange": "LagrangeConfig(degree=2)",
+                 "ps": "RbfConfig(kernel='multiquadric')"}[kind],
+          descent="PascolettiSerafiniConfig()" if kind == "ps" else "steepest_descent",
+          launches=counts, trips_all_batches=trips,
+          launches_per_trip={k: v / trips for k, v in counts.items()},
+          ascent_steps_per_trip=ascent_steps / trips, **skips, seconds=seconds,
+          probe_trips=probe.trips, trips={"plain": p.trips, "tuned": t.trips},
+          stage_trips=list(t.stage_trips),
+          db_capacity={"plain": plain.db_capacity, "tuned": runner.solver.db_capacity},
+          db_rows={"plain": fill(p), "tuned": fill(t)},
+          schedule=[s for s, _ in runner.schedule], widths=list(runner.widths),
+          capacity_overflow=overflow, lanes_differing_plain_vs_tuned=flips,
+          runs_per_s={k: len(v) * B_MAIN / sum(v) for k, v in batch_s.items()},
+          batch_s=batch_s, stop_codes=_stop_codes(p),
+          pareto_fraction_1e2=pareto_fraction(p.x),
+          mean_iterations=float(p.n_iterations.double().mean()),
+          mean_evals=float(p.n_evals.double().mean()))
+    return counts
+
+
+def phase_family_card_vs_cpu(kind):
+    """The Taylor, Lagrange or PS path at float64, 64 Halton starts, max_iter
+    FAMILY_LOCKSTEP_ITERS, on the card and on the CPU trip by trip from the
+    same state (``lockstep``): integer leaves equal, floats within 1e-9 +
+    1e-6 |x|; only the recorded pairs of FAMILY_MAY_PART may part, each for
+    its recorded cause."""
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    B = 64
+    ac = family_config(kind, max_iter=FAMILY_LOCKSTEP_ITERS, qp_iters=QP_ITERS)
+    recorded = FAMILY_MAY_PART[kind]
+    trips, seconds, diffs, parted, _ = lockstep(
+        lambda: family_mop(kind), halton_starts(B, LB, UB), ac, may_part=set(recorded),
+        eligible=lambda st: np.ones(st.x.shape[0], bool), describe=family_part_cause)
+    for pair, cause in parted.items():
+        check(recorded.get(pair) == cause,
+              f"{kind} lane {pair[1]} parted at trip {pair[0]} ({cause}); recorded: "
+              f"{recorded.get(pair)}")
+    phase(f"{kind}_card_vs_cpu", B=B, dtype="float64", max_iter=FAMILY_LOCKSTEP_ITERS,
+          lockstep_trips=trips, lockstep_s=seconds,
+          lockstep_rho_max_rel_diff=diffs["rho"], lockstep_fit_max_rel_diff=diffs["fit"],
+          parted={f"{t},{i}": c for (t, i), c in parted.items()},
+          may_part={f"{t},{i}": c for (t, i), c in recorded.items()})
+
+
 def phase_wide_quality_f64():
     """The wide path's problem on the card at float64, B=4, max_iter=25,
     under the asserts of tests/test_zdt_quality.py:97-101, beside the JAX
@@ -2040,6 +2242,7 @@ def main():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2047,6 +2250,7 @@ def main():
     rbf_launches, captured = phase_rbf_main_path()
     staged_launches, staged_captured = phase_staged_main_path()
     con_launches, con_captured = phase_constrained_main_path()
+    family_launches = {kind: phase_family_main_path(kind) for kind in FAMILY_KINDS}
     wide_launches, wide_captured = phase_wide_main_path(B_WIDE)
     *admm_rows, con_rows = phase_kernel_admm(wide_captured["qp_admm"], con_captured)
     sel_rows = phase_kernel_selection(captured["selection"], wide_captured["selection"],
@@ -2060,11 +2264,14 @@ def main():
     phase_wide_card_vs_cpu()
     phase_rbf_card_vs_cpu()
     phase_constrained_card_vs_cpu()
+    for kind in FAMILY_KINDS:
+        phase_family_card_vs_cpu(kind)
     phase_staged_card_exact()
     phase_staged_quality_f64()
     phase_card_vs_cpu()
     phase_main_path()
 
+    phase("total", seconds=time.perf_counter() - started)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -2100,6 +2307,9 @@ def main():
             entry["constrained_main_path"] = {
                 f"max_iter_{b['max_iter']}": {"launches": counts[name]}
                 for b, counts in zip(STAGED_BUDGETS, con_launches)}
+        if main_row is not None:           # the Taylor, Lagrange, PS paths
+            for kind in FAMILY_KINDS:
+                entry[f"{kind}_main_path"] = {"launches": family_launches[kind][name]}
         if name == "qp_admm":              # K1 at the constrained LP shapes
             for b, counts in zip(STAGED_BUDGETS, con_launches):
                 entry["constrained_main_path"][f"max_iter_{b['max_iter']}"][

@@ -12,9 +12,9 @@ training-site selection, rounds 1-3 (``csrc/rbf_selection.cu``) and round 4
 kernel that no path calls.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
-a CUDA device the default raises. Ported so far: exact and RBF objectives,
-steepest descent, the unconstrained trust-region loop with criticality
-micro-steps, the plain batched multistart runner, the staged runner
+a CUDA device the default raises. Ported so far: exact, RBF, Taylor and
+Lagrange models, steepest and Pascoletti-Serafini descent, linear and
+nonlinear constraints, the trust-region loop with criticality micro-steps, the plain batched multistart runner, the staged runner
 (:class:`StagedMultistart`: capacity stages, the fleet loop, lane
 compaction and its probe tuning) with its bench
 (``python3 -m morbit_tpu_torch.bench``), and the ZDT/DTLZ benchmark
@@ -25,7 +25,9 @@ from morbit_tpu_torch.core.algorithm import OptimizeResult, optimize
 from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
 from morbit_tpu_torch.core.mop import MOP
-from morbit_tpu_torch.models.configs import ExactConfig, RbfConfig
+from morbit_tpu_torch.core.descent import PascolettiSerafiniConfig, SteepestDescentConfig
+from morbit_tpu_torch.models.configs import (ExactConfig, LagrangeConfig, RbfConfig,
+                                             TaylorConfig)
 from morbit_tpu_torch.parallel.multistart import (StagedMultistart,
                                                   multistart_optimize,
                                                   staged_multistart)
@@ -37,6 +39,10 @@ __all__ = [
     "AlgorithmConfig",
     "ExactConfig",
     "RbfConfig",
+    "TaylorConfig",
+    "LagrangeConfig",
+    "SteepestDescentConfig",
+    "PascolettiSerafiniConfig",
     "optimize",
     "multistart_optimize",
     "StagedMultistart",

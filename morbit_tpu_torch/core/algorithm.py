@@ -14,8 +14,9 @@ flow reproduces vmap's semantics, not those of a sequential loop:
 * every ``lax.cond`` computes both branches, then selects per lane.
 
 A single :func:`optimize` run is B=1 of the same code. The port covers
-exact and RBF models with steepest descent, box constraints, and linear and
-nonlinear constraints through the filter, the normal step and restoration.
+exact, RBF, Taylor and Lagrange models, steepest descent and
+Pascoletti-Serafini descent, box constraints, and linear and nonlinear
+constraints through the filter, the normal step and restoration.
 """
 
 from __future__ import annotations
@@ -30,13 +31,17 @@ import torch
 from morbit_tpu_torch.core import filter as flt
 from morbit_tpu_torch.core import scaling
 from morbit_tpu_torch.core.config import AlgorithmConfig
-from morbit_tpu_torch.core.descent import (LinearizedConstraints, backtrack,
+from morbit_tpu_torch.core.descent import (LinearizedConstraints,
+                                           SteepestDescentConfig, backtrack,
                                            initial_stepsize, normal_step,
+                                           ps_subsolver_budgets,
                                            resolve_descent_config,
                                            steepest_descent_direction)
 from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
 from morbit_tpu_torch.core.mop import NL_EQ, NL_INEQ, CompiledMOP, compile_mop
+from morbit_tpu_torch.models.configs import LagrangeConfig, TaylorConfig
 from morbit_tpu_torch.models.container import SurrogateContainer
+from morbit_tpu_torch.ops.boxopt import halton_grid, maximize_in_box
 from morbit_tpu_torch.ops.geometry import project_into_box
 from morbit_tpu_torch.utils.tree import lane_where, tree_map, tree_where
 
@@ -259,17 +264,22 @@ class Solver:
                     f"ported to morbit_tpu_torch yet (ROADMAP queue 1 item {item})")
         self.scal = scaling.get_var_scaler(self._tensor(mop.lb),
                                            self._tensor(mop.ub), ac.var_scaler)
-        # the largest per-rebuild working set of any group (n+1 without an
-        # RBF group); RBF groups insert no stencil, so no per-iteration
-        # site bound (JAX algorithm.py:308-330)
+        # the largest per-rebuild working set of any group (n+1 without a
+        # modelled group), and the most new sites one iteration may add: a
+        # Taylor stencil on every move, up to p poised points for Lagrange
+        # (JAX algorithm.py:308-330; without the second term those
+        # overflow the database)
         max_model_pts = max([g.cfg.resolved_max_points(mop.n_vars)
                              for g in mop.groups
                              if hasattr(g.cfg, "resolved_max_points")],
                             default=mop.n_vars + 1)
+        sites_per_iter = max([g.cfg.resolved_max_points(mop.n_vars) for g in mop.groups
+                              if isinstance(g.cfg, (TaylorConfig, LagrangeConfig))],
+                             default=0)
         #: (max_model_points, sites_per_iter): the inputs of
         #: resolved_db_capacity besides the config, kept so that the staged
         #: runner can evaluate it at intermediate iteration bounds
-        self._cap_terms = (max_model_pts, 0)
+        self._cap_terms = (max_model_pts, sites_per_iter)
         self.db_capacity = ac.resolved_db_capacity(mop.n_vars, *self._cap_terms)
         self.container = SurrogateContainer(mop, dtype, ac, self.db_capacity,
                                             self.device)
@@ -290,6 +300,7 @@ class Solver:
         #: iterations of the restoration loop since the counter was last set
         #: to 0 (one per masked trip over the lanes, on the host)
         self.restoration_iterations = 0
+        self._ps_consts = None
 
     # ------------------------------------------------------------------ helpers
     def _tensor(self, v, dtype=None):
@@ -374,16 +385,102 @@ class Solver:
                                      torch.cat(parts_bi, dim=-1))
         return LinearizedConstraints(A_eq=A_eq, b_eq=b_eq, A_ineq=A_ineq, b_ineq=b_ineq)
 
-    def _get_criticality(self, groups, x_s, x_n_s, l_e_n, l_i_n, scal):
-        """``get_criticality`` (``descent.jl:19-25``), steepest descent:
-        returns ``(omega, d, groups)``; the LP reads model Jacobians only
-        and charges nothing."""
+    def _get_criticality(self, groups, x_s, x_n_s, l_e_n, l_i_n, fx_n, delta, scal):
+        """``get_criticality`` (``descent.jl:19-25``): ``(omega, payload,
+        groups)``, the payload the descent direction of steepest descent
+        (whose LP reads model Jacobians only and charges nothing) or the
+        Pascoletti-Serafini trial point."""
+        if not isinstance(self.desc_cfg, SteepestDescentConfig):
+            return self._ps_criticality(groups, x_s, x_n_s, fx_n, delta, scal)
         Dm = self.container.jac_objectives(groups, x_n_s, scal)
         lin = self._linearized_constraints_at(groups, x_s, x_n_s, l_e_n, l_i_n, scal)
         d, omega = steepest_descent_direction(
             x_n_s, Dm, scal.lb_scaled, scal.ub_scaled, lin,
             normalize=self.desc_cfg.normalize, qp_iters=self.ac.qp_iters)
         return omega, d, groups
+
+    def _ps_criticality(self, groups, x_s, x_n_s, fx_n, delta, scal):
+        """Pascoletti-Serafini descent (``descent.jl:512-581``), as the JAX
+        package computes it: ``min t s.t. m(chi) <= m(x_n) + t r`` over each
+        lane's local box, the constraints as a quadratic penalty. The NLopt
+        stages are a Halton sweep (with x_n as an extra start) and
+        optional projected gradient polish of the penalized scalarization
+        (:func:`maximize_in_box`). ``r`` is the reference direction, the
+        distance to the reference point, or else to the local ideal point
+        (one sweep per objective). Returns ``(omega = |t*|, x_trial,
+        groups)``; a critical, infeasible or non-finite result keeps x_n
+        with omega 0. Exact groups are charged the budgeted scalarization
+        evaluations (``ps_subsolver_budgets``): the reference's NLopt
+        objective is the container, whose exact models count."""
+        cfg, dtype, mop, container = self.desc_cfg, self.dtype, self.mop, self.container
+        n = mop.n_vars
+        lb_eff = torch.maximum(scal.lb_scaled, x_s - delta[:, None])
+        ub_eff = torch.minimum(scal.ub_scaled, x_s + delta[:, None])
+        A_eq_s, b_eq_s, A_ineq_s, b_ineq_s = self._lin_matrices(scal)
+        ps_grid_n, ps_polish, id_grid_n, id_polish = ps_subsolver_budgets(cfg, n)
+        grid, ideal_grid, r_const = self._ps_constants()
+        sq = lambda v: (v * v).sum(-1)
+
+        def penalty(chi):
+            """(B, K) constraint penalty at sites ``chi (B, K, n)``."""
+            pen = torch.zeros(chi.shape[:-1], dtype=dtype, device=chi.device)
+            if mop.m_ce > 0:
+                pen = pen + sq(container.eval_nl_eq_raw(groups, chi, scal))
+            if mop.m_ci > 0:
+                pen = pen + sq(torch.clamp(container.eval_nl_ineq_raw(groups, chi, scal),
+                                           min=0.0))
+            if mop.A_eq.shape[0]:
+                pen = pen + sq(chi @ A_eq_s.transpose(-1, -2) - b_eq_s[:, None, :])
+            if mop.A_ineq.shape[0]:
+                pen = pen + sq(torch.clamp(chi @ A_ineq_s.transpose(-1, -2)
+                                           - b_ineq_s[:, None, :], min=0.0))
+            return pen
+
+        PEN_W = 1e5
+        objectives = lambda chi: container.eval_objectives_raw(groups, chi, scal)
+        charged = ps_grid_n + ps_polish
+        if len(cfg.reference_direction):
+            r = r_const.expand_as(fx_n)
+        elif len(cfg.reference_point):
+            r = fx_n - r_const
+        else:
+            # local ideal point (``descent.jl:404-412``)
+            charged += mop.m_obj * (id_grid_n + id_polish)
+            ideals = []
+            for l in range(mop.m_obj):
+                f_l = lambda chi, l=l: -(objectives(chi)[..., l] + PEN_W * penalty(chi))
+                _, v = maximize_in_box(f_l, lb_eff, ub_eff, ideal_grid, iters=id_polish)
+                ideals.append(-v)
+            r = fx_n - torch.stack(ideals, dim=-1)
+
+        mx = objectives(x_n_s)
+
+        def t_pure(chi):
+            return ((objectives(chi) - mx[:, None, :]) / r[:, None, :]).amax(-1)
+
+        t_pen = lambda chi: -(t_pure(chi) + PEN_W * penalty(chi))
+        x_best, _ = maximize_in_box(t_pen, lb_eff, ub_eff, grid, iters=ps_polish,
+                                    extra_starts=x_n_s[:, None, :])
+        tau = torch.clamp(t_pure(x_best[:, None, :])[:, 0], -1.0, 0.0)
+        feasible = penalty(x_best[:, None, :])[:, 0] <= 1e-8
+        bad = (r <= 0).any(-1) | ~feasible | ~torch.isfinite(x_best).all(-1)
+        x_trial = lane_where(bad, x_n_s, x_best)
+        omega = torch.where(bad, torch.zeros_like(tau), tau.abs())
+        groups = container.charge_evals(
+            groups, torch.full_like(omega, charged, dtype=torch.int32))
+        return omega, x_trial, groups
+
+    def _ps_constants(self):
+        """The PS sweep and ideal-point grids and the reference vector on
+        the device, made once."""
+        if self._ps_consts is None:
+            cfg, n = self.desc_cfg, self.mop.n_vars
+            ps_grid_n, _, id_grid_n, _ = ps_subsolver_budgets(cfg, n)
+            grid = self._tensor(halton_grid(ps_grid_n, n))
+            ideal = grid if id_grid_n == ps_grid_n else self._tensor(halton_grid(id_grid_n, n))
+            ref = cfg.reference_direction if len(cfg.reference_direction) else cfg.reference_point
+            self._ps_consts = (grid, ideal, self._tensor(ref) if len(ref) else None)
+        return self._ps_consts
 
     # ------------------------------------------------------------- initialization
     @_full_precision_matmuls()
@@ -499,7 +596,7 @@ class Solver:
                                     SC.TOLERANCE, SC.CONTINUE)))
         stop = torch.where(state.crit_mode > _MODE_NORMAL, SC.CONTINUE, stop)
         go = stop == SC.CONTINUE
-        return tree_where(go, self._iterate_inner(state),
+        return tree_where(go, self._iterate_inner(state, go),
                           state.replace(stop_code=stop))
 
     def _check_device(self, state: SolverState) -> None:
@@ -515,7 +612,7 @@ class Solver:
                 f"the state lies on {', '.join(bad)} and the solver on {want}; "
                 "move it with utils.tree.tree_map(lambda t: t.to(device), state)")
 
-    def _iterate_inner(self, state: SolverState) -> SolverState:
+    def _iterate_inner(self, state: SolverState, go) -> SolverState:
         ac = self.ac
         in_crit = state.crit_mode > _MODE_NORMAL
         looping = state.crit_mode == _MODE_CRIT_LOOP
@@ -534,7 +631,7 @@ class Solver:
         do_update = torch.where(in_crit, ~crit_halt, state.iter_counter > 1)
         upd = self.container.update_or_improve(
             state.groups, state.x_s, state.x_indices, state.delta,
-            improve_flag, scal=state.scal, efl_flag=in_crit)
+            improve_flag, scal=state.scal, efl_flag=in_crit, active=go & do_update)
         state = state.replace(groups=tree_where(do_update, upd, state.groups))
 
         theta_k = self._theta(state)
@@ -786,7 +883,8 @@ class Solver:
         entry requires theta_k ~ 0)."""
         in_crit = state.crit_mode > _MODE_NORMAL
         omega, d, groups_c = self._get_criticality(
-            inter.groups, state.x_s, inter.x_s, inter.l_e, inter.l_i, state.scal)
+            inter.groups, state.x_s, inter.x_s, inter.l_e, inter.l_i, inter.fx,
+            state.delta, state.scal)
         # a halted criticality pass performs no work (``algorithm.jl:563-573``)
         groups_c = tree_where(crit_halt, inter.groups, groups_c)
         state = state.replace(groups=groups_c)
@@ -940,15 +1038,11 @@ class Solver:
             return None, None, None
         return torch.cat(vals, -1), torch.cat(dirs, -1), torch.cat(rhs, -1)
 
-    def _trial_point(self, state, inter, theta_k, omega, d):
-        """Descent step, true evaluation, acceptance tests, radius update
-        (``algorithm.jl:748-914``)."""
-        ac = self.ac
-        x_s = state.x_s
-        x_n_s = inter.x_s
-        scal = state.scal
-        container = self.container
-
+    def _descent_step(self, state, inter, omega, d):
+        """Steepest descent's trial point: the initial stepsize and Armijo
+        backtracking (``compute_descent_step``). Returns ``(x_trial_s,
+        omega, groups)``."""
+        x_s, x_n_s, scal, container = state.x_s, inter.x_s, state.scal, self.container
         sigma = initial_stepsize(x_s, x_n_s, d, state.delta, scal.lb_scaled,
                                  scal.ub_scaled, *self._crossing_rows(state, inter, d))
 
@@ -970,6 +1064,21 @@ class Solver:
         usable = sigma > self.desc_cfg.min_stepsize
         x_trial_s = lane_where(usable, x_trial_s, x_n_s)
         omega = torch.where(usable, omega, torch.zeros_like(omega))
+        return x_trial_s, omega, groups
+
+    def _trial_point(self, state, inter, theta_k, omega, d):
+        """Descent step, true evaluation, acceptance tests, radius update
+        (``algorithm.jl:748-914``)."""
+        ac = self.ac
+        x_s = state.x_s
+        scal = state.scal
+        container = self.container
+        if isinstance(self.desc_cfg, SteepestDescentConfig):
+            x_trial_s, omega, groups = self._descent_step(state, inter, omega, d)
+        else:
+            # Pascoletti-Serafini: the payload is the trial point
+            # (``compute_descent_step`` fallback, ``descent.jl:36-41``)
+            x_trial_s, groups = d, inter.groups
         x_trial = scaling.untransform(scal, x_trial_s)
 
         # true evaluation at the trial point (``algorithm.jl:760-764``)
@@ -985,7 +1094,7 @@ class Solver:
 
         # acceptance tests (``:779-863``); the dummy filter accepts all
         if self.filter_mode == "dummy":
-            acceptable_filter = torch.ones_like(usable)
+            acceptable_filter = torch.ones_like(theta_t, dtype=torch.bool)
         else:
             acceptable_filter = flt.is_acceptable_vs(
                 state.filter, theta_t, f_t_filter, theta_k,

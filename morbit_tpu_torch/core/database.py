@@ -93,6 +93,31 @@ def add_site(db: Database, x, do_add):
                                overflow=overflow), idx
 
 
+def add_sites(db: Database, x, do_add):
+    """Insert unevaluated sites ``x`` (B, k, n) where ``do_add`` (B, k), in
+    index order: the rows and indices that k calls of :func:`add_site`
+    give, written in one pass. Returns the db and the (B, k) row indices
+    (-1 where nothing was inserted)."""
+    cap, k = db.data.shape[-2], x.shape[-2]
+    want = do_add.to(torch.int32)
+    slot = db.count[:, None] + torch.cumsum(want, -1, dtype=torch.int32) - 1
+    ok = do_add & (slot < cap)
+    idx = torch.where(ok, slot, torch.full_like(slot, -1))
+    # the sites to add, packed to the front in index order
+    perm = torch.argsort(1 - want, dim=-1, stable=True)
+    packed = torch.gather(x, 1, perm[..., None].expand_as(x))
+    rows = torch.cat([packed, x.new_zeros(x.shape[:-1] + (db.m + 1,))], dim=-1)
+    n_new = want.sum(-1, dtype=torch.int32)
+    src = torch.arange(cap, device=x.device) - db.count[:, None]
+    take = (src >= 0) & (src < n_new[:, None])
+    src = torch.clamp(src, 0, k - 1)
+    new = torch.gather(rows, 1, src[..., None].expand(-1, -1, rows.shape[-1]))
+    data = torch.where(take[..., None], new, db.data)
+    count = torch.clamp(db.count + n_new, max=cap)
+    overflow = db.overflow | (db.count + n_new > cap)
+    return dataclasses.replace(db, data=data, count=count, overflow=overflow), idx
+
+
 def eval_missing(db: Database, eval_fn_scaled: Callable, window: int | None = None):
     """Evaluate every unevaluated row in one batched call (``eval_missing!``,
     ``Databases.jl:258-277``). Returns the db and the per-lane number of

@@ -1,8 +1,11 @@
-"""Steepest descent and the normal step: criticality LP, Armijo
-backtracking, initial stepsize, min-inf-norm normal step.
+"""Descent configurations, steepest descent and the normal step:
+criticality LP, Armijo backtracking, initial stepsize, min-inf-norm normal
+step.
 
-Counterpart of the steepest-descent part of ``morbit_tpu/core/descent.py``
-(reference ``src/descent.jl``), batched over lanes. The multiobjective
+Counterpart of ``morbit_tpu/core/descent.py`` (reference
+``src/descent.jl``), batched over lanes. The Pascoletti-Serafini
+subproblem itself is ``Solver._ps_criticality``; its configuration and
+budgets are here. The multiobjective
 steepest-descent direction is the min-max LP (``descent.jl:74-135``)::
 
     min_{beta, d}  beta   s.t.  Df d <= beta * ||rows||,  -1 <= d <= 1,
@@ -41,18 +44,72 @@ class SteepestDescentConfig:
     normalize: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class PascolettiSerafiniConfig:
+    """``PascolettiSerafiniConfig`` (``descent.jl:323-349``).
+
+    NLopt's :GN_ISRES global stage is a Halton sweep over the local box,
+    and the optional local polish (``ps_polish``, the ``ps_polish_algo``
+    analogue, off by default as in the reference) projected gradient steps
+    on the scalarization. ``n_samples`` / ``polish_iters`` override the
+    resolved grid and polish budgets (negative: the reference mapping)."""
+
+    reference_point: tuple = ()
+    reference_direction: tuple = ()
+    trust_region_factor: float = 1.0
+    max_ps_problem_evals: int = -1
+    max_ps_polish_evals: int = -1
+    max_ideal_point_problem_evals: int = -1
+    ps_polish: bool = False
+    n_samples: int = -1
+    polish_iters: int = -1
+
+
+def ps_subsolver_budgets(cfg: PascolettiSerafiniConfig, n_vars: int):
+    """The PS subsolvers' sample and polish budgets, ``(ps_grid, ps_polish,
+    ideal_grid, ideal_polish)``: ``_ps_max_evals`` (``descent.jl:414-432``)
+    and the ideal-point budget (``:527``) with the reference defaults. The
+    total is ``500 (n_vars + 1)`` or ``max_ps_problem_evals``, all of it on
+    the sweep unless polish is opted into (``ps_polish``, or setting
+    ``max_ps_polish_evals`` or ``polish_iters``); then 3/4 sweep and 1/4
+    polish, unless ``max_ps_polish_evals`` caps the polish and leaves the
+    sweep the whole total. Each ideal-point solve has its own sweep of
+    ``500 (n_vars + 1)`` or ``max_ideal_point_problem_evals`` (``:527-536``)."""
+    ref_total = 500 * (n_vars + 1)
+    polish_on = (cfg.ps_polish or cfg.max_ps_polish_evals >= 0
+                 or cfg.polish_iters >= 0)
+    explicit_polish = (cfg.max_ps_polish_evals if cfg.max_ps_polish_evals >= 0
+                       else cfg.polish_iters)
+    total = (cfg.max_ps_problem_evals if cfg.max_ps_problem_evals >= 0
+             else (cfg.n_samples if cfg.n_samples >= 0 else ref_total))
+    if not polish_on:
+        ps_grid, ps_polish = total, 0
+    elif explicit_polish >= 0:
+        ps_grid, ps_polish = total, explicit_polish
+    else:
+        ps_grid = max(total * 3 // 4, 1)
+        ps_polish = total - ps_grid
+    if cfg.max_ideal_point_problem_evals >= 0:
+        # the reference's ideal-point solves are one global stage
+        ideal_grid, ideal_polish = cfg.max_ideal_point_problem_evals, 0
+    else:
+        ideal_grid = cfg.n_samples if cfg.n_samples >= 0 else ref_total
+        ideal_polish = cfg.polish_iters if cfg.polish_iters >= 0 else 0
+    return max(ps_grid, 1), ps_polish, max(ideal_grid, 1), ideal_polish
+
+
 def resolve_descent_config(spec):
-    if isinstance(spec, SteepestDescentConfig):
+    """A descent config from a config object, a name, or a dict of a
+    config's fields (``dataclasses.asdict`` of the JAX package's)."""
+    if isinstance(spec, (SteepestDescentConfig, PascolettiSerafiniConfig)):
         return spec
     if isinstance(spec, dict):
-        return SteepestDescentConfig(**spec)
+        kind = PascolettiSerafiniConfig if "reference_point" in spec else SteepestDescentConfig
+        return kind(**spec)
     if spec in ("steepest_descent", "steepest", "sd"):
         return SteepestDescentConfig()
     if spec in ("ps", "pascoletti_serafini"):
-        raise NotImplementedError(
-            "Pascoletti-Serafini descent is not ported to morbit_tpu_torch "
-            "yet: it arrives with the Pascoletti-Serafini slice (ROADMAP "
-            "queue 1 item 9)")
+        return PascolettiSerafiniConfig()
     raise ValueError(f"unknown descent method {spec!r}")
 
 

@@ -4,11 +4,12 @@ Counterpart of ``morbit_tpu/core/mop.py`` (reference ``src/MOP.jl:9-107``).
 User functions are plain torch functions of ONE unscaled site ``x (n,) ->
 (n_out,)`` (or a scalar); the package batches them with
 ``torch.func.vmap``. Jacobians come from the user's ``jac`` callback, else
-``torch.func.jacrev``.
+``torch.func.jacrev``; Hessians (Taylor models in callback mode) from the
+``hess`` callback, else ``torch.func.jacfwd(jacrev)``.
 
-Exact and RBF objectives and nonlinear constraints, box constraints and
-linear equality and inequality rows are ported; composites and the other
-surrogate models raise ``NotImplementedError``.
+Objectives and nonlinear constraints of every model family, box
+constraints and linear equality and inequality rows are ported;
+composites raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.func import jacrev, vmap
+from torch.func import jacfwd, jacrev, vmap
 
 from morbit_tpu_torch.models.configs import (ExactConfig, RbfConfig,
                                              SurrogateConfig, check_ported)
@@ -50,6 +51,7 @@ class VecFun:
     model_cfg: SurrogateConfig
     role: str
     jac: Optional[Callable] = None     # x -> (n_out, n) Jacobian callback
+    hess: Optional[Callable] = None    # x -> (n_out, n, n) Hessians callback
     max_evals: int = 2 ** 31 - 1
 
     def _fn_vec(self, x):
@@ -66,6 +68,14 @@ class VecFun:
         jac = self.jac if self.jac is not None else jacrev(self._fn_vec)
         return _flat_map(lambda x: jac(x).reshape((self.n_out, n)), X,
                          (self.n_out, n))
+
+    def hessians(self, X: torch.Tensor) -> torch.Tensor:
+        """Hessians at sites ``X (..., n)`` -> ``(..., n_out, n, n)``: the
+        user callback, else forward-over-reverse autodiff."""
+        n = X.shape[-1]
+        hess = self.hess if self.hess is not None else jacfwd(jacrev(self._fn_vec))
+        return _flat_map(lambda x: hess(x).reshape((self.n_out, n, n)), X,
+                         (self.n_out, n, n))
 
 
 class MOP:
@@ -91,30 +101,32 @@ class MOP:
         self._A_ineq: list[np.ndarray] = []
         self._b_ineq: list[np.ndarray] = []
 
-    def _add(self, fn, n_out, model_cfg, role, jac, max_evals):
+    def _add(self, fn, n_out, model_cfg, role, jac, hess, max_evals):
         """Register a function; like the JAX package the default model is an
         RBF surrogate (``RbfConfig()``)."""
         cfg = check_ported(RbfConfig() if model_cfg is None else model_cfg)
         self.functions.append(VecFun(fn=fn, n_out=int(n_out), model_cfg=cfg,
-                                     role=role, jac=jac, max_evals=max_evals))
+                                     role=role, jac=jac, hess=hess,
+                                     max_evals=max_evals))
         return len(self.functions) - 1
 
-    def add_objective(self, fn, n_out=1, model_cfg=None, jac=None,
+    def add_objective(self, fn, n_out=1, model_cfg=None, jac=None, hess=None,
                       max_evals=2 ** 31 - 1):
-        return self._add(fn, n_out, model_cfg, OBJECTIVE, jac, max_evals)
+        return self._add(fn, n_out, model_cfg, OBJECTIVE, jac, hess, max_evals)
 
-    def add_exact_objective(self, fn, n_out=1, jac=None, max_evals=2 ** 31 - 1):
+    def add_exact_objective(self, fn, n_out=1, jac=None, hess=None,
+                            max_evals=2 ** 31 - 1):
         """``add_exact_objective!`` — Jacobians from ``jac`` or autodiff."""
-        return self._add(fn, n_out, ExactConfig(), OBJECTIVE, jac, max_evals)
+        return self._add(fn, n_out, ExactConfig(), OBJECTIVE, jac, hess, max_evals)
 
     # -- nonlinear constraints (``MOP.jl:84-107``): ``fn(x) == 0`` / ``<= 0``
     def add_nl_eq_constraint(self, fn, n_out=1, model_cfg=None, jac=None,
-                             max_evals=2 ** 31 - 1):
-        return self._add(fn, n_out, model_cfg, NL_EQ, jac, max_evals)
+                             hess=None, max_evals=2 ** 31 - 1):
+        return self._add(fn, n_out, model_cfg, NL_EQ, jac, hess, max_evals)
 
     def add_nl_ineq_constraint(self, fn, n_out=1, model_cfg=None, jac=None,
-                               max_evals=2 ** 31 - 1):
-        return self._add(fn, n_out, model_cfg, NL_INEQ, jac, max_evals)
+                               hess=None, max_evals=2 ** 31 - 1):
+        return self._add(fn, n_out, model_cfg, NL_INEQ, jac, hess, max_evals)
 
     # -- linear constraints (``AbstractMOPInterface.jl:354-375``)
     def add_eq_constraint(self, A, b):
@@ -172,6 +184,9 @@ class GroupSpec:
 
     def jac_unscaled(self, X: torch.Tensor) -> torch.Tensor:
         return torch.cat([f.jacobian(X) for f in self.fns], dim=-2)
+
+    def hess_unscaled(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.cat([f.hessians(X) for f in self.fns], dim=-3)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -239,7 +254,7 @@ def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
         for j in range(i):
             g = mop.functions[j]
             if (f.fn is g.fn and f.n_out == g.n_out and f.jac is g.jac
-                    and f.model_cfg == g.model_cfg):
+                    and f.hess is g.hess and f.model_cfg == g.model_cfg):
                 canonical[i] = canonical[j]
                 break
 

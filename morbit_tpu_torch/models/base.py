@@ -16,7 +16,7 @@ functions per model family on batched state::
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,6 +29,10 @@ class ModelContext(NamedTuple):
     delta: torch.Tensor    # (B,) trust-region radius
     n_evals: torch.Tensor  # (B,) int32 group eval counter
     scal: object           # VarScaler with (B, n) fields
+    # (B,) bool: the lanes whose result the caller keeps (None: all). A
+    # family may skip work that no kept lane needs; every lane's values
+    # stay what they would be without it.
+    active: Optional[torch.Tensor] = None
 
 
 class SurrogateOps:

@@ -1,8 +1,8 @@
 """Surrogate container: grouped vector models + objective evaluation.
 
 Counterpart of ``morbit_tpu/models/container.py`` (reference
-``src/SurrogateContainer.jl``), batched over lanes, for exact and RBF
-groups. Group outputs map into the role vectors fx (objectives), c_e and
+``src/SurrogateContainer.jl``), batched over lanes, for exact, RBF, Taylor
+and Lagrange groups. Group outputs map into the role vectors fx (objectives), c_e and
 c_i (nonlinear equality and inequality constraints). Each group carries an
 ``n_evals`` counter per lane (the
 ``CountedFunc`` analogue, ``src/globals.jl:74-112``); exact groups also
@@ -22,9 +22,12 @@ from morbit_tpu_torch.core import database as dbm
 from morbit_tpu_torch.core import scaling
 from morbit_tpu_torch.core.mop import NL_EQ, NL_INEQ, OBJECTIVE, CompiledMOP
 from morbit_tpu_torch.models.base import ModelContext
-from morbit_tpu_torch.models.configs import ExactConfig, RbfConfig, check_ported
+from morbit_tpu_torch.models.configs import (ExactConfig, LagrangeConfig, RbfConfig,
+                                             TaylorConfig, check_ported)
 from morbit_tpu_torch.models.exact import ExactOps, broadcast_scaler
+from morbit_tpu_torch.models.lagrange import LagrangeOps
 from morbit_tpu_torch.models.rbf_model import RbfOps
+from morbit_tpu_torch.models.taylor import TaylorOps
 from morbit_tpu_torch.utils.tree import tree_where
 
 
@@ -36,9 +39,9 @@ class GroupState(NamedTuple):
 
 def make_ops(group, n_vars, dtype, ac):
     cfg = check_ported(group.cfg)
-    if isinstance(cfg, ExactConfig):
-        return ExactOps(group, n_vars, dtype, ac)
-    return RbfOps(group, n_vars, dtype, ac)
+    family = {ExactConfig: ExactOps, RbfConfig: RbfOps, TaylorConfig: TaylorOps,
+              LagrangeConfig: LagrangeOps}[type(cfg)]
+    return family(group, n_vars, dtype, ac)
 
 
 class SurrogateContainer:
@@ -118,9 +121,9 @@ class SurrogateContainer:
                 torch.stack(x_indices, dim=-1))
 
     # ------------------------------------------------------------ model update
-    def _contexts(self, states, x_s, x_indices, delta, scal):
+    def _contexts(self, states, x_s, x_indices, delta, scal, active=None):
         return [ModelContext(x_s=x_s, x_index=x_indices[:, i], delta=delta,
-                             n_evals=st.n_evals, scal=scal)
+                             n_evals=st.n_evals, scal=scal, active=active)
                 for i, st in enumerate(states)]
 
     def update(self, states, x_s, x_indices, delta, ensure_fully_linear,
@@ -144,14 +147,22 @@ class SurrogateContainer:
         return self.ops[gi].prepare(st.model, st.db, ctx, ensure_fully_linear)
 
     def update_or_improve(self, states, x_s, x_indices, delta, improve_flag,
-                          scal, efl_flag):
+                          scal, efl_flag, active=None):
         """Update or improve, selected per lane by ``improve_flag``
         (``algorithm.jl:682-688``): both phase-1 variants run and are
-        selected, then evaluation and fitting run once. ``efl_flag`` is the
-        per-lane ensure-fully-linear flag of criticality rebuild passes."""
-        ctxs = self._contexts(states, x_s, x_indices, delta, scal)
+        selected (in one pass where the family offers
+        ``prepare_or_improve``), then evaluation and fitting run once.
+        ``efl_flag`` is the per-lane ensure-fully-linear flag of criticality
+        rebuild passes; ``active`` marks the lanes whose update the caller
+        keeps."""
+        ctxs = self._contexts(states, x_s, x_indices, delta, scal, active)
         mid = []
         for gi, (ops, st, ctx) in enumerate(zip(self.ops, states, ctxs)):
+            if hasattr(ops, "prepare_or_improve"):
+                model, db = ops.prepare_or_improve(st.model, st.db, ctx, improve_flag,
+                                                   efl_flag)
+                mid.append(st._replace(model=model, db=db))
+                continue
             imp = ops.prepare_improve(st.model, st.db, ctx)
             upd = self._prepare(gi, st, ctx, efl_flag, mid)
             model, db = tree_where(improve_flag, imp, upd)
@@ -201,10 +212,16 @@ class SurrogateContainer:
         (``SurrogateContainer.jl:234-269``). Returns (values, states)."""
         return self._gather(states, x_s, "eval", OBJECTIVE, scal)
 
+    def eval_objectives_raw(self, states, x_s, scal):
+        """Model objective values at sites ``x_s (B, ..., n)``, uncounted
+        (the sweeps of the Pascoletti-Serafini subsolvers, whose evaluations
+        :meth:`charge_evals` charges by their budgets)."""
+        return self._gather(states, x_s, "eval", OBJECTIVE, scal, counted=False)[0]
+
     def eval_objectives_batch(self, states, X, scal):
         """(B, K, m_obj) model objective values at K sites per lane,
         uncounted."""
-        return self._gather(states, X, "eval", OBJECTIVE, scal, counted=False)[0]
+        return self.eval_objectives_raw(states, X, scal)
 
     def charge_evals(self, states, k, objectives_only: bool = False):
         """Add ``k`` (per lane) true-function evals to exact groups: what

@@ -24,9 +24,15 @@ time and the operators with the most host time. The models:
 * ``constrained``: the ``rbf`` model under the constrained configuration
   (``make_constrained_two_parabolas``: ``x1 + x2 <= 1`` and the exact ball
   ``||x||^2 <= 2.25``), run by the plain runner; the line adds the
-  restoration loop's iterations.
+  restoration loop's iterations;
+* ``taylor``, ``lagrange``, ``ps``: the two parabolas with a degree-2
+  finite-difference Taylor group, a degree-2 Lagrange group, or the
+  ``rbf`` group with Pascoletti-Serafini descent (``chip_smoke.py``
+  ``taylor_main_path`` and its siblings), run by the plain runner. A
+  Lagrange trip launches ~25,000 kernels, so that profile covers trips 1-5,
+  as ``zdt20``'s covers 10-14; the line adds the ascent steps.
 
-    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained]
+    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps]
 
 Needs a CUDA card.
 """
@@ -64,17 +70,21 @@ def boundary_kernels(runner, x0) -> int:
 
 def main(argv=None) -> int:
     args = argparse.ArgumentParser()
-    args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged", "constrained"),
-                      default="rbf")
+    args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged", "constrained",
+                                          "taylor", "lagrange", "ps"), default="rbf")
     model = args.parse_args(argv).model
     B, window = 1024, 5
+    #: the trips a windowed profile skips before its window
+    skip = {"zdt20": 10, "lagrange": 1}
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA card", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
     from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
-    from morbit_tpu_torch.models.configs import RbfConfig
+    from morbit_tpu_torch.core.descent import PascolettiSerafiniConfig
+    from morbit_tpu_torch.models.configs import LagrangeConfig, RbfConfig, TaylorConfig
+    from morbit_tpu_torch.ops import boxopt
     from morbit_tpu_torch.problems.synthetic import (halton_starts,
                                                      make_constrained_two_parabolas,
                                                      make_two_parabolas, make_zdt)
@@ -84,14 +94,16 @@ def main(argv=None) -> int:
         ac = AlgorithmConfig(max_iter=100, max_evals=20000, delta_0=0.1, delta_max=0.5,
                              f_tol_rel=1e-3, x_tol_rel=1e-3, qp_iters=400)
     else:
-        cfg = None if model == "exact" else RbfConfig(kernel="multiquadric")
+        cfg = {"exact": None, "taylor": TaylorConfig(degree=2, mode="fd"),
+               "lagrange": LagrangeConfig(degree=2)}.get(model, RbfConfig(kernel="multiquadric"))
         make = make_constrained_two_parabolas if model == "constrained" else make_two_parabolas
         mop = make(cfg, lb=[-4.0, -4.0], ub=[4.0, 4.0])
-        ac = AlgorithmConfig(max_iter=100, qp_iters=400)
+        ac = AlgorithmConfig(max_iter=100, qp_iters=400, descent_method=(
+            PascolettiSerafiniConfig() if model == "ps" else "steepest_descent"))
     starts = [torch.as_tensor(halton_starts(B, mop.lb, mop.ub, 1 + k * B),
                               dtype=torch.float32, device="cuda") for k in range(2)]
     extra = {}
-    if model == "zdt20":
+    if model in skip:
         from morbit_tpu_torch import STOP_CODE
         from morbit_tpu_torch.parallel.multistart import build_solver
         from morbit_tpu_torch.utils.tree import tree_where
@@ -103,9 +115,10 @@ def main(argv=None) -> int:
             running = state.stop_code == STOP_CODE.CONTINUE
             bool(running.any())
             return tree_where(running, solver.iterate(state), state)
-        for _ in range(10):
+        for _ in range(skip[model]):
             state = trip(state)
         torch.cuda.synchronize()
+        boxopt.ascent_steps = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(window):
@@ -133,6 +146,7 @@ def main(argv=None) -> int:
         if model == "constrained":
             solver.restoration_iterations = 0
         torch.cuda.synchronize()
+        boxopt.ascent_steps = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             res = run(starts[1])
@@ -143,6 +157,7 @@ def main(argv=None) -> int:
         if model == "constrained":
             extra["restoration_iterations"] = solver.restoration_iterations
 
+    extra["ascent_steps"] = boxopt.ascent_steps
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.time_range.elapsed_us() for e in kernels)

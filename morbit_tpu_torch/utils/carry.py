@@ -14,7 +14,10 @@ The port imports nothing of the JAX package, so both cross as plain data:
   package's packed layout: ``groups.<i>.model.meta`` (``[idx (cap_train) |
   n_train | fully_linear | dirs_head | dirs_count]``),
   ``groups.<i>.model.dirs``, ``groups.<i>.model.fit.fdata`` (``[sites | w |
-  mask]``) and ``groups.<i>.model.fit.flam`` (``[lam ; param row]``). A
+  mask]``) and ``groups.<i>.model.fit.flam`` (``[lam ; param row]``); for
+  a Taylor group ``groups.<i>.model.<field>`` of ``x0``, ``fx0``, ``g``,
+  ``H``, ``site_idx``, and for a Lagrange group of ``B``, ``coef``,
+  ``idx``, ``lb``, ``ub``, ``fully_linear`` (the JAX states' own fields). A
   state without a lane axis (one ``optimize`` run) gets one. The filter
   crosses with its entries (a dummy filter has capacity 0). The PRNG key of
   the JAX state is not carried.
@@ -36,8 +39,15 @@ from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.database import Database
 from morbit_tpu_torch.core.descent import resolve_descent_config
 from morbit_tpu_torch.models.container import GroupState
+from morbit_tpu_torch.models.lagrange import LagrangeState
 from morbit_tpu_torch.models.rbf_model import RbfState
+from morbit_tpu_torch.models.taylor import TaylorState
 from morbit_tpu_torch.ops.rbf import RbfFit
+
+#: the leaves of the families whose state crosses field by field, with the
+#: integer and boolean fields' types
+_FIELD_STATES = ((TaylorState, {"site_idx": torch.int32}),
+                 (LagrangeState, {"idx": torch.int32, "fully_linear": torch.bool}))
 
 def config_from_dict(d: dict) -> AlgorithmConfig:
     """The port's ``AlgorithmConfig`` from ``dataclasses.asdict`` of the JAX
@@ -73,11 +83,13 @@ def state_from_numpy(leaves: dict, device=None, dtype=None) -> SolverState:
     for i in range(G):
         data = t(f"groups.{i}.db.data")
         model = ()
-        if f"groups.{i}.model.meta" in leaves:
-            model = _rbf_from_packed(t(f"groups.{i}.model.meta", torch.int32),
-                                     t(f"groups.{i}.model.dirs"),
-                                     t(f"groups.{i}.model.fit.fdata"),
-                                     t(f"groups.{i}.model.fit.flam"), n)
+        pre = f"groups.{i}.model."
+        if pre + "meta" in leaves:
+            model = _rbf_from_packed(t(pre + "meta", torch.int32), t(pre + "dirs"),
+                                     t(pre + "fit.fdata"), t(pre + "fit.flam"), n)
+        for kind, kinds in _FIELD_STATES:
+            if all(pre + f in leaves for f in kind._fields):
+                model = kind(*(t(pre + f, kinds.get(f)) for f in kind._fields))
         groups.append(GroupState(
             db=Database(data=data, count=t(f"groups.{i}.db.count", torch.int32),
                         overflow=t(f"groups.{i}.db.overflow", torch.bool),
@@ -111,6 +123,9 @@ def state_to_numpy(state: SolverState) -> dict:
         for f in ("data", "count", "overflow"):
             out[f"groups.{i}.db.{f}"] = host(getattr(g.db, f))
         out[f"groups.{i}.n_evals"] = host(g.n_evals)
+        if isinstance(g.model, (TaylorState, LagrangeState)):
+            for f in g.model._fields:
+                out[f"groups.{i}.model.{f}"] = host(getattr(g.model, f))
         if isinstance(g.model, RbfState):
             meta, dirs, fdata, flam = _rbf_to_packed(g.model)
             out[f"groups.{i}.model.meta"] = host(meta)

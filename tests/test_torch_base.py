@@ -31,7 +31,7 @@ import morbit_tpu_torch.problems.synthetic as tsyn
 from morbit_tpu.models.configs import LagrangeConfig as JaxLagrangeConfig
 from morbit_tpu.models.configs import RbfConfig as JaxRbfConfig
 from morbit_tpu.models.configs import TaylorConfig as JaxTaylorConfig
-from morbit_tpu_torch.models.configs import RbfConfig
+from morbit_tpu_torch.models.configs import LagrangeConfig, RbfConfig, TaylorConfig
 from morbit_tpu_torch.parallel.multistart import build_solver
 from morbit_tpu_torch.utils.carry import config_from_dict
 
@@ -270,9 +270,22 @@ def test_solver_restores_tf32_flags_when_an_objective_raises(tf32_on):
 @pytest.mark.parametrize("cfg", [RbfConfig(use_max_points=True),
                                  JaxTaylorConfig(), JaxLagrangeConfig()])
 def test_unported_models_raise(cfg):
+    """``RbfConfig(use_max_points=True)`` and composites still raise, naming
+    their ROADMAP queue 1 item; Taylor and Lagrange models are ported: the
+    port's own config with the JAX config's fields and defaults builds and
+    solves one iteration."""
     mop = mt.MOP([-1.0], [1.0])
-    with pytest.raises(NotImplementedError, match=r"not ported[\s\S]*queue 1 item"):
-        mop.add_objective(lambda x: x.sum(), model_cfg=cfg)
+    if isinstance(cfg, RbfConfig):
+        with pytest.raises(NotImplementedError, match=r"not ported[\s\S]*queue 1 item"):
+            mop.add_objective(lambda x: x.sum(), model_cfg=cfg)
+    else:
+        port_cfg = {JaxTaylorConfig: TaylorConfig, JaxLagrangeConfig: LagrangeConfig}[
+            type(cfg)](**dataclasses.asdict(cfg))
+        assert dataclasses.asdict(port_cfg) == dataclasses.asdict(cfg)
+        assert list(dataclasses.asdict(port_cfg)) == list(dataclasses.asdict(cfg))
+        mop.add_objective(lambda x: (x ** 2).sum(), model_cfg=port_cfg)
+        res = mt.optimize(mop, [0.5], max_iter=1, device="cpu")
+        assert int(res.n_iterations) == 1 and torch.isfinite(res.x).all()
     # constraints are ported; composites raise, naming their queue item
     mop.add_ineq_constraint([[1.0]], [0.5])
     with pytest.raises(NotImplementedError, match="item 10"):

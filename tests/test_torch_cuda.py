@@ -314,3 +314,19 @@ def test_staged_matches_plain_on_card(cuda, variant):
     res = run(x0)
     assert not capacity_overflowed(res)
     compare_staged(res, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["taylor", "lagrange", "ps"])
+def test_family_card_matches_cpu(cuda, kind):
+    """The Taylor, Lagrange and Pascoletti-Serafini paths of
+    ``chip_smoke.FAMILY_KINDS`` at float64, B=4 Halton starts, max_iter=6:
+    every trip on the card from the CPU's state equals the CPU's trip
+    (``chip_smoke.lockstep``: integers exact, floats within 1e-9 +
+    1e-6 |x|), and no lane parts."""
+    from chip_smoke import LB, QP_ITERS, UB, family_config, family_mop, lockstep
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    ac = family_config(kind, max_iter=6, qp_iters=QP_ITERS)
+    trips, _, _, parted, _ = lockstep(lambda: family_mop(kind), halton_starts(4, LB, UB), ac)
+    assert trips >= 6 and parted == []
