@@ -108,10 +108,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     max_iter=FAMILY_LOCKSTEP_ITERS, card against CPU trip by trip
     (``lockstep``); only the (trip, lane) pairs of ``FAMILY_MAY_PART`` may
     part, each for its recorded cause.
+13. ``composite_main_path``, ``scaler_model_main_path``, ``no_db_main_path``
+    — the protocol of phase 12 on ``examples/composites.py``'s problem
+    (``make_composite``: g(x) = (||x-a||^2, ||x+a||^2), a = (1, 1), in one
+    cubic RBF group; the composite objectives g0 and g1 + 0.1 x0 and the
+    composite constraint g0 - 9 <= 0; also the feasible share and that the
+    one group's counter counts every true call of g), and on the main path
+    with ``var_scaler_update='model'`` and with ``use_db=False`` (the fleet
+    loop off on both); K1's launches by LP shape. Each records K1's inputs
+    at every LP shape but (3, 6) and K2's and K3's inputs, which
+    ``kernel_admm``, ``kernel_selection`` and ``kernel_round4`` hold
+    against the twins. ``composite_card_vs_cpu``,
+    ``scaler_model_card_vs_cpu``, ``no_db_card_vs_cpu`` — phase 12's
+    lockstep on these paths. ``optimize_surface`` — ``optimize`` at
+    float64 on the card and on the CPU (``_surface_runs``): ``populated_db``
+    recycling, ``untransform_final_database`` and recycling its result,
+    ``var_scaler='auto'`` without a box, and a checkpoint saved after three
+    trips and resumed, equal to the uninterrupted solve to the bit; the
+    card's runs equal the CPU's.
 
 Then the card's name and power limit, one JSON line with the kernel table
 (K1-K3 also with the staged main path's launches at each budget, the
-``routing`` times and the launches of the three paths of phase 12), the
+``routing`` times, the launches of the paths of phases 12 and 13 and the
+rows of the inputs the paths of phase 13 recorded), the
 script's total seconds, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -121,6 +140,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import pathlib
 import re
 import statistics
 import subprocess
@@ -139,6 +159,8 @@ B_MAIN = 1024
 #: starts per batch of the wide-n path
 B_WIDE = 1024
 QP_ITERS, ADAPT_EVERY = 400, 100
+#: the directory of this script, the repository's root
+ROOT = pathlib.Path(__file__).resolve().parent
 LB, UB = [-4.0, -4.0], [4.0, 4.0]
 #: rounds-1-3 statics of the main path's RbfConfig (theta_1 = theta_2 = 2,
 #: theta_pivot = 1/4) under the default AlgorithmConfig (delta_max = 1/2)
@@ -661,14 +683,14 @@ def phase_build():
 POLISH_JUMPS = {"constrained_path_4_11": (172,)}
 
 
-def phase_kernel_admm(wide_captured, constrained_captured):
+def phase_kernel_admm(wide_captured, constrained_captured, option_captured):
     """Kernel vs twin through ``solve_qp`` on random QPs, descent LPs, the
-    constrained path's LP shapes (``constrained_lps``) and the LPs the wide
-    and the constrained paths gave the kernel (recorded after
+    constrained path's LP shapes (``constrained_lps``) and the LPs the wide,
+    the constrained and the composite paths gave the kernel (recorded after
     equilibration, so ``solve_qp`` passes them on unchanged); returns the
     rows of the RBF main path's shape (nv=3 descent LPs, float32), of the
-    wide path (its last recorded call, float32) and of the constrained
-    path's two shapes (their recorded calls, float32).
+    wide path (its last recorded call, float32), of the constrained
+    path's two shapes and of the option paths' recorded shapes (float32).
 
     On the recorded wide LPs and on every constrained LP (P = 0, sigma =
     1e-6 or 1e-4 in M = sigma I + A' diag(rho) A, with equality rows at
@@ -717,6 +739,8 @@ def phase_kernel_admm(wide_captured, constrained_captured):
              for i, kind in enumerate(CONSTRAINED_LP_KINDS)]
     sets += [(f"constrained_path_{a[2].shape[-1]}_{a[2].shape[-2]}", a[:5])
              for a, _ in constrained_captured]
+    sets += [(f"{kind}_path_{a[2].shape[-1]}_{a[2].shape[-2]}", a[:5])
+             for kind, cap in option_captured.items() for a, _ in cap["qp_admm"]]
     rows = {}
     for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 2e-3)):
         f32 = dtype == torch.float32
@@ -742,7 +766,8 @@ def phase_kernel_admm(wide_captured, constrained_captured):
             pol_err = float(dz_pol[ok].max()) if ok.any() else 0.0
             limit = pol_limit = torch.full_like(dz, tol)
             extra = {}
-            constrained = kind in CONSTRAINED_LP_KINDS or kind.startswith("constrained_path")
+            constrained = kind in CONSTRAINED_LP_KINDS or kind.startswith(
+                ("constrained_path", "composite_path"))
             if kind.startswith("wide_path"):
                 # one limit for the batch, as since the wide path's port:
                 # ten times the largest sensitivity under the first probe
@@ -800,7 +825,10 @@ def phase_kernel_admm(wide_captured, constrained_captured):
             if kind.startswith("wide_path") and dt == torch.float32]
     constrained = {f"nv{v['nv']}_m{v['m']}": v for (kind, _, dt), v in rows.items()
                    if kind.startswith("constrained_path") and dt == torch.float32}
-    return rows[("descent", 3, torch.float32)], wide[-1], constrained
+    options = {kind: {f"nv{v['nv']}_m{v['m']}": v for (name, _, dt), v in rows.items()
+                      if name.startswith(kind + "_path") and dt == torch.float32}
+               for kind in option_captured}
+    return rows[("descent", 3, torch.float32)], wide[-1], constrained, options
 
 
 def admm_row(args, kw, dtype, plain_ms, **fields):
@@ -1391,11 +1419,14 @@ def _selection_tensors(case, dtype):
             torch.as_tensor(efl, device="cuda"))
 
 
-def phase_kernel_selection(captured, wide_captured, staged_captured):
+def phase_kernel_selection(captured, wide_captured, staged_captured, option_captured):
     """K2 against its twin on the card, the inputs recorded on the staged
-    main path (a stage capacity, a compacted width) included; returns the
+    main path (a stage capacity, a compacted width) and on the option paths
+    (the composite path's cubic group, the rescaled sites of the 'model'
+    scaler, the fixed capacity of ``use_db=False``) included; returns the
     rows of the last recorded call of the RBF main path (cap 1507) and of
-    the wide path (n=20, cap 5332), both float32."""
+    the wide path (n=20, cap 5332), both float32, and the option paths'
+    float32 rows by path."""
     from morbit_tpu_torch.ops import prepare_fused
     from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
 
@@ -1415,6 +1446,8 @@ def phase_kernel_selection(captured, wide_captured, staged_captured):
              for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
     sets += [(f"staged_B{a[0].shape[0]}_cap{a[0].shape[1]}", recorded(a), kw)
              for a, kw in staged_captured]
+    sets += [(f"{kind}_path_B{a[0].shape[0]}_cap{a[0].shape[1]}", recorded(a), kw)
+             for kind, cap in option_captured.items() for a, kw in cap["selection"]]
     rows = {}
     for dtype in (torch.float64, torch.float32):
         for name, make, kw in sets:
@@ -1450,13 +1483,16 @@ def phase_kernel_selection(captured, wide_captured, staged_captured):
                        bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes)
             phase("kernel_selection", **row)
             rows[(name.split("_trip")[0].split("_call")[0], dtype)] = row
-    return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)]
+    options = {kind: row for (name, dt), row in rows.items() for kind in option_captured
+               if name.startswith(kind + "_path") and dt == torch.float32}
+    return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)], options
 
 
-def phase_kernel_round4(captured, wide_captured, staged_captured):
+def phase_kernel_round4(captured, wide_captured, staged_captured, option_captured):
     """K3 against its twin on the card, the inputs recorded on the staged
-    main path included; returns the rows of the last recorded call of the
-    RBF main path and of the wide path, float32."""
+    main path and on the option paths included; returns the rows of the
+    last recorded call of the RBF main path and of the wide path, float32,
+    and the option paths' float32 rows by path."""
     from morbit_tpu_torch.models.rbf_round4 import run_round4
     from morbit_tpu_torch.ops import prepare_fused
 
@@ -1511,6 +1547,8 @@ def phase_kernel_round4(captured, wide_captured, staged_captured):
              for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
     sets += [(f"staged_B{a[0].shape[0]}_C{a[0].shape[1]}", recorded(a, kw), False)
              for a, kw in staged_captured]
+    sets += [(f"{kind}_path_B{a[0].shape[0]}_C{a[0].shape[1]}", recorded(a, kw), False)
+             for kind, cap in option_captured.items() for a, kw in cap["round4"]]
     rows = {}
     for dtype in (torch.float64, torch.float32):
         for name, make, must_reject in sets:
@@ -1552,7 +1590,9 @@ def phase_kernel_round4(captured, wide_captured, staged_captured):
                        ops_padded_count=ops_padded)
             phase("kernel_round4", **row)
             rows[(name.split("_trip")[0].split("_call")[0], dtype)] = row
-    return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)]
+    options = {kind: row for (name, dt), row in rows.items() for kind in option_captured
+               if name.startswith(kind + "_path") and dt == torch.float32}
+    return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)], options
 
 
 def _compare_states(card, cpu, allowed=None):
@@ -1885,21 +1925,34 @@ def phase_constrained_card_vs_cpu():
 #: RBF group with Pascoletti-Serafini descent at the reference budgets
 #: (ideal-point sweeps, a 1,500-point grid, no polish)
 FAMILY_KINDS = ("taylor", "lagrange", "ps")
+#: the composite, scaling and database paths: ``examples/composites.py``'s
+#: problem (g(x) = (||x-a||^2, ||x+a||^2), a = (1, 1), in one cubic RBF
+#: group; the composite objectives g0 and g1 + 0.1 x0 and the composite
+#: constraint g0 - 9 <= 0) on [-4, 4]^2, and the main path with the
+#: per-iteration ``var_scaler_update='model'`` or with ``use_db=False``; the
+#: same protocol and lockstep as the families
+OPTION_KINDS = ("composite", "scaler_model", "no_db")
 #: interleaved rounds of the plain and the tuned runner after the probe
 FAMILY_ROUNDS = 1
 #: max_iter of the float64 card-vs-CPU lockstep of each family
 FAMILY_LOCKSTEP_ITERS = 25
 #: the (trip, lane) pairs of each family's lockstep recorded parting, with
 #: the cause ``family_part_cause`` names
-FAMILY_MAY_PART = {"taylor": {}, "lagrange": {}, "ps": {}}
+FAMILY_MAY_PART = {"taylor": {}, "lagrange": {}, "ps": {}, "composite": {},
+                   "scaler_model": {}, "no_db": {}}
+#: the call of each K1 shape, and of K2 and K3, whose inputs the option
+#: paths record
+OPTION_CAPTURE_CALL = 8
 
 
 def family_mop(kind):
     from morbit_tpu_torch.models.configs import LagrangeConfig, RbfConfig, TaylorConfig
-    from morbit_tpu_torch.problems.synthetic import make_two_parabolas
+    from morbit_tpu_torch.problems.synthetic import make_composite, make_two_parabolas
 
-    cfg = {"taylor": TaylorConfig(degree=2, mode="fd"), "lagrange": LagrangeConfig(degree=2),
-           "ps": RbfConfig(kernel="multiquadric")}[kind]
+    if kind == "composite":
+        return make_composite(RbfConfig(kernel="cubic"), LB, UB)
+    cfg = {"taylor": TaylorConfig(degree=2, mode="fd"),
+           "lagrange": LagrangeConfig(degree=2)}.get(kind, RbfConfig(kernel="multiquadric"))
     return make_two_parabolas(cfg, LB, UB)
 
 
@@ -1909,7 +1962,45 @@ def family_config(kind, **budget):
 
     if kind == "ps":
         budget["descent_method"] = PascolettiSerafiniConfig()
+    if kind == "scaler_model":
+        budget["var_scaler_update"] = "model"
+    if kind == "no_db":
+        budget["use_db"] = False
     return AlgorithmConfig(**budget)
+
+
+def option_shapes():
+    """A ``recording`` predicate: K1's inputs at the OPTION_CAPTURE_CALL-th
+    call of each LP shape but the main path's (3, 6), and K2's and K3's at
+    their OPTION_CAPTURE_CALL-th call."""
+    calls = {}
+
+    def keep(name, call, args):
+        if name != "qp_admm":
+            return call == OPTION_CAPTURE_CALL
+        shape = tuple(args[2].shape[-2:])
+        calls[shape] = calls.get(shape, 0) + 1
+        return shape != (6, 3) and calls[shape] == OPTION_CAPTURE_CALL
+    return keep
+
+
+def _composite_summary(res):
+    """The composite path's feasible share (theta <= 1e-6), and that one
+    group's counter counts every true call of g: its evaluated database
+    rows, lane by lane, equal its counter and the result's evaluations."""
+    from morbit_tpu_torch.core.database import valid_mask
+    from morbit_tpu_torch.core.filter import compute_constraint_val
+
+    st = res.state
+    check(len(st.groups) == 1, f"{len(st.groups)} groups on the composite path, expected 1")
+    g = st.groups[0]
+    rows = (valid_mask(g.db) & g.db.evaluated).sum(-1).to(torch.int32)
+    check(bool((rows == g.n_evals).all() and (res.n_evals == g.n_evals).all()),
+          "the composite group's counter does not count the true calls of g")
+    theta = compute_constraint_val(st.l_e, st.l_i, st.c_e, st.c_i)
+    return dict(groups=len(st.groups), true_calls_counted=True,
+                feasible_share=float((theta <= 1e-6).double().mean()),
+                constraint_max=float(st.c_i.max()))
 
 
 def family_part_cause(card, cpu, lane):
@@ -1939,14 +2030,17 @@ def family_part_cause(card, cpu, lane):
 
 
 def phase_family_main_path(kind):
-    """The Taylor, Lagrange or PS path at float32, B=1024, the reference budget: the probe
+    """The Taylor, Lagrange, PS, composite, 'model'-scaler or no-database
+    path at float32, B=1024, the reference budget: the probe
     protocol (``bench.tuned_runner``), then the plain runner and the tuned
     ``StagedMultistart`` in turns on the probe's starts and on FAMILY_ROUNDS
     more batches, under ``kernels_only``. The counts are set to 0 just
     before and read just after. K1 must launch at least once a trip on the
-    steepest-descent paths, K2 and K3 on the PS path; the tuned and plain
+    steepest-descent paths, K2 and K3 on the RBF paths; the tuned and plain
     runners must agree on every lane's stop code and iteration count, and
-    no database may overflow. Returns the launches."""
+    no database may overflow. The option paths record K1's inputs at each
+    LP shape but (3, 6) and K2's and K3's (``option_shapes``). Returns the
+    launches and the recorded inputs."""
     from morbit_tpu_torch.bench import tuned_runner
     from morbit_tpu_torch.ops import boxopt
     from morbit_tpu_torch.parallel.multistart import build_solver, capacity_overflowed
@@ -1959,11 +2053,14 @@ def phase_family_main_path(kind):
                               dtype=torch.float32, device=cuda)
               for k in range(1 + FAMILY_ROUNDS)]
     results, batch_s = [], {"plain": [], "tuned": []}
+    captured = {"qp_admm": [], "selection": [], "round4": []}
+    keep = option_shapes() if kind in OPTION_KINDS else (lambda *a: False)
+    shapes = {}
     torch.cuda.synchronize()
     _zero_launch_counts()
     boxopt.ascent_steps = 0
     t0 = time.perf_counter()
-    with kernels_only():
+    with kernels_only(), recording(captured, keep), k1_shapes(shapes):
         runner, probe = tuned_runner(family_mop(kind), ac, torch.float32, cuda, starts[0])
         plain = build_solver(family_mop(kind), ac, torch.float32, cuda)
         for x0 in starts:
@@ -1976,9 +2073,12 @@ def phase_family_main_path(kind):
     seconds = time.perf_counter() - t0
     counts = _launch_counts()
     trips = probe.trips + sum(r.trips for _, r in results)
-    need = ("rbf_selection", "rbf_round4") if kind == "ps" else ("qp_admm",)
+    need = (() if kind == "ps" else ("qp_admm",)) + (
+        () if kind in ("taylor", "lagrange") else ("rbf_selection", "rbf_round4"))
     for name in need:
         check(counts[name] >= trips, f"{name} launched {counts[name]} times in {trips} trips")
+    check(sum(shapes.values()) == counts["qp_admm"],
+          f"K1 calls by shape {shapes} do not add up to its {counts['qp_admm']} launches")
     overflow = capacity_overflowed(probe) or any(capacity_overflowed(r) for _, r in results)
     check(not overflow, f"a {kind} batch overflowed its database")
     for _, r in results:
@@ -2009,12 +2109,26 @@ def phase_family_main_path(kind):
                      no_skips_ascent_steps_per_trip=boxopt.ascent_steps / full.trips,
                      skips_batch_s=batch_s["plain"][0], equal_with_and_without_skips=same)
     fill = lambda r: max(int(g.db.count.max()) for g in r.state.groups)
+    extra = {}
+    if kind == "composite":
+        extra = {name: _composite_summary(r) for name, r in (("plain", p), ("tuned", t))}
+    if kind in OPTION_KINDS:
+        check(runner.fleet == (kind == "composite")
+              and len(captured["selection"]) == len(captured["round4"]) == 1,
+              f"{kind}: fleet {runner.fleet}, recorded {len(captured['selection'])} K2 and "
+              f"{len(captured['round4'])} K3 calls")
+        extra.update(fleet=runner.fleet, k1_launches_by_shape=shapes,
+                     scale_range=[float(p.state.scal.scale.min()),
+                                  float(p.state.scal.scale.max())])
     phase(f"{kind}_main_path", B=B_MAIN, dtype="float32", **budget,
           model={"taylor": "TaylorConfig(degree=2, mode='fd')",
                  "lagrange": "LagrangeConfig(degree=2)",
-                 "ps": "RbfConfig(kernel='multiquadric')"}[kind],
+                 "composite": "make_composite(RbfConfig(kernel='cubic'))",
+                 "scaler_model": "RbfConfig(kernel='multiquadric'), var_scaler_update='model'",
+                 "no_db": "RbfConfig(kernel='multiquadric'), use_db=False"}.get(
+                     kind, "RbfConfig(kernel='multiquadric')"),
           descent="PascolettiSerafiniConfig()" if kind == "ps" else "steepest_descent",
-          launches=counts, trips_all_batches=trips,
+          **extra, launches=counts, trips_all_batches=trips,
           launches_per_trip={k: v / trips for k, v in counts.items()},
           ascent_steps_per_trip=ascent_steps / trips, **skips, seconds=seconds,
           probe_trips=probe.trips, trips={"plain": p.trips, "tuned": t.trips},
@@ -2025,10 +2139,10 @@ def phase_family_main_path(kind):
           capacity_overflow=overflow, lanes_differing_plain_vs_tuned=flips,
           runs_per_s={k: len(v) * B_MAIN / sum(v) for k, v in batch_s.items()},
           batch_s=batch_s, stop_codes=_stop_codes(p),
-          pareto_fraction_1e2=pareto_fraction(p.x),
+          pareto_fraction_1e2=None if kind == "composite" else pareto_fraction(p.x),
           mean_iterations=float(p.n_iterations.double().mean()),
           mean_evals=float(p.n_evals.double().mean()))
-    return counts
+    return counts, captured
 
 
 def phase_family_card_vs_cpu(kind):
@@ -2054,6 +2168,139 @@ def phase_family_card_vs_cpu(kind):
           lockstep_rho_max_rel_diff=diffs["rho"], lockstep_fit_max_rel_diff=diffs["fit"],
           parted={f"{t},{i}": c for (t, i), c in parted.items()},
           may_part={f"{t},{i}": c for (t, i), c in recorded.items()})
+
+
+def scaled_mop(lb, ub):
+    """``examples/variable_scaling.py``'s badly scaled problem (x0 in units
+    of 1, x1 in units of 1e4) on the box (lb, ub), one multiquadric group."""
+    from morbit_tpu_torch import MOP
+    from morbit_tpu_torch.models.configs import RbfConfig
+
+    mop = MOP(lb, ub)
+    cfg = RbfConfig(kernel="multiquadric")
+    mop.add_objective(lambda x: (x[0] - 0.3) ** 2 + (x[1] / 1e4 - 0.3) ** 2, model_cfg=cfg)
+    mop.add_objective(lambda x: (x[0] - 0.7) ** 2 + (x[1] / 1e4 - 0.7) ** 2, model_cfg=cfg)
+    return mop
+
+
+#: where ``optimize_surface`` writes its checkpoint (gitignored)
+CHECKPOINT = ROOT / "build" / "optimize_surface_state.npz"
+
+
+def _surface_runs(device, recycle=None):
+    """The ``optimize`` surface at float64 on ``device``: a run of the main
+    path's problem, a second from another start recycling its databases
+    (``populated_db``), the same pair with ``untransform_final_database``,
+    ``var_scaler='auto'`` on an unbounded variant of the badly scaled
+    problem, and a checkpoint of a B=8 solve saved after three trips,
+    loaded and resumed. The recycled runs take their databases from
+    ``recycle`` (another device's runs) where given, so that both devices
+    recycle the same bits. Returns the runs, the checkpoint's resumed and
+    uninterrupted final states, and the recycled runs' first database rows."""
+    from morbit_tpu_torch import AlgorithmConfig, optimize
+    from morbit_tpu_torch.parallel.multistart import build_solver
+    from morbit_tpu_torch.problems.synthetic import halton_starts, make_two_parabolas
+    from morbit_tpu_torch.utils.checkpoint import load_state, save_state
+
+    f64 = torch.float64
+    kw = dict(device=device, dtype=f64, max_iter=20, qp_iters=QP_ITERS)
+    runs = {"first": optimize(rbf_mop(), [-3.0, 2.5], **kw)}
+    runs["untransformed"] = optimize(rbf_mop(), [-3.0, 2.5],
+                                     untransform_final_database=True, **kw)
+    prev = recycle or runs
+    runs["recycled"] = optimize(rbf_mop(), [2.0, -3.0], populated_db=prev["first"], **kw)
+    runs["recycled_untransformed"] = optimize(rbf_mop(), [2.0, -3.0],
+                                              populated_db=prev["untransformed"], **kw)
+    inf = [float("inf")] * 2
+    runs["auto_unbounded"] = optimize(scaled_mop([-x for x in inf], inf), [0.9, 9.0e3],
+                                      var_scaler="auto", **dict(kw, max_iter=30))
+    # its estimate scales x1 by ~1.4e4 and the run stops after one
+    # iteration (as the JAX package's does); the two parabolas without a
+    # box take moderate factors and run on (exact objectives: without a
+    # box, an RBF run's tied box exits part card and CPU, ROADMAP 3.4)
+    runs["auto_parabolas"] = optimize(make_two_parabolas(), [-3.0, 2.5], var_scaler="auto",
+                                      **kw)
+    solver = build_solver(rbf_mop(), AlgorithmConfig(max_iter=30, qp_iters=QP_ITERS), f64,
+                          device)
+    x0 = halton_starts(8, LB, UB)
+    state = solver.initialize(x0)
+    for _ in range(3):
+        state = solver.iterate(state)
+    CHECKPOINT.parent.mkdir(parents=True, exist_ok=True)
+    save_state(str(CHECKPOINT), state)
+    resumed, _ = solver.solve_from_state(load_state(str(CHECKPOINT), solver.initialize(x0)))
+    whole, _ = solver.solve_from_state(state)
+    first_rows = {k: int(runs[k].state.traj.x_indices[0, 0])
+                  for k in ("recycled", "recycled_untransformed")}
+    return runs, resumed, whole, first_rows
+
+
+def phase_optimize_surface():
+    """``optimize``'s options on the card at float64 (``_surface_runs``): the
+    recycled runs start past the first run's database rows, the
+    untransformed database holds unscaled sites under an identity scaler,
+    'auto' estimates a scaler other than the identity, and the resumed
+    checkpoint equals the uninterrupted solve to the bit. The same runs on
+    the CPU must equal the card's: stop codes, iterations, evaluations and
+    database fills exactly, x, fx and the scalers within 1e-9 + 1e-6 |x|.
+    The CPU's recycled runs recycle the card's first runs: the two devices'
+    first runs agree to rounding, not to the bit, and a recycled run's
+    model rounds see the stored sites' last bits through exact ties (ROADMAP
+    3.4)."""
+    from morbit_tpu_torch.utils.checkpoint import tree_leaves
+
+    t0 = time.perf_counter()
+    out = {"cuda": _surface_runs("cuda")}
+    out["cpu"] = _surface_runs("cpu", recycle=out["cuda"][0])
+    seconds = time.perf_counter() - t0
+    runs, resumed, whole, first_rows = out["cuda"]
+    runs_cpu, _, _, first_rows_cpu = out["cpu"]
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed), tree_leaves(whole))),
+          "the resumed checkpoint differs from the uninterrupted solve")
+    check(first_rows == {"recycled": int(runs["first"].state.groups[0].db.count),
+                         "recycled_untransformed": int(
+                             runs["untransformed"].state.groups[0].db.count)},
+          f"the recycled runs start at rows {first_rows}")
+    un = runs["untransformed"]
+    check(bool((un.state.scal.scale == 1).all() and (un.state.scal.offset == 0).all()),
+          "untransform_final_database left a scaler other than the identity")
+    db = un.state.groups[0].db
+    check(float((db.X[int(un.state.x_indices[0])] - un.x).abs().max()) <= 1e-12,
+          "the untransformed database's iterate row is not the iterate")
+    auto_scale = {k: runs[k].state.scal.scale for k in ("auto_unbounded", "auto_parabolas")}
+    check(not any(bool((v == 1).all()) for v in auto_scale.values()),
+          "'auto' kept the identity on an unbounded box")
+
+    def close(a, b):
+        a = a.cpu()
+        fin = torch.isfinite(b)
+        return bool(torch.where(fin, (a - b).abs() <= 1e-9 + 1e-6 * b.abs(), a == b).all())
+    summary = {}
+    for name, r in runs.items():
+        c = runs_cpu[name]
+        same = (int(r.stop_code) == int(c.stop_code)
+                and int(r.n_iterations) == int(c.n_iterations)
+                and int(r.n_evals) == int(c.n_evals)
+                and [int(g.db.count) for g in r.state.groups]
+                == [int(g.db.count) for g in c.state.groups]
+                and close(r.x, c.x) and close(r.fx, c.fx)
+                and all(close(a, b) for a, b in zip(r.state.scal, c.state.scal)))
+        if not same:
+            print(json.dumps({"optimize_surface_differs": name, **{
+                dev: dict(stop_code=int(v.stop_code), n_iterations=int(v.n_iterations),
+                          n_evals=int(v.n_evals), x=v.x.tolist(), fx=v.fx.tolist(),
+                          db_rows=[int(g.db.count) for g in v.state.groups],
+                          it_stat=v.state.traj.it_stat[:int(v.state.traj.count)].tolist())
+                for dev, v in (("cuda", r), ("cpu", c))}}), flush=True)
+        check(same, f"optimize_surface {name}: the card's run differs from the CPU's")
+        summary[name] = dict(stop_code=int(r.stop_code), n_iterations=int(r.n_iterations),
+                             n_evals=int(r.n_evals), x=r.x.tolist(),
+                             db_rows=int(r.state.groups[0].db.count))
+    check(first_rows_cpu == first_rows, "the CPU's recycled runs start elsewhere")
+    phase("optimize_surface", dtype="float64", runs=summary, recycled_first_rows=first_rows,
+          auto_scale={k: v.tolist() for k, v in auto_scale.items()},
+          checkpoint_resumed_bit_equal=True,
+          card_equals_cpu=True, seconds=seconds)
 
 
 def phase_wide_quality_f64():
@@ -2250,13 +2497,18 @@ def main():
     rbf_launches, captured = phase_rbf_main_path()
     staged_launches, staged_captured = phase_staged_main_path()
     con_launches, con_captured = phase_constrained_main_path()
-    family_launches = {kind: phase_family_main_path(kind) for kind in FAMILY_KINDS}
+    family_launches = {kind: phase_family_main_path(kind)[0] for kind in FAMILY_KINDS}
+    option_runs = {kind: phase_family_main_path(kind) for kind in OPTION_KINDS}
+    option_launches = {kind: v[0] for kind, v in option_runs.items()}
+    option_captured = {kind: v[1] for kind, v in option_runs.items()}
     wide_launches, wide_captured = phase_wide_main_path(B_WIDE)
-    *admm_rows, con_rows = phase_kernel_admm(wide_captured["qp_admm"], con_captured)
-    sel_rows = phase_kernel_selection(captured["selection"], wide_captured["selection"],
-                                      staged_captured["selection"])
-    r4_rows = phase_kernel_round4(captured["round4"], wide_captured["round4"],
-                                  staged_captured["round4"])
+    *admm_rows, con_rows, admm_opt = phase_kernel_admm(wide_captured["qp_admm"],
+                                                       con_captured, option_captured)
+    *sel_rows, sel_opt = phase_kernel_selection(
+        captured["selection"], wide_captured["selection"], staged_captured["selection"],
+        option_captured)
+    *r4_rows, r4_opt = phase_kernel_round4(captured["round4"], wide_captured["round4"],
+                                           staged_captured["round4"], option_captured)
     gram_row = phase_kernel_gram(wide_captured["gram"])
     k5_rows = phase_kernel_admm_iterations()
     routing = phase_routing()
@@ -2264,8 +2516,9 @@ def main():
     phase_wide_card_vs_cpu()
     phase_rbf_card_vs_cpu()
     phase_constrained_card_vs_cpu()
-    for kind in FAMILY_KINDS:
+    for kind in FAMILY_KINDS + OPTION_KINDS:
         phase_family_card_vs_cpu(kind)
+    phase_optimize_surface()
     phase_staged_card_exact()
     phase_staged_quality_f64()
     phase_card_vs_cpu()
@@ -2310,6 +2563,19 @@ def main():
         if main_row is not None:           # the Taylor, Lagrange, PS paths
             for kind in FAMILY_KINDS:
                 entry[f"{kind}_main_path"] = {"launches": family_launches[kind][name]}
+            # the composite, 'model'-scaler and no-database paths, with the
+            # rows of the inputs they recorded
+            recorded_rows = {"qp_admm": admm_opt, "rbf_selection": sel_opt,
+                             "rbf_round4": r4_opt}[name]
+            for kind in OPTION_KINDS:
+                entry[f"{kind}_main_path"] = {"launches": option_launches[kind][name]}
+                rec = recorded_rows.get(kind)
+                if name == "qp_admm":
+                    for shape, row_o in (rec or {}).items():
+                        entry[f"{kind}_main_path"][shape] = {k: row_o[k] for k in keys}
+                elif rec is not None:
+                    entry[f"{kind}_main_path"]["recorded"] = {
+                        k: rec[k] for k in keys + ("B", "n")}
         if name == "qp_admm":              # K1 at the constrained LP shapes
             for b, counts in zip(STAGED_BUDGETS, con_launches):
                 entry["constrained_main_path"][f"max_iter_{b['max_iter']}"][

@@ -13,18 +13,23 @@ kernel that no path calls.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 a CUDA device the default raises. Ported so far: exact, RBF, Taylor and
-Lagrange models, steepest and Pascoletti-Serafini descent, linear and
-nonlinear constraints, the trust-region loop with criticality micro-steps, the plain batched multistart runner, the staged runner
+Lagrange models, composite functions, steepest and Pascoletti-Serafini
+descent, linear and nonlinear constraints, the trust-region loop with
+criticality micro-steps, the ``'auto'`` and ``'model'`` scaling modes,
+``use_db=False``, database recycling (``populated_db``) and the final
+report (``utils/logging.py``), state checkpoints (``utils/checkpoint.py``),
+the plain batched multistart runner, the staged runner
 (:class:`StagedMultistart`: capacity stages, the fleet loop, lane
 compaction and its probe tuning) with its bench
 (``python3 -m morbit_tpu_torch.bench``), and the ZDT/DTLZ benchmark
 problems.
 """
 
-from morbit_tpu_torch.core.algorithm import OptimizeResult, optimize
+from morbit_tpu_torch.core.algorithm import (OptimizeResult, Solver, SolverState,
+                                             initialize_state, optimize)
 from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
-from morbit_tpu_torch.core.mop import MOP
+from morbit_tpu_torch.core.mop import MOP, CompiledMOP, compile_mop
 from morbit_tpu_torch.core.descent import PascolettiSerafiniConfig, SteepestDescentConfig
 from morbit_tpu_torch.models.configs import (ExactConfig, LagrangeConfig, RbfConfig,
                                              TaylorConfig)
@@ -36,6 +41,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "MOP",
+    "compile_mop",
+    "CompiledMOP",
     "AlgorithmConfig",
     "ExactConfig",
     "RbfConfig",
@@ -44,6 +51,9 @@ __all__ = [
     "SteepestDescentConfig",
     "PascolettiSerafiniConfig",
     "optimize",
+    "initialize_state",
+    "Solver",
+    "SolverState",
     "multistart_optimize",
     "StagedMultistart",
     "staged_multistart",

@@ -68,7 +68,11 @@ def tuned_runner(mop, ac, dtype, device, x0):
                                                       suggest_widths)
 
     probe = StagedMultistart(mop, ac, dtype, device=device)(x0)
-    ac_tuned = dataclasses.replace(ac, db_capacity=suggest_db_capacity(probe))
+    # the final fill bounds a run's fill only while rows are append-only:
+    # under use_db=False each iteration empties the databases, so they keep
+    # their fixed working-set capacity
+    ac_tuned = (dataclasses.replace(ac, db_capacity=suggest_db_capacity(probe))
+                if ac.use_db else ac)
     schedule = suggest_schedule(probe.n_iterations, ac.max_iter)
     tmp = StagedMultistart(mop, ac_tuned, dtype, schedule=schedule, device=device)
     widths = suggest_widths(tmp, probe.n_iterations, quantum=32)

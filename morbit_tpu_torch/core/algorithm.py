@@ -14,9 +14,12 @@ flow reproduces vmap's semantics, not those of a sequential loop:
 * every ``lax.cond`` computes both branches, then selects per lane.
 
 A single :func:`optimize` run is B=1 of the same code. The port covers
-exact, RBF, Taylor and Lagrange models, steepest descent and
-Pascoletti-Serafini descent, box constraints, and linear and nonlinear
-constraints through the filter, the normal step and restoration.
+exact, RBF, Taylor and Lagrange models, composite functions, steepest
+descent and Pascoletti-Serafini descent, box constraints, linear and
+nonlinear constraints through the filter, the normal step and restoration,
+the ``'auto'`` scaler and the per-iteration ``'model'`` scaler update,
+``use_db=False``, database recycling (``populated_db``) and
+``untransform_final_database``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from morbit_tpu_torch.core import database as dbm
 from morbit_tpu_torch.core import filter as flt
 from morbit_tpu_torch.core import scaling
 from morbit_tpu_torch.core.config import AlgorithmConfig
@@ -38,9 +42,10 @@ from morbit_tpu_torch.core.descent import (LinearizedConstraints,
                                            resolve_descent_config,
                                            steepest_descent_direction)
 from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
-from morbit_tpu_torch.core.mop import NL_EQ, NL_INEQ, CompiledMOP, compile_mop
+from morbit_tpu_torch.core.mop import MOP, NL_EQ, NL_INEQ, CompiledMOP, compile_mop
 from morbit_tpu_torch.models.configs import LagrangeConfig, TaylorConfig
-from morbit_tpu_torch.models.container import SurrogateContainer
+from morbit_tpu_torch.models.container import SurrogateContainer, chain_rule
+from morbit_tpu_torch.ops.batched_linalg import lane_matmul, lane_matvec
 from morbit_tpu_torch.ops.boxopt import halton_grid, maximize_in_box
 from morbit_tpu_torch.ops.geometry import project_into_box
 from morbit_tpu_torch.utils.tree import lane_where, tree_map, tree_where
@@ -54,9 +59,7 @@ _MODE_NORMAL, _MODE_CRIT_PRE, _MODE_CRIT_LOOP = 0, 1, 2
 RESTORATION_SYNC_EVERY = 8
 
 
-def _mv(M, v):
-    """Batched matrix-vector product ``M (..., k, n) @ v (..., n)``."""
-    return (M @ v[..., None])[..., 0]
+_mv = lane_matvec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,25 +248,33 @@ class Solver:
     batched state."""
 
     def __init__(self, mop: CompiledMOP, ac: Optional[AlgorithmConfig] = None,
-                 dtype=torch.float64, device="cuda"):
+                 dtype=torch.float64, device="cuda", x0_hint=None):
         self.mop = mop
         self.ac = ac = ac or AlgorithmConfig()
         self.dtype = dtype
         self.device = torch.device(device)
-        # option -> (unported, its ROADMAP queue 1 item)
-        _unported = {
-            "var_scaler_update": (ac.var_scaler_update != "none", 10),
-            "use_db": (not ac.use_db, 10),
-            "qp_exit_eps": (ac.qp_exit_eps != 0, 11),
-            "untransform_final_database": (ac.untransform_final_database, 10),
-        }
-        for name, (bad, item) in _unported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"AlgorithmConfig.{name}={getattr(ac, name)!r} is not "
-                    f"ported to morbit_tpu_torch yet (ROADMAP queue 1 item {item})")
-        self.scal = scaling.get_var_scaler(self._tensor(mop.lb),
-                                           self._tensor(mop.ub), ac.var_scaler)
+        if ac.qp_exit_eps != 0:
+            raise NotImplementedError(
+                f"AlgorithmConfig.qp_exit_eps={ac.qp_exit_eps!r} is not ported to "
+                "morbit_tpu_torch yet (ROADMAP queue 1 item 11)")
+        if ac.var_scaler_update not in ("none", "model"):
+            raise ValueError(f"unknown var_scaler_update {ac.var_scaler_update!r}")
+        finite = bool(np.isfinite(mop.lb).all() and np.isfinite(mop.ub).all())
+        if ac.var_scaler == "auto" and not finite and x0_hint is not None:
+            # the Jacobian estimate of the 'auto' scaler (``get_var_scaler``'s
+            # :auto branch, ``VarScaler.jl:214-234``) at a perturbed start,
+            # as the JAX package draws it (algorithm.py:295-304)
+            np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+            lb, ub = np.asarray(mop.lb, np_dtype), np.asarray(mop.ub, np_dtype)
+            rng = np.random.default_rng(1234)
+            hint = torch.as_tensor(x0_hint, dtype=torch.float64).cpu().numpy().reshape(-1)
+            x0p = np.clip(hint + rng.uniform(-0.1, 1.0, mop.n_vars), mop.lb, mop.ub)
+            J = np.vstack([g.jac_unscaled(self._tensor(x0p)).cpu().numpy()
+                           for g in mop.groups])
+            self.scal = scaling.estimate_auto_scaler(J, lb, ub, dtype, self.device)
+        else:
+            self.scal = scaling.get_var_scaler(self._tensor(mop.lb),
+                                               self._tensor(mop.ub), ac.var_scaler)
         # the largest per-rebuild working set of any group (n+1 without a
         # modelled group), and the most new sites one iteration may add: a
         # Taylor stencil on every move, up to p poised points for Lagrange
@@ -483,10 +494,53 @@ class Solver:
         return self._ps_consts
 
     # ------------------------------------------------------------- initialization
+    def _ingest(self, groups, populated_db, scal):
+        """The databases of ``populated_db`` (a previous ``OptimizeResult``,
+        ``SolverState`` or tuple of group states, with a lane axis of B or
+        1, or none as ``optimize`` returns them) in place of the fresh ones,
+        re-transformed to the current scaler lane by lane
+        (``algorithm.jl:286-297``, ``Databases.jl:300``). A lane whose
+        previous scaler equals the current one keeps its stored sites bit
+        for bit (the round trip is not a float identity, and
+        ``ensure_evaluated`` matches recycled rows by exact site equality);
+        raw group tuples carry no scaler and are taken as they are."""
+        prev, prev_scal = populated_db, None
+        if isinstance(prev, OptimizeResult):
+            prev = prev.state
+        if isinstance(prev, SolverState):
+            prev_scal, prev = prev.scal, prev.groups
+        B = scal.scale.shape[0]
+
+        def lanes(t, lead):
+            t = t.to(self.device)
+            t = t[None] if t.dim() == lead else t
+            return t.expand((B,) + t.shape[1:]).contiguous()
+
+        out = []
+        for fresh, old in zip(groups, prev):
+            db = old.db
+            data = lanes(db.data, 2).to(self.dtype)
+            db = dbm.Database(data=data, count=lanes(db.count, 0).to(torch.int32),
+                              overflow=lanes(db.overflow, 0), n=db.n, m=db.m)
+            if prev_scal is not None:
+                ps = scaling.VarScaler(*(lanes(f, 1).to(self.dtype) for f in prev_scal))
+                new = dbm.rescale(db, ps.scale, ps.offset, scal.scale, scal.offset)
+                same = ((ps.scale == scal.scale).all(-1)
+                        & (ps.offset == scal.offset).all(-1))
+                db = dataclasses.replace(db, data=lane_where(same, db.data, new.data))
+            out.append(fresh._replace(db=db))
+        return tuple(out)
+
     @_full_precision_matmuls()
-    def initialize(self, x0) -> SolverState:
+    def initialize(self, x0, populated_db=None) -> SolverState:
         """``initialize_data`` (``algorithm.jl:223-323``) for a (B, n) batch
-        of starting points (a single (n,) start is the batch of one)."""
+        of starting points (a single (n,) start is the batch of one).
+
+        ``populated_db`` recycles the evaluation databases of a previous
+        run on the same problem, lane by lane (the reference's
+        ``optimize(...; populated_db)`` checkpoint/resume path,
+        ``algorithm.jl:286-297``; see :meth:`_ingest`). Evaluation counters
+        reset and the models are rebuilt."""
         mop, dtype, dev = self.mop, self.dtype, self.device
         x0 = self._tensor(x0)
         if x0.dim() == 1:
@@ -497,6 +551,8 @@ class Solver:
         x_s = scaling.transform(scal, x)
 
         groups = self.container.init_group_states(B)
+        if populated_db is not None:
+            groups = self._ingest(groups, populated_db, scal)
         fx, c_e, c_i, groups, x_indices = self.container.ensure_evaluated(groups, x_s,
                                                                           scal)
         l_e, l_i = self._linear_values(x_s, scal)
@@ -612,10 +668,50 @@ class Solver:
                 f"the state lies on {', '.join(bad)} and the solver on {want}; "
                 "move it with utils.tree.tree_map(lambda t: t.to(device), state)")
 
+    def _rescale_model(self, state: SolverState, gate) -> SolverState:
+        """The ``'model'`` scaler update (``new_var_scaler``,
+        ``VarScaler.jl:240-260``; ``algorithm.jl:661-679``) on the lanes of
+        ``gate``: new factors from the surrogates' Jacobians, the databases'
+        valid rows, the scaled iterate and the linear rows re-transformed.
+        The other lanes keep their state."""
+        old = state.scal
+        # Jf ~ Jm * d(transform)/dx = Jm diag(scale_old)
+        J = self.container.jac_all(state.groups, state.x_s, old) * old.scale[:, None, :]
+        bounded = np.isfinite(self.mop.lb) & np.isfinite(self.mop.ub)
+        new = scaling.estimate_linear_scaling_traced(J, self._lb, self._ub, bounded)
+        groups = tuple(st._replace(db=tree_where(gate, dbm.rescale(
+            st.db, old.scale, old.offset, new.scale, new.offset), st.db))
+            for st in state.groups)
+        scal = scaling.VarScaler(*(lane_where(gate, a, b) for a, b in zip(new, old)))
+        x_s = lane_where(gate, scaling.transform(new, state.x), state.x_s)
+        l_e, l_i = self._linear_values(x_s, scal)
+        return state.replace(groups=groups, x_s=x_s, scal=scal,
+                             l_e=lane_where(gate, l_e, state.l_e),
+                             l_i=lane_where(gate, l_i, state.l_i))
+
+    def _compact_databases(self, state: SolverState, in_crit) -> SolverState:
+        """``use_db=False``: every database keeps only its current iterate's
+        row, moved to row 0 (``MockDB``, ``Databases.jl:11-32``), once per
+        iteration; criticality micro-trips keep the working set their
+        iteration compacted to."""
+        groups = tuple(st._replace(db=tree_where(
+            in_crit, st.db, dbm.compact_to_row(st.db, state.x_indices[:, i])))
+            for i, st in enumerate(state.groups))
+        x_idx = state.x_indices
+        x_idx = torch.where(in_crit[:, None], x_idx,
+                            torch.where(x_idx >= 0, 0, -1).to(x_idx.dtype))
+        return state.replace(groups=groups, x_indices=x_idx)
+
     def _iterate_inner(self, state: SolverState, go) -> SolverState:
         ac = self.ac
         in_crit = state.crit_mode > _MODE_NORMAL
         looping = state.crit_mode == _MODE_CRIT_LOOP
+        # per-iteration scaler update, never mid-criticality (the routine
+        # sees one fixed scaling)
+        if ac.var_scaler_update == "model":
+            state = self._rescale_model(state, (state.iter_counter > 1) & ~in_crit)
+        if not ac.use_db:
+            state = self._compact_databases(state, in_crit)
         # per-pass halt check of the criticality routine
         # (``algorithm.jl:563-573``): evaluated BEFORE the rebuild
         crit_halt = looping & (
@@ -734,26 +830,43 @@ class Solver:
     def _true_constraints(self, xi, want_jac: bool):
         """True constraint blocks (l_e, l_i, c_e, c_i) at unscaled sites
         ``xi`` (B, n), evaluating only the groups that feed nonlinear
-        constraints (``algorithm.jl:355-362``: restoration never touches
-        objective-only groups); with ``want_jac`` also (J_e, J_i)."""
-        mop = self.mop
+        constraints, directly or through a composite (``algorithm.jl:355-362``:
+        restoration never touches objective-only groups); with ``want_jac``
+        also (J_e, J_i), a composite's rows by the chain rule
+        ``D_x phi + D_g phi J_inner``."""
+        mop, con = self.mop, (NL_EQ, NL_INEQ)
+        need = {cs.group_index for cs in mop.composites if cs.role in con}
         vals, jacs = [], []
         for g in mop.groups:
-            con = any(mb.role in (NL_EQ, NL_INEQ) for mb in g.members)
-            vals.append(g.eval_unscaled(xi) if con else None)
-            jacs.append(g.jac_unscaled(xi) if con and want_jac else None)
+            use = g.index in need or any(mb.role in con for mb in g.members)
+            vals.append(g.eval_unscaled(xi) if use else None)
+            jacs.append(g.jac_unscaled(xi) if use and want_jac else None)
+        comp_v, comp_J = [], []
+        for cs in mop.composites:
+            if cs.role not in con:
+                comp_v.append(None)
+                comp_J.append(None)
+                continue
+            inner = cs.inner(vals[cs.group_index])
+            comp_v.append(cs.eval(xi, inner))
+            if want_jac:
+                d_x, d_g = cs.partials(xi, inner)
+                J_in = jacs[cs.group_index][..., cs.group_offset:cs.group_offset + cs.width, :]
+                comp_J.append(chain_rule(d_x, d_g, J_in))
         blocks = (_mv(self._A_eq, xi) - self._b_eq, _mv(self._A_ineq, xi) - self._b_ineq,
-                  self._role(vals, NL_EQ, xi, -1), self._role(vals, NL_INEQ, xi, -1))
+                  self._role(vals, NL_EQ, xi, -1, comp_v),
+                  self._role(vals, NL_INEQ, xi, -1, comp_v))
         if not want_jac:
             return blocks
-        return blocks, (self._role(jacs, NL_EQ, xi, -2), self._role(jacs, NL_INEQ, xi, -2))
+        return blocks, (self._role(jacs, NL_EQ, xi, -2, comp_J),
+                        self._role(jacs, NL_INEQ, xi, -2, comp_J))
 
-    def _role(self, group_values, role, xi, axis):
+    def _role(self, group_values, role, xi, axis, composite_values=None):
         """``mop.scatter_role`` that also takes a role nobody serves."""
         if self.mop.role_width(role) == 0:
             shape = (xi.shape[0], 0) if axis == -1 else (xi.shape[0], 0, xi.shape[-1])
             return xi.new_zeros(shape)
-        return self.mop.scatter_role(group_values, role, axis)
+        return self.mop.scatter_role(group_values, role, axis, composite_values)
 
     def _restoration(self, state: SolverState, theta_k, r_guess, active) -> SolverState:
         """Nonlinear restoration (``restoration``, ``algorithm.jl:325-404``)
@@ -782,7 +895,7 @@ class Solver:
         def grad(xi):
             # 2 (J_e' c_e + J_i' max(c_i, 0) + A_eq' l_e + A_ineq' max(l_i, 0))
             (l_e, l_i, c_e, c_i), (J_e, J_i) = self._true_constraints(xi, True)
-            tmv = lambda J, v: (v[..., None, :] @ J)[..., 0, :]
+            tmv = lambda J, v: lane_matmul(v[..., None, :], J)[..., 0, :]
             return 2.0 * (tmv(J_e, c_e) + tmv(J_i, pos(c_i)) + tmv(A_eq, l_e)
                           + tmv(A_ineq, pos(l_i)))
 
@@ -1199,12 +1312,43 @@ class Solver:
             n_evals=self._total_evals(state.groups), state=state, trips=trips)
 
 
+def initialize_state(mop, x0, algo_config: Optional[AlgorithmConfig] = None,
+                     dtype=torch.float64, device=None):
+    """A solver and its initial state for the starts ``x0`` ((n,) or (B,
+    n)), on CUDA unless ``device`` says otherwise."""
+    ac = algo_config or AlgorithmConfig()
+    if isinstance(mop, MOP):
+        mop = compile_mop(mop, ac.combine_models)
+    solver = Solver(mop, ac, dtype, resolve_device(device))
+    return solver, solver.initialize(x0)
+
+
+def untransform_databases(state: SolverState, lb, ub) -> SolverState:
+    """The databases in unscaled coordinates (``untransform!(super_db,
+    scal)``, ``algorithm.jl:952-954``), with the identity as the state's
+    scaler, so that recycling through ``populated_db`` re-transforms the
+    sites."""
+    ones, zeros = torch.ones_like(state.scal.scale), torch.zeros_like(state.scal.offset)
+    groups = tuple(st._replace(db=dbm.rescale(st.db, state.scal.scale, state.scal.offset,
+                                              ones, zeros)) for st in state.groups)
+    return state.replace(groups=groups, scal=scaling.VarScaler(
+        scale=ones, offset=zeros, lb_scaled=lb.expand_as(ones).contiguous(),
+        ub_scaled=ub.expand_as(ones).contiguous()))
+
+
 def optimize(mop, x0, algo_config: Optional[AlgorithmConfig] = None,
-             dtype=torch.float64, device=None, **kwargs) -> OptimizeResult:
+             dtype=torch.float64, device=None, populated_db=None, verbosity: int = 0,
+             **kwargs) -> OptimizeResult:
     """``optimize(mop, x0; ...)`` (``algorithm.jl:919-958``): one run, the
     B=1 case of the batched solver, with the lane axis removed from the
     result. Runs on CUDA unless ``device`` says otherwise. Extra keyword
-    arguments are promoted into the config (``algorithm.jl:198-221``)."""
+    arguments are promoted into the config (``algorithm.jl:198-221``).
+    ``populated_db`` recycles a previous run's databases
+    (:meth:`Solver.initialize`); ``verbosity >= 1`` prints the final
+    report, ``>= 2`` also a line per iteration replayed from the
+    trajectory (``utils/logging.print_report``). With
+    ``untransform_final_database`` the returned databases are in unscaled
+    coordinates and the state's scaler is the identity."""
     if algo_config is None:
         algo_config = AlgorithmConfig(**kwargs)
     elif kwargs:
@@ -1212,10 +1356,17 @@ def optimize(mop, x0, algo_config: Optional[AlgorithmConfig] = None,
     device = resolve_device(device)
     cmop = mop if isinstance(mop, CompiledMOP) else compile_mop(
         mop, algo_config.combine_models)
-    res = Solver(cmop, algo_config, dtype, device).solve(x0)
+    solver = Solver(cmop, algo_config, dtype, device, x0_hint=x0)
+    state, trips = solver.solve_from_state(solver.initialize(x0, populated_db))
+    if algo_config.untransform_final_database:
+        state = untransform_databases(state, solver._lb, solver._ub)
     lane0 = lambda t: t[0]
-    return OptimizeResult(
-        x=res.x[0], fx=res.fx[0], stop_code=res.stop_code[0],
-        n_iterations=res.n_iterations[0], n_evals=res.n_evals[0],
-        state=tree_map(lane0, res.state), trips=res.trips)
-
+    result = OptimizeResult(
+        x=state.x[0], fx=state.fx[0], stop_code=state.stop_code[0],
+        n_iterations=state.iter_counter[0] - 1,
+        n_evals=solver._total_evals(state.groups)[0],
+        state=tree_map(lane0, state), trips=trips)
+    if verbosity >= 1:
+        from morbit_tpu_torch.utils.logging import print_report
+        print_report(result, verbosity=verbosity)
+    return result

@@ -170,3 +170,37 @@ def get_rows(db: Database, idx):
     rows = torch.gather(db.data, 1, safe[..., None].expand(*safe.shape, w))
     rows = torch.where((idx >= 0)[..., None], rows, torch.zeros_like(rows))
     return rows[..., : db.n], rows[..., db.n: db.n + db.m]
+
+
+def compact_to_row(db: Database, idx) -> Database:
+    """Drop all history but row ``idx`` (B,), moved to row 0, per lane: the
+    ``use_db=False`` / ``MockDB`` analogue (``Databases.jl:11-32``). The
+    per-iteration working set still needs a buffer, so the database stays
+    small and is reset to the current iterate's row each iteration;
+    ``idx < 0`` empties a lane's database. Stale rows keep their sites and
+    values with the evaluated flag cleared (validity follows the fill
+    counter)."""
+    cap = db.data.shape[-2]
+    keep = idx >= 0
+    flag = db.n + db.m
+    safe = torch.clamp(idx, 0, cap - 1).long()
+    row = torch.gather(db.data, 1, safe[:, None, None].expand(-1, 1, db.data.shape[-1]))
+    row = row.clone()
+    row[..., flag] = torch.where(keep[:, None], row[..., flag], torch.zeros_like(row[..., flag]))
+    data = db.data.clone()
+    data[:, 1:, flag] = 0.0
+    data[:, :1] = row
+    count = torch.where(keep, torch.ones_like(db.count), torch.zeros_like(db.count))
+    return dataclasses.replace(db, data=data, count=count)
+
+
+def rescale(db: Database, old_scale, old_offset, new_scale, new_offset) -> Database:
+    """Re-transform the stored sites of the valid rows when the variable
+    scaler changes (``transform!``/``untransform!``, ``Databases.jl``,
+    ``algorithm.jl:661-679``); scalers are ``(B, n)`` or ``(n,)``. Rows at
+    or past the fill counter keep their bits."""
+    lane = lambda v: v[..., None, :]
+    X = db.X
+    X_new = (X - lane(old_offset)) / lane(old_scale) * lane(new_scale) + lane(new_offset)
+    X_sel = torch.where(valid_mask(db)[..., None], X_new, X)
+    return dataclasses.replace(db, data=torch.cat([X_sel, db.data[..., db.n:]], dim=-1))

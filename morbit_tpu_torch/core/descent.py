@@ -27,6 +27,7 @@ import torch
 
 from morbit_tpu_torch.ops.geometry import (_crossing_sigmas, intersect_bounds,
                                            local_bounds)
+from morbit_tpu_torch.ops.batched_linalg import lane_matvec
 from morbit_tpu_torch.ops.qp import solve_qp
 
 _EPS64 = 2.0 ** -52
@@ -304,7 +305,7 @@ def normal_step(x, lb, ub, lin: LinearizedConstraints, kappa_delta: float,
     eps = 1e-6 if torch.finfo(dtype).bits <= 32 else 1e-8
     feas_tol = float(10.0 * torch.sqrt(torch.tensor(eps, dtype=dtype)))
     viol = torch.zeros_like(sol.z[:, 0])
-    mv = lambda M, v: (M @ v[..., None])[..., 0]
+    mv = lane_matvec
     if lin.A_eq.shape[-2]:
         viol = torch.maximum(viol, (mv(lin.A_eq, n_step) - lin.b_eq).abs().amax(-1))
     if lin.A_ineq.shape[-2]:

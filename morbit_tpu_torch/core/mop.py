@@ -8,8 +8,11 @@ User functions are plain torch functions of ONE unscaled site ``x (n,) ->
 ``hess`` callback, else ``torch.func.jacfwd(jacrev)``.
 
 Objectives and nonlinear constraints of every model family, box
-constraints and linear equality and inequality rows are ported;
-composites raise ``NotImplementedError``.
+constraints, linear equality and inequality rows and composite functions
+``phi(x, g(x))`` (a cheap known outer ``phi`` over a modelled inner ``g``
+registered with :meth:`MOP.add_function`) are ported. Outer functions are
+plain torch functions of one unscaled site and the inner values, batched
+with ``torch.func.vmap`` and differentiated with ``torch.func.jacfwd``.
 """
 
 from __future__ import annotations
@@ -27,17 +30,20 @@ from morbit_tpu_torch.models.configs import (ExactConfig, RbfConfig,
 OBJECTIVE = "objective"
 NL_EQ = "nl_eq"
 NL_INEQ = "nl_ineq"
-
-_COMPOSITES_LATER = ("composite functions are not ported to morbit_tpu_torch "
-                     "yet: they arrive with ROADMAP queue 1 item 10 "
-                     "(composites, scaling modes and database options)")
+INNER = "inner"  # modelled function used only inside composites
 
 
-def _flat_map(fn, X, out_shape):
-    """Apply a single-site function over all leading axes of ``X``."""
+def _flat_map(fn, X, out_shape, G=None):
+    """Apply a single-site function over all leading axes of ``X`` (and of
+    ``G``, the inner values of a composite, which share them)."""
     lead = X.shape[:-1]
     flat = X.reshape((-1, X.shape[-1]))
-    out = vmap(fn)(flat)
+    if G is None:
+        out = vmap(fn)(flat)
+    else:
+        out = vmap(fn)(flat, G.reshape((-1, G.shape[-1])))
+    if isinstance(out, tuple):
+        return tuple(o.reshape(lead + o.shape[1:]) for o in out)
     return out.reshape(lead + out_shape)
 
 
@@ -96,6 +102,8 @@ class MOP:
                 raise ValueError("lb and ub must have the same shape")
             self.n_vars = self.lb.shape[0]
         self.functions: list[VecFun] = []
+        self.composites: list[CompositeFun] = []
+        self._order: list[tuple] = []  # addition order over fns + composites
         self._A_eq: list[np.ndarray] = []
         self._b_eq: list[np.ndarray] = []
         self._A_ineq: list[np.ndarray] = []
@@ -108,6 +116,7 @@ class MOP:
         self.functions.append(VecFun(fn=fn, n_out=int(n_out), model_cfg=cfg,
                                      role=role, jac=jac, hess=hess,
                                      max_evals=max_evals))
+        self._order.append(("fn", len(self.functions) - 1))
         return len(self.functions) - 1
 
     def add_objective(self, fn, n_out=1, model_cfg=None, jac=None, hess=None,
@@ -139,22 +148,74 @@ class MOP:
         self._A_ineq.append(np.atleast_2d(np.asarray(A, float)))
         self._b_ineq.append(np.atleast_1d(np.asarray(b, float)))
 
-    # -- composite functions: not ported yet
-    def add_function(self, fn, n_out=1, model_cfg=None, jac=None):
-        raise NotImplementedError(_COMPOSITES_LATER)
+    # -- composite functions (``CompositeVecFun``, ``VecFun.jl``): outer
+    #    phi(x, g(x)) over an expensive modelled inner g
+    def add_function(self, fn, n_out=1, model_cfg=None, jac=None, hess=None):
+        """Register an *inner* function: modelled, but not itself an
+        objective or constraint, for use in composites (``_add_function!``
+        and ``RefVecFun`` sharing, ``MOP.jl:84-107``)."""
+        return self._add(fn, n_out, model_cfg, INNER, jac, hess, 2 ** 31 - 1)
+
+    def _add_composite(self, outer, inner_index, n_out, role):
+        if not 0 <= inner_index < len(self.functions):
+            raise ValueError(f"no function {inner_index} to compose")
+        if isinstance(outer, str):
+            outer = outer_fn_from_expr(outer)
+        self.composites.append(CompositeFun(outer=outer, inner_index=int(inner_index),
+                                            n_out=int(n_out), role=role,
+                                            order=len(self._order)))
+        self._order.append(("comp", len(self.composites) - 1))
+        return len(self.composites) - 1
 
     def add_composite_objective(self, outer, inner_index, n_out=1):
-        raise NotImplementedError(_COMPOSITES_LATER)
+        """Objective ``phi(x, g(x))`` with a cheap known ``outer`` and the
+        modelled inner ``g`` (added with :meth:`add_function`). The
+        surrogate is ``phi(x, m_g(x))`` with chain-rule derivatives
+        (``CompositeSurrogate``, ``AbstractSurrogateInterface.jl:193-229``)."""
+        return self._add_composite(outer, inner_index, n_out, OBJECTIVE)
 
     def add_composite_nl_eq_constraint(self, outer, inner_index, n_out=1):
-        raise NotImplementedError(_COMPOSITES_LATER)
+        return self._add_composite(outer, inner_index, n_out, NL_EQ)
 
     def add_composite_nl_ineq_constraint(self, outer, inner_index, n_out=1):
-        raise NotImplementedError(_COMPOSITES_LATER)
+        return self._add_composite(outer, inner_index, n_out, NL_INEQ)
 
     @property
     def num_objectives(self):
-        return sum(f.n_out for f in self.functions if f.role == OBJECTIVE)
+        return (sum(f.n_out for f in self.functions if f.role == OBJECTIVE)
+                + sum(c.n_out for c in self.composites if c.role == OBJECTIVE))
+
+
+def outer_fn_from_expr(expr: str) -> Callable:
+    """An outer function from an expression string over ``x`` and ``g``
+    (the reference's ``outer_fn_from_expr``/``make_outer_fun``)::
+
+        mop.add_composite_objective("x[0] + jnp.sum(g**2)", gidx)
+
+    The expression is evaluated with ``torch`` in scope and ``jnp`` and
+    ``np`` bound to ``torch``, so the JAX package's strings run unchanged;
+    indexing is 0-based.
+
+    .. warning:: Like the reference's ``make_outer_fun``, the string is
+       *executed as code* (a bare ``eval`` with no sandboxing): pass only
+       trusted expressions."""
+    code = compile(expr, "<outer_fn>", "eval")
+
+    def outer(x, g):
+        return eval(code, {"torch": torch, "jnp": torch, "np": torch, "x": x, "g": g})
+
+    return outer
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CompositeFun:
+    """Composite ``phi(x, g(x))``: cheap known outer, modelled inner."""
+
+    outer: Callable      # (x (n,), g_vals (k,)) -> (n_out,)
+    inner_index: int     # index into mop.functions
+    n_out: int
+    role: str
+    order: int
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -190,6 +251,42 @@ class GroupSpec:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class CompositeSpec:
+    """Compiled composite: locates the inner function's outputs."""
+
+    outer: Callable
+    role: str
+    global_offset: int
+    n_out: int
+    group_index: int
+    group_offset: int
+    width: int           # the inner function's n_out
+
+    def _outer_vec(self, x, g):
+        v = self.outer(x, g)
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(v, dtype=x.dtype, device=x.device)
+        return v.to(x.dtype).reshape((self.n_out,))
+
+    def inner(self, group_values):
+        """The inner function's slice of its group's outputs ``(..., m_g)``."""
+        return group_values[..., self.group_offset: self.group_offset + self.width]
+
+    def eval(self, X, G):
+        """``phi`` at unscaled sites ``X (..., n)`` and inner values ``G
+        (..., width)`` -> ``(..., n_out)``."""
+        return _flat_map(self._outer_vec, X, (self.n_out,), G)
+
+    def partials(self, X, G):
+        """``(D_x phi (..., n_out, n), D_g phi (..., n_out, width))`` by
+        forward-mode autodiff, in ``X``'s dtype (``jacfwd`` returns float64
+        partials for an outer that mixes a Python float into float32
+        arithmetic)."""
+        parts = _flat_map(jacfwd(self._outer_vec, argnums=(0, 1)), X, None, G)
+        return tuple(p.to(X.dtype) for p in parts)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class CompiledMOP:
     """Frozen problem (``MOPTyped`` analogue, ``src/MOP.jl:27-82``)."""
 
@@ -204,6 +301,11 @@ class CompiledMOP:
     m_obj: int
     m_ce: int
     m_ci: int
+    composites: tuple = ()  # tuple[CompositeSpec]
+
+    @property
+    def n_groups(self):
+        return len(self.groups)
 
     @property
     def has_nl_constraints(self):
@@ -216,11 +318,14 @@ class CompiledMOP:
     def role_width(self, role: str) -> int:
         return {OBJECTIVE: self.m_obj, NL_EQ: self.m_ce, NL_INEQ: self.m_ci}[role]
 
-    def scatter_role(self, group_values, role: str, axis: int = -1) -> torch.Tensor:
+    def scatter_role(self, group_values, role: str, axis: int = -1,
+                     composite_values=None) -> torch.Tensor:
         """Per-group outputs -> the ``role`` vector (fx, c_e or c_i), along
         ``axis`` of the group outputs (-1 for values ``(..., m_g)``, -2 for
         Jacobians ``(..., m_g, n)``). ``None`` stands for a group without
-        members of the role."""
+        members of the role. ``composite_values``, aligned with
+        :attr:`composites`, holds each composite's outputs ``(..., n_out)``
+        (or Jacobians ``(..., n_out, n)``), ``None`` for another role."""
         parts = [None] * self.role_width(role)
         ref = None
         for g, vals in zip(self.groups, group_values):
@@ -230,6 +335,12 @@ class CompiledMOP:
                 ref = vals
                 for k in range(mb.n_out):
                     parts[mb.global_offset + k] = vals.select(axis, mb.group_offset + k)
+        for cs, vals in zip(self.composites, composite_values or ()):
+            if cs.role != role:
+                continue
+            ref = vals
+            for k in range(cs.n_out):
+                parts[cs.global_offset + k] = vals.select(axis, k)
         if ref is None:
             ref = next(v for v in group_values if v is not None)
             shape = list(ref.shape)
@@ -237,9 +348,19 @@ class CompiledMOP:
             return ref.new_zeros(shape)
         return torch.stack(parts, dim=axis)
 
-    def scatter_role_vectors(self, group_values):
-        """Per-group output vectors ``(..., m_g)`` -> ``(fx, c_e, c_i)``."""
-        return tuple(self.scatter_role(group_values, r) for r in (OBJECTIVE, NL_EQ, NL_INEQ))
+    def composite_values(self, group_values, x):
+        """Each composite's outputs at unscaled sites ``x (..., n)`` from the
+        group outputs at them."""
+        return [cs.eval(x, cs.inner(group_values[cs.group_index]))
+                for cs in self.composites]
+
+    def scatter_role_vectors(self, group_values, x=None):
+        """Per-group output vectors ``(..., m_g)`` -> ``(fx, c_e, c_i)``;
+        ``x`` (unscaled) is needed when composites are present (outer
+        functions take it)."""
+        comp = self.composite_values(group_values, x) if self.composites else None
+        return tuple(self.scatter_role(group_values, r, composite_values=comp)
+                     for r in (OBJECTIVE, NL_EQ, NL_INEQ))
 
 
 def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
@@ -274,11 +395,14 @@ def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
             group_lists.append([i])
             group_cfgs.append(f.model_cfg)
 
-    # offsets inside each role vector, in the order of addition
-    role_offsets = {OBJECTIVE: 0, NL_EQ: 0, NL_INEQ: 0}
-    offsets = {}
-    for i, f in enumerate(mop.functions):
-        offsets[i] = role_offsets[f.role]
+    # offsets inside each role vector, in the combined order of addition
+    # over functions and composites
+    role_offsets = {OBJECTIVE: 0, NL_EQ: 0, NL_INEQ: 0, INNER: 0}
+    offsets, comp_offsets = {}, {}
+    order = mop._order or [("fn", i) for i in range(len(mop.functions))]
+    for kind, i in order:
+        f = mop.functions[i] if kind == "fn" else mop.composites[i]
+        (offsets if kind == "fn" else comp_offsets)[i] = role_offsets[f.role]
         role_offsets[f.role] += f.n_out
 
     groups, location = [], {}
@@ -307,6 +431,19 @@ def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
             max_evals=min(g.max_evals, f.max_evals, f.model_cfg.max_evals),
             has_objective=g.has_objective or f.role == OBJECTIVE)
 
+    # each composite finds its inner function through the canonical slot of
+    # a duplicate registration; a group feeding a composite objective counts
+    # toward the evaluation budget
+    composites = []
+    for ci, c in enumerate(mop.composites):
+        gi, goff = location[canonical[c.inner_index]]
+        composites.append(CompositeSpec(
+            outer=c.outer, role=c.role, global_offset=comp_offsets[ci], n_out=c.n_out,
+            group_index=gi, group_offset=goff,
+            width=mop.functions[c.inner_index].n_out))
+        if c.role == OBJECTIVE and not groups[gi].has_objective:
+            groups[gi] = dataclasses.replace(groups[gi], has_objective=True)
+
     n = mop.n_vars
     rows = lambda A: np.vstack(A) if A else np.zeros((0, n))
     rhs = lambda b: np.concatenate(b) if b else np.zeros((0,))
@@ -315,4 +452,5 @@ def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
         A_eq=rows(mop._A_eq), b_eq=rhs(mop._b_eq),
         A_ineq=rows(mop._A_ineq), b_ineq=rhs(mop._b_ineq),
         groups=tuple(groups), m_obj=role_offsets[OBJECTIVE],
-        m_ce=role_offsets[NL_EQ], m_ci=role_offsets[NL_INEQ])
+        m_ce=role_offsets[NL_EQ], m_ci=role_offsets[NL_INEQ],
+        composites=tuple(composites))

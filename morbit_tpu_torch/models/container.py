@@ -9,7 +9,9 @@ c_i (nonlinear equality and inequality constraints). Each group carries an
 count on *model* evaluation, because their model is the counted function.
 An RBF group whose geometry signature equals an earlier RBF group's takes
 that group's rounds-1-3 training set (``_exploit_other_rbf_metas!``,
-``RbfModel.jl:311-342``).
+``RbfModel.jl:311-342``). A composite ``phi(x, g(x))`` takes its value
+``phi(untransform(x_s), m_g(x_s))`` from its inner group's model and its
+Jacobian by the chain rule ``D_x phi diag(1/scale) + D_g phi J_m``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,17 @@ from morbit_tpu_torch.models.lagrange import LagrangeOps
 from morbit_tpu_torch.models.rbf_model import RbfOps
 from morbit_tpu_torch.models.taylor import TaylorOps
 from morbit_tpu_torch.utils.tree import tree_where
+
+
+def chain_rule(d_x, d_g, J_inner):
+    """``d_x + d_g @ J_inner`` for (..., n_out, n), (..., n_out, w) and
+    (..., w, n), the product's terms added in index order, one rounding
+    per operation: unlike a batched matrix product, the same bits at every
+    batch width and on every device."""
+    acc = d_x
+    for k in range(d_g.shape[-1]):
+        acc = acc + d_g[..., k:k + 1] * J_inner[..., k:k + 1, :]
+    return acc
 
 
 class GroupState(NamedTuple):
@@ -92,7 +105,7 @@ class SurrogateContainer:
             vals.append(v)
             x_indices.append(idx)
             new_states.append(st._replace(db=db, n_evals=st.n_evals + 1))
-        return (*self.mop.scatter_role_vectors(vals), tuple(new_states),
+        return (*self.mop.scatter_role_vectors(vals, x), tuple(new_states),
                 torch.stack(x_indices, dim=-1))
 
     def ensure_evaluated(self, states, x_s, scal):
@@ -117,7 +130,7 @@ class SurrogateContainer:
             x_indices.append(idx)
             new_states.append(st._replace(
                 db=db, n_evals=st.n_evals + (~found).to(torch.int32)))
-        return (*self.mop.scatter_role_vectors(vals), tuple(new_states),
+        return (*self.mop.scatter_role_vectors(vals, x), tuple(new_states),
                 torch.stack(x_indices, dim=-1))
 
     # ------------------------------------------------------------ model update
@@ -186,26 +199,50 @@ class SurrogateContainer:
     # ------------------------------------------------------------- model evals
     def _gather(self, states, x_s, which, role, scal, counted=True):
         """Evaluate (``which='eval'``) or differentiate (``'jac'``) the
-        models of the groups serving ``role`` and scatter them into the role
-        vector; a counted evaluation bumps those groups' counters where the
-        model is the true function. Returns (values, states)."""
-        out, new_states = [], list(states)
+        models of the groups serving ``role``, directly or through a
+        composite, and scatter them into the role vector; a counted
+        evaluation bumps those groups' counters where the model is the true
+        function. Returns (values, states)."""
+        comps = [cs for cs in self.mop.composites if cs.role == role]
+        comp_groups = {cs.group_index for cs in comps}
+        out, vals, new_states = [], {}, list(states)
         for i, (g, ops, st) in enumerate(zip(self.mop.groups, self.ops, states)):
-            if not any(mb.role == role for mb in g.members):
+            if not any(mb.role == role for mb in g.members) and i not in comp_groups:
                 out.append(None)
                 continue
+            if which == "eval" or i in comp_groups:
+                vals[i] = ops.eval(st.model, x_s, scal)
             if which == "eval":
                 if ops.counts_on_eval and counted:
                     new_states[i] = st._replace(n_evals=st.n_evals + 1)
-                out.append(ops.eval(st.model, x_s, scal))
+                out.append(vals[i])
             else:
                 out.append(ops.jac(st.model, x_s, scal))
-        if all(v is None for v in out):
+        comp_out = None
+        if comps:
+            sc = broadcast_scaler(scal, x_s)
+            x = scaling.untransform(sc, x_s)
+            comp_out = []
+            for cs in self.mop.composites:
+                if cs.role != role:
+                    comp_out.append(None)
+                    continue
+                inner = cs.inner(vals[cs.group_index])
+                if which == "eval":
+                    comp_out.append(cs.eval(x, inner))
+                    continue
+                # the chain rule of ``CompositeSurrogate``
+                # (``AbstractSurrogateInterface.jl:193-229``)
+                d_x, d_g = cs.partials(x, inner)
+                J_m = out[cs.group_index][..., cs.group_offset:cs.group_offset + cs.width, :]
+                comp_out.append(chain_rule(d_x / sc.scale[..., None, :], d_g, J_m))
+        if all(v is None for v in out) and comp_out is None:
             B, n = x_s.shape[0], self.mop.n_vars
             shape = (B, 0) if which == "eval" else (B, 0, n)
             return x_s.new_zeros(shape), tuple(new_states)
         axis = -1 if which == "eval" else -2
-        return self.mop.scatter_role(out, role, axis), tuple(new_states)
+        return (self.mop.scatter_role(out, role, axis, composite_values=comp_out),
+                tuple(new_states))
 
     def eval_objectives(self, states, x_s, scal):
         """Model objective values at one site per lane, counted
@@ -258,6 +295,17 @@ class SurrogateContainer:
     def jac_nl_ineq(self, states, x_s, scal):
         """(B, m_ci, n) model Jacobians of the inequality constraints."""
         return self._gather(states, x_s, "jac", NL_INEQ, scal)[0]
+
+    def jac_all(self, states, x_s, scal):
+        """(B, m_obj + m_ce + m_ci, n) model Jacobians of every function,
+        objectives then nonlinear constraints: the input of the ``'model'``
+        scaler update (``new_var_scaler``, ``VarScaler.jl:240-260``)."""
+        parts = [self.jac_objectives(states, x_s, scal)]
+        if self.mop.m_ce > 0:
+            parts.append(self.jac_nl_eq(states, x_s, scal))
+        if self.mop.m_ci > 0:
+            parts.append(self.jac_nl_ineq(states, x_s, scal))
+        return torch.cat(parts, dim=-2)
 
     # ------------------------------------------------- model-meta provenance
     @property

@@ -19,6 +19,23 @@ BLOCKED_GJ_MAX_K = 512
 GJ_PANEL = 16
 
 
+def lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over a leading lane axis. Below float64 the products are
+    summed in float64 and rounded once: a batched matrix product's
+    summation order depends on the algorithm cuBLAS picks for the batch
+    size, so a float32 result would otherwise change in its last bits with
+    the number of lanes (a staged runner's compacted width) and move a
+    tied or ill-conditioned decision of its lane."""
+    if a.dtype == torch.float64:
+        return a @ b
+    return (a.double() @ b.double()).to(a.dtype)
+
+
+def lane_matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M (..., k, n) @ v (..., n)`` by :func:`lane_matmul`."""
+    return lane_matmul(M, v[..., None])[..., 0]
+
+
 def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``A x = b`` by Gauss-Jordan elimination with partial pivoting.
 

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from morbit_tpu_torch.ops import qp_lane
-from morbit_tpu_torch.ops.batched_linalg import GJ_MAX_K, gj_inverse
+from morbit_tpu_torch.ops.batched_linalg import GJ_MAX_K, gj_inverse, lane_matvec
 
 
 class QPSolution(NamedTuple):
@@ -35,8 +35,7 @@ def _is_f32(dtype) -> bool:
     return torch.finfo(dtype).bits <= 32
 
 
-def _mv(M, v):
-    return (M @ v[..., None])[..., 0]
+_mv = lane_matvec
 
 
 def _rho_vec(l, u, rho: float):

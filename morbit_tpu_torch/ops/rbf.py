@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from morbit_tpu_torch.ops.batched_linalg import GJ_MAX_K, solve_small
+from morbit_tpu_torch.ops.batched_linalg import GJ_MAX_K, lane_matmul, solve_small
 
 RBF_KERNELS = ("cubic", "multiquadric", "inv_multiquadric", "gaussian",
                "thin_plate_spline")
@@ -212,7 +212,7 @@ def fit_rbf(sites, values, mask, kernel: str = "cubic", param=None,
 
     K = kkt(reg)
     sol = solve_small(K, rhs)
-    resid = ((K @ sol - rhs).abs().amax((-1, -2))
+    resid = ((lane_matmul(K, sol) - rhs).abs().amax((-1, -2))
              / (rhs.abs().amax((-1, -2)) + 1.0))
     eps = torch.finfo(dtype).eps
     tol = 1e2 * torch.sqrt(torch.tensor(eps, dtype=dtype))
@@ -254,9 +254,9 @@ def eval_rbf(fit: RbfFit, X: torch.Tensor, kernel: str, poly_deg: int,
     Xf, _, r2 = _sites_axes(fit, X)
     phi = apply_kernel(kernel, r2, _eval_param(fit, kernel, param))
     phi = torch.where(fit.mask[:, None, :], phi, torch.zeros_like(phi))
-    out = phi @ fit.w                                    # (B, K, m)
+    out = lane_matmul(phi, fit.w)                      # (B, K, m)
     if fit.lam.shape[-2] > 0:
-        out = out + poly_basis(Xf, poly_deg) @ fit.lam
+        out = out + lane_matmul(poly_basis(Xf, poly_deg), fit.lam)
     return out.reshape(X.shape[:-1] + (fit.w.shape[-1],))
 
 
@@ -268,7 +268,7 @@ def rbf_jacobian(fit: RbfFit, x: torch.Tensor, kernel: str, poly_deg: int,
     dphi = torch.where(fit.mask[:, None, :], dphi, torch.zeros_like(dphi))
     # d phi(|s_i - x|^2) / dx = -2 phi'(r2_i) (s_i - x)
     grad_phi = -2.0 * dphi[..., None] * d                # (B, 1, P, n)
-    J = torch.einsum("bpm,bpn->bmn", fit.w, grad_phi[:, 0])
+    J = lane_matmul(fit.w.transpose(-1, -2), grad_phi[:, 0])
     if poly_deg == 1:
         J = J + fit.lam[:, 1:, :].transpose(-1, -2)
     return J

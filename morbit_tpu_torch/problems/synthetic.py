@@ -2,7 +2,8 @@
 
 Counterpart of ``morbit_tpu/problems/synthetic.py``: the ZDT suite (ZDT1-4
 and 6; ZDT5 is binary-coded and has no box domain), DTLZ1, 2 and 6, the two
-parabolas (also under the constrained configuration), the analytic ZDT
+parabolas (also under the constrained configuration), the composite
+problem of ``examples/composites.py``, the analytic ZDT
 fronts and the Halton starts. The objectives
 are torch functions of one site ``x (n,)``; the port's ``MOP`` batches and
 differentiates them. The Halton sequence is computed the same way as in
@@ -198,6 +199,24 @@ def make_constrained_two_parabolas(model_cfg=None, lb=(-4.0, -4.0),
 _PRIMES = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59,
            61, 67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127,
            131, 137, 139, 149, 151, 157, 163, 167, 173]  # covers n <= 40
+
+
+def _composite_inner(x):
+    """g(x) = (||x - a||^2, ||x + a||^2) with a = (1, ..., 1)."""
+    return torch.stack([torch.sum((x - 1.0) ** 2), torch.sum((x + 1.0) ** 2)])
+
+
+def make_composite(model_cfg=None, lb=(-4.0, -4.0), ub=(4.0, 4.0)) -> MOP:
+    """The composite walkthrough ``examples/composites.py``: one expensive
+    inner function g (``_composite_inner``) modelled once (``model_cfg``),
+    the composite objectives g0 and g1 + 0.1 x0 and the composite
+    constraint g0 - 9 <= 0, all over g; on [-4, 4]^2 by default."""
+    mop = MOP(list(lb), list(ub))
+    g = mop.add_function(_composite_inner, n_out=2, model_cfg=model_cfg)
+    mop.add_composite_objective(lambda x, v: v[0], g)
+    mop.add_composite_objective(lambda x, v: v[1] + 0.1 * x[0], g)
+    mop.add_composite_nl_ineq_constraint(lambda x, v: v[0] - 9.0, g)
+    return mop
 
 
 def halton(count: int, dim: int, start_index: int = 1) -> np.ndarray:

@@ -30,9 +30,15 @@ time and the operators with the most host time. The models:
   ``rbf`` group with Pascoletti-Serafini descent (``chip_smoke.py``
   ``taylor_main_path`` and its siblings), run by the plain runner. A
   Lagrange trip launches ~25,000 kernels, so that profile covers trips 1-5,
-  as ``zdt20``'s covers 10-14; the line adds the ascent steps.
+  as ``zdt20``'s covers 10-14; the line adds the ascent steps;
+* ``composite``: ``examples/composites.py``'s problem
+  (``make_composite``: one cubic RBF group models g, the composite
+  objectives g0 and g1 + 0.1 x0 and the composite constraint g0 - 9 <= 0),
+  ``scaler_model``: the ``rbf`` model with ``var_scaler_update='model'``,
+  ``no_db``: the ``rbf`` model with ``use_db=False`` (``chip_smoke.py``
+  ``composite_main_path`` and its siblings), each run by the plain runner.
 
-    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps]
+    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps|composite|scaler_model|no_db]
 
 Needs a CUDA card.
 """
@@ -71,7 +77,8 @@ def boundary_kernels(runner, x0) -> int:
 def main(argv=None) -> int:
     args = argparse.ArgumentParser()
     args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged", "constrained",
-                                          "taylor", "lagrange", "ps"), default="rbf")
+                                          "taylor", "lagrange", "ps", "composite",
+                                          "scaler_model", "no_db"), default="rbf")
     model = args.parse_args(argv).model
     B, window = 1024, 5
     #: the trips a windowed profile skips before its window
@@ -85,7 +92,7 @@ def main(argv=None) -> int:
     from morbit_tpu_torch.core.descent import PascolettiSerafiniConfig
     from morbit_tpu_torch.models.configs import LagrangeConfig, RbfConfig, TaylorConfig
     from morbit_tpu_torch.ops import boxopt
-    from morbit_tpu_torch.problems.synthetic import (halton_starts,
+    from morbit_tpu_torch.problems.synthetic import (halton_starts, make_composite,
                                                      make_constrained_two_parabolas,
                                                      make_two_parabolas, make_zdt)
 
@@ -93,13 +100,18 @@ def main(argv=None) -> int:
         mop = make_zdt("zdt1", 20, model_cfg=RbfConfig(kernel="cubic"))
         ac = AlgorithmConfig(max_iter=100, max_evals=20000, delta_0=0.1, delta_max=0.5,
                              f_tol_rel=1e-3, x_tol_rel=1e-3, qp_iters=400)
+    elif model == "composite":
+        mop = make_composite(RbfConfig(kernel="cubic"))
+        ac = AlgorithmConfig(max_iter=100, qp_iters=400)
     else:
         cfg = {"exact": None, "taylor": TaylorConfig(degree=2, mode="fd"),
                "lagrange": LagrangeConfig(degree=2)}.get(model, RbfConfig(kernel="multiquadric"))
         make = make_constrained_two_parabolas if model == "constrained" else make_two_parabolas
         mop = make(cfg, lb=[-4.0, -4.0], ub=[4.0, 4.0])
         ac = AlgorithmConfig(max_iter=100, qp_iters=400, descent_method=(
-            PascolettiSerafiniConfig() if model == "ps" else "steepest_descent"))
+            PascolettiSerafiniConfig() if model == "ps" else "steepest_descent"),
+            var_scaler_update="model" if model == "scaler_model" else "none",
+            use_db=model != "no_db")
     starts = [torch.as_tensor(halton_starts(B, mop.lb, mop.ub, 1 + k * B),
                               dtype=torch.float32, device="cuda") for k in range(2)]
     extra = {}
@@ -135,7 +147,7 @@ def main(argv=None) -> int:
             extra = dict(schedule=[t for t, _ in runner.schedule],
                          widths=list(runner.widths), db_capacity=runner.solver.db_capacity,
                          boundary_kernels=boundary_kernels(runner, starts[0]))
-        elif model == "constrained":
+        elif model in ("constrained", "composite"):
             from morbit_tpu_torch.parallel.multistart import build_solver
 
             solver = build_solver(mop, ac, torch.float32)
@@ -143,7 +155,7 @@ def main(argv=None) -> int:
         else:
             run = lambda x: multistart_optimize(mop, x, ac, dtype=torch.float32)
         run(starts[0])
-        if model == "constrained":
+        if model in ("constrained", "composite"):
             solver.restoration_iterations = 0
         torch.cuda.synchronize()
         boxopt.ascent_steps = 0
@@ -154,7 +166,7 @@ def main(argv=None) -> int:
             wall_s = time.perf_counter() - t0
         trips = res.trips
         extra["stage_trips"] = list(res.stage_trips)
-        if model == "constrained":
+        if model in ("constrained", "composite"):
             extra["restoration_iterations"] = solver.restoration_iterations
 
     extra["ascent_steps"] = boxopt.ascent_steps

@@ -20,7 +20,9 @@ The port imports nothing of the JAX package, so both cross as plain data:
   ``idx``, ``lb``, ``ub``, ``fully_linear`` (the JAX states' own fields). A
   state without a lane axis (one ``optimize`` run) gets one. The filter
   crosses with its entries (a dummy filter has capacity 0). The PRNG key of
-  the JAX state is not carried.
+  the JAX state is not carried. States of runs with composites (an inner
+  function's group is an ordinary group) and with the ``'model'`` scaler
+  update (each lane's scaler is a leaf) cross as they are.
 
 :func:`state_to_numpy` produces the same dict from the port's state, so two
 states compare leaf by leaf.

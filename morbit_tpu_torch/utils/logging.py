@@ -1,11 +1,29 @@
-"""Host-side views of a finished run.
+"""Host-side views of a finished run: the trajectory arrays, the final
+report and the per-function evaluation counts.
 
-Counterpart of ``trajectory_arrays`` in ``morbit_tpu/utils/logging.py``.
+Counterpart of ``morbit_tpu/utils/logging.py``. The reference prints
+per-iteration banners and a final report through its custom log levels
+(``src/custom_logging.jl:18-66``, ``algorithm.jl:651-659``, ``:890-897``,
+``_fin_info_str`` ``:114-129``); here every iteration stamps its record
+into the trajectory buffer and :func:`print_report` renders it after the
+run, with the JAX package's text. Each function takes an ``optimize``
+result, or one lane of a batched result with ``lane``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from morbit_tpu_torch.core.enums import ITER_TYPE, STOP_CODE
+
+
+def _host(t):
+    return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+
+def _lane_view(lane):
+    """A leaf, or its lane ``lane``, as a numpy array on the host."""
+    return (lambda t: _host(t)) if lane is None else (lambda t: _host(t[lane]))
 
 
 def trajectory_arrays(result, lane: int | None = None):
@@ -14,9 +32,9 @@ def trajectory_arrays(result, lane: int | None = None):
     selects one run of a batched result; a single optimize() result needs
     none."""
     traj = result.state.traj
-    view = (lambda t: t) if lane is None else (lambda t: t[lane])
+    view = _lane_view(lane)
     c = int(view(traj.count))
-    host = lambda t: np.asarray(view(t).detach().cpu())[:c]
+    host = lambda t: view(t)[:c]
     return {
         "x": host(traj.x),
         "fx": host(traj.fx),
@@ -29,3 +47,73 @@ def trajectory_arrays(result, lane: int | None = None):
         # (``IterDataIterSaveable.jl:189-205``)
         "x_indices": host(traj.x_indices),
     }
+
+
+def _fmt_vec(v, n=5):
+    v = np.asarray(v).ravel()
+    body = ", ".join(f"{x:.5f}" for x in v[:n])
+    return "[" + body + (", …" if v.size > n else "") + "]"
+
+
+def print_report(result, verbosity: int = 1, out=print, lane: int | None = None):
+    """The final report, with a line per stamped iteration at
+    ``verbosity >= 2``."""
+    view = _lane_view(lane)
+    if verbosity >= 2:
+        tr = trajectory_arrays(result, lane)
+        for i in range(tr["it_stat"].shape[0]):
+            stat = ITER_TYPE(int(tr["it_stat"][i])).name
+            out(f"| iter {i:3d}  {stat:<14s} x={_fmt_vec(tr['x'][i])} "
+                f"Δ={float(tr['delta'][i]):.3e} ω={float(tr['omega'][i]):.3e} "
+                f"ρ={float(tr['rho'][i]):.3e} "
+                f"‖s‖={float(tr['steplength'][i]):.3e}")
+    code = STOP_CODE(int(view(result.stop_code))).name
+    out("|--------------------------------------------")
+    out(f"| FINISHED ({code})")
+    out("|--------------------------------------------")
+    out(f"| Stopped in iteration:  {int(view(result.n_iterations))}")
+    out(f"| No. evaluations: {int(view(result.n_evals))}")
+    out("| final unscaled vectors:")
+    out(f"| iterate: {_fmt_vec(view(result.x), 10)}")
+    out(f"| value:   {_fmt_vec(view(result.fx), 10)}")
+    for line in overflow_warnings(result.state, lane):
+        out(f"| WARNING: {line}")
+
+
+def overflow_warnings(state, lane: int | None = None):
+    """Capacity-overflow warnings for a solver state (empty if none). The
+    reference's database and filter are unbounded; the port's
+    fixed-capacity buffers raise sticky overflow flags instead of dropping
+    writes silently."""
+    view = _lane_view(lane)
+    lines = []
+    for gi, g in enumerate(state.groups):
+        if bool(np.any(view(g.db.overflow))):
+            lines.append(
+                f"group {gi} database overflowed its capacity "
+                f"({g.db.data.shape[-2]} rows): model training sets are "
+                "missing dropped points — raise db_capacity / use the "
+                "auto heuristic")
+    if bool(np.any(view(state.filter.overflow))):
+        lines.append(
+            f"filter overflowed its capacity "
+            f"({state.filter.theta.shape[-1]} rows): acceptability tests "
+            "are weaker than the reference's unbounded filter — raise "
+            "filter_capacity / use the auto (max_iter + 2) default")
+    return lines
+
+
+def function_eval_counts(result, cmop, lane: int | None = None):
+    """True-evaluation counts per function (the ``CountedFunc`` view,
+    ``src/globals.jl:74-112``): each member function reports its group's
+    counter (one vector call evaluates every member), duplicate
+    registrations the shared one. A list indexed like ``mop.functions``."""
+    view = _lane_view(lane)
+    groups = result.state.groups if hasattr(result, "state") else result
+    counts = {}
+    for g in cmop.groups:
+        n = int(view(groups[g.index].n_evals))
+        for mb in g.members:
+            counts[mb.fn_index] = n
+    n_fns = max(counts, default=-1) + 1
+    return [counts.get(i, 0) for i in range(n_fns)]

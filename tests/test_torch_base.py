@@ -144,8 +144,33 @@ def test_scaling_matches_jax(mode, finite):
 
 
 def test_scaling_auto_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tscal.get_var_scaler(_t([-1.0]), _t([1.0]), "auto")
+    """Once unported, ``var_scaler='auto'`` now matches the JAX package: on
+    a finite box (and in the runners, which pass no start) it is the
+    unit-cube scaler, and with an unbounded box ``Solver`` estimates it from
+    the groups' Jacobians at the start perturbed by ``default_rng(1234)``
+    (JAX ``algorithm.py:295-304``), within 1e-12."""
+    import morbit_tpu.core.algorithm as jalg
+    from morbit_tpu.core.config import AlgorithmConfig as JaxConfig
+    from morbit_tpu.core.mop import compile_mop as jax_compile_mop
+    from morbit_tpu_torch.core.algorithm import Solver
+    from morbit_tpu_torch.core.mop import compile_mop
+
+    lb, ub = [-1.0, 0.0], [1.0, 3.0]
+    ps = tscal.get_var_scaler(_t(lb), _t(ub), "auto")
+    js = jscal.get_var_scaler(np.asarray(lb), np.asarray(ub), "auto")
+    for f in tscal.VarScaler._fields:
+        _close(getattr(ps, f), getattr(js, f))
+    x0 = [0.5, -2.0]
+    port = Solver(compile_mop(tsyn.make_two_parabolas()), mt.AlgorithmConfig(var_scaler="auto"),
+                  torch.float64, "cpu", x0_hint=x0)
+    ref = jalg.Solver(jax_compile_mop(jsyn.make_two_parabolas()),
+                      JaxConfig(var_scaler="auto"), jnp.float64, x0_hint=np.asarray(x0))
+    for f in tscal.VarScaler._fields:
+        _close(getattr(port.scal, f), getattr(ref.scal, f))
+    assert not np.allclose(port.scal.scale.numpy(), 1.0)
+    no_hint = Solver(compile_mop(tsyn.make_two_parabolas()),
+                     mt.AlgorithmConfig(var_scaler="auto"), torch.float64, "cpu")
+    np.testing.assert_array_equal(no_hint.scal.scale.numpy(), 1.0)
 
 
 @pytest.mark.parametrize("k", [3, 5, 9])
@@ -162,6 +187,26 @@ def test_batched_linalg_matches_jax(k):
     _close(L_p, jax.vmap(jla.chol_factor)(S))
     _close(tla.chol_solve(L_p, _t(rhs)),
            jax.vmap(jla.chol_solve)(jax.vmap(jla.chol_factor)(S), rhs))
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 2), (9, 9, 1)])
+def test_lane_matmul_is_batch_width_invariant(shape):
+    """A float32 lane's product is the float64 product rounded once, the
+    same bits at widths 1, 32 and 1024: a batched matrix product's order of
+    summation depends on the algorithm picked for the batch size, which
+    moved a lane of a compacted staged run on the card (ROADMAP 3.10)."""
+    rng = np.random.default_rng(4)
+    r, k, c = shape
+    a = torch.as_tensor(rng.normal(size=(1024, r, k)), dtype=torch.float32)
+    b = torch.as_tensor(rng.normal(size=(1024, k, c)), dtype=torch.float32)
+    ref = (a.double() @ b.double()).float()
+    for w in (1, 32, 1024):
+        assert torch.equal(tla.lane_matmul(a[:w], b[:w]), ref[:w])
+    v = b[..., 0]
+    assert torch.equal(tla.lane_matvec(a[:, :, :k], v), ref[..., 0] if c == 1 else
+                       (a.double() @ v.double()[..., None])[..., 0].float())
+    a64 = a.double()
+    assert torch.equal(tla.lane_matmul(a64, b.double()), a64 @ b.double())
 
 
 def test_chol_factor_breakdown_gives_nan():
@@ -270,13 +315,14 @@ def test_solver_restores_tf32_flags_when_an_objective_raises(tf32_on):
 @pytest.mark.parametrize("cfg", [RbfConfig(use_max_points=True),
                                  JaxTaylorConfig(), JaxLagrangeConfig()])
 def test_unported_models_raise(cfg):
-    """``RbfConfig(use_max_points=True)`` and composites still raise, naming
-    their ROADMAP queue 1 item; Taylor and Lagrange models are ported: the
-    port's own config with the JAX config's fields and defaults builds and
-    solves one iteration."""
+    """``RbfConfig(use_max_points=True)`` still raises, naming ROADMAP queue
+    1 item 11; Taylor and Lagrange models are ported: the port's own config
+    with the JAX config's fields and defaults builds and solves one
+    iteration; composites are ported: a composite objective over an inner
+    function compiles and solves one iteration."""
     mop = mt.MOP([-1.0], [1.0])
     if isinstance(cfg, RbfConfig):
-        with pytest.raises(NotImplementedError, match=r"not ported[\s\S]*queue 1 item"):
+        with pytest.raises(NotImplementedError, match=r"not ported[\s\S]*queue 1 item 11"):
             mop.add_objective(lambda x: x.sum(), model_cfg=cfg)
     else:
         port_cfg = {JaxTaylorConfig: TaylorConfig, JaxLagrangeConfig: LagrangeConfig}[
@@ -286,16 +332,27 @@ def test_unported_models_raise(cfg):
         mop.add_objective(lambda x: (x ** 2).sum(), model_cfg=port_cfg)
         res = mt.optimize(mop, [0.5], max_iter=1, device="cpu")
         assert int(res.n_iterations) == 1 and torch.isfinite(res.x).all()
-    # constraints are ported; composites raise, naming their queue item
+    # constraints and composites are ported
     mop.add_ineq_constraint([[1.0]], [0.5])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mop.add_composite_objective(lambda x, g: g.sum(), 0)
+    g = mop.add_function(lambda x: (x - 0.25) ** 2, model_cfg=RbfConfig(kernel="cubic"))
+    mop.add_composite_objective(lambda x, v: v.sum() + x[0], g)
+    res = mt.optimize(mop, [0.5], max_iter=1, device="cpu")
+    assert int(res.n_iterations) == 1 and torch.isfinite(res.fx).all()
+    assert res.fx.shape[-1] == mop.num_objectives
     # the RBF config carries the JAX package's fields and defaults
     ref = dataclasses.asdict(JaxRbfConfig())
     port = dataclasses.asdict(RbfConfig())
     assert list(port) == list(ref)
     assert {k: v for k, v in port.items() if k != "shape_parameter"} == {
         k: v for k, v in ref.items() if k != "shape_parameter"}
+
+
+def test_qp_exit_eps_still_raises():
+    """``AlgorithmConfig.qp_exit_eps`` (the QP's early exit) is not ported:
+    a solver raises, naming ROADMAP queue 1 item 11."""
+    with pytest.raises(NotImplementedError, match="qp_exit_eps[\\s\\S]*queue 1 item 11"):
+        build_solver(tsyn.make_two_parabolas(), mt.AlgorithmConfig(qp_exit_eps=1e-6),
+                     torch.float64, "cpu")
 
 
 @pytest.mark.parametrize("window", [None, 2])

@@ -330,3 +330,18 @@ def test_family_card_matches_cpu(cuda, kind):
     ac = family_config(kind, max_iter=6, qp_iters=QP_ITERS)
     trips, _, _, parted, _ = lockstep(lambda: family_mop(kind), halton_starts(4, LB, UB), ac)
     assert trips >= 6 and parted == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["composite", "scaler_model", "no_db"])
+def test_option_card_matches_cpu(cuda, kind):
+    """The composite, 'model'-scaler and no-database paths of
+    ``chip_smoke.OPTION_KINDS`` at float64, B=4 Halton starts, max_iter=6:
+    every trip on the card from the CPU's state equals the CPU's trip
+    (``chip_smoke.lockstep``), and no lane parts."""
+    from chip_smoke import LB, QP_ITERS, UB, family_config, family_mop, lockstep
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    ac = family_config(kind, max_iter=6, qp_iters=QP_ITERS)
+    trips, _, _, parted, _ = lockstep(lambda: family_mop(kind), halton_starts(4, LB, UB), ac)
+    assert trips >= 6 and parted == []
