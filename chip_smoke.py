@@ -126,11 +126,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``var_scaler='auto'`` without a box, and a checkpoint saved after three
     trips and resumed, equal to the uninterrupted solve to the bit; the
     card's runs equal the CPU's.
+14. ``host_main_path``, ``exit_eps_main_path``, ``max_points_main_path`` —
+    phase 12's protocol on the main path with both objectives as NumPy
+    functions (``host=True, can_batch=True``, one multiquadric group: host
+    round trips a trip, rows a round trip, the seconds inside the user's
+    functions; the rows passed equal the group's counters; the plain batch
+    equal lane by lane to the torch functions' run, x and fx reported to
+    the bit, and to a ``can_batch=False`` batch), with
+    ``qp_exit_eps=EXIT_EPS`` (K1's stages per lane; K1's exit instance
+    recorded at (3, 6)) and with ``RbfConfig(use_max_points=True)`` and
+    ``use_db=False`` (56 rows and 60 random candidates: K3 recorded at
+    C = 116). ``kernel_admm_exit`` holds K1's exit instance against its
+    twin (``phase_kernel_admm_exit``). ``host_card_vs_cpu``,
+    ``exit_eps_card_vs_cpu``, ``max_points_card_vs_cpu`` — phase 12's
+    lockstep on these paths.
 
 Then the card's name and power limit, one JSON line with the kernel table
 (K1-K3 also with the staged main path's launches at each budget, the
-``routing`` times, the launches of the paths of phases 12 and 13 and the
-rows of the inputs the paths of phase 13 recorded), the
+``routing`` times, the launches of the paths of phases 12-14, the rows of
+the inputs the paths of phases 13-14 recorded and K1's exit instance), the
 script's total seconds, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any result. Imports nothing of JAX.
 """
@@ -831,6 +845,173 @@ def phase_kernel_admm(wide_captured, constrained_captured, option_captured):
     return rows[("descent", 3, torch.float32)], wide[-1], constrained, options
 
 
+def ten_ulps(A, seed):
+    """``A`` with each entry moved by about ten ulps (``one_ulp`` scaled)."""
+    g = torch.Generator(device=A.device).manual_seed(seed)
+    return A * (1 + 10 * torch.finfo(A.dtype).eps
+                * torch.randn(A.shape, generator=g, device=A.device, dtype=A.dtype))
+
+
+#: the rounding allowance of ``exit_straddles``, in units of the dtype's
+#: eps times the magnitude of the residuals' terms
+STRADDLE_ULPS = 16
+
+
+def exit_straddles(args, kw, k_stages, t_stages, lanes, report=None):
+    """(B,) bool: the lanes of ``lanes`` where kernel and twin stopped at
+    different stages because each followed its own residual: at the first
+    stage s where only one of them stops, the exit tolerance lies between
+    the kernel's and the twin's residual max(pr, dr) after s fixed-trip
+    stages, recomputed in float64 from their (z, zz, y), up to the rounding
+    of a residual in the run's dtype (STRADDLE_ULPS eps times the largest
+    magnitude of its terms, |A||z| + |zz| and |P||z| + |q| + |A'||y|). At
+    float32 the kernel and its twin round differently (an explicit M^-1
+    against a Cholesky solve; ``kernel_admm`` holds their z to 2e-3), so a
+    lane whose residual is within rounding of the tolerance may stop a
+    stage apart. ``report`` (a list) gets each tested lane's residuals."""
+    from morbit_tpu_torch.ops import qp_lane
+
+    P, q, A, lo, hi, rho0 = args
+    fixed = {x: kw[x] for x in kw if x != "exit_eps"}
+    eps = kw["exit_eps"]
+    ulp = STRADDLE_ULPS * torch.finfo(q.dtype).eps
+    s_min = torch.minimum(k_stages, t_stages)
+    out = torch.zeros_like(lanes)
+    d = lambda t: t.double()
+    mv = lambda M, v: torch.einsum("bij,bj->bi", M, v)
+    for s in set(s_min[lanes].tolist()):
+        res, slack = [], []
+        for run in (qp_lane.admm_stages_cuda, qp_lane.admm_stages_plain):
+            z, zz, y = (d(t) for t in run(P, q, A, lo, hi, rho0, **{**fixed, "n_stages": s}))
+            A64, P64, At = d(A), d(P), d(A).transpose(-1, -2)
+            pr = (mv(A64, z) - zz).abs().amax(-1)
+            dr = (mv(P64, z) + d(q) + mv(At, y)).abs().amax(-1)
+            term = torch.maximum(
+                (mv(A64.abs(), z.abs()) + zz.abs()).amax(-1),
+                (mv(P64.abs(), z.abs()) + d(q).abs() + mv(At.abs(), y.abs())).amax(-1))
+            res.append(torch.maximum(pr, dr).cpu())
+            slack.append((ulp * term).cpu())
+        lo_r = torch.minimum(res[0] - slack[0], res[1] - slack[1])
+        hi_r = torch.maximum(res[0] + slack[0], res[1] + slack[1])
+        here = lanes & (s_min == s)
+        out |= here & (lo_r <= eps) & (hi_r >= eps)
+        if report is not None:
+            report += [dict(lane=int(i), stage=s, kernel=float(res[0][i]), twin=float(res[1][i]),
+                            slack=float(max(slack[0][i], slack[1][i])))
+                       for i in here.nonzero().flatten().tolist()[:8]]
+    return out
+
+
+def phase_kernel_admm_exit(exit_captured):
+    """K1's exit instance (``qp_exit_eps``) against its twin through
+    ``solve_qp(exit_eps=EXIT_EPS)`` on random QPs and LPs at (3, 6), (4, 8)
+    and (21, 42) and on the (3, 6) LPs the exit_eps path recorded, float64
+    and float32. Each lane must run the twin's count of stages, unless the
+    twin's own decision is within ten ulps (a lane whose twin stops at
+    another stage when A moves by ten ulps, ``ten_ulps``, the probes of
+    ``ULP_PROBES``) or, at float32, the tolerance lies between the two
+    implementations' own residuals at the stage where they part
+    (``exit_straddles``); such lanes are listed. z is held as in
+    ``kernel_admm``: within the larger of the fixed tolerance and ten times
+    the lane's own one-ulp sensitivity (``lane_limits``), a parted lane
+    against the twin's fixed-trip loop at the kernel's count of stages.
+    The exit instance with an exit_eps below every residual equals the
+    fixed-trip instance to the bit. Returns the float32 row of the recorded
+    set (its time beside the fixed-trip instance's on the same LPs, the
+    stages per lane and the bound on the stages run)."""
+    from morbit_tpu_torch.ops import qp_lane
+    from morbit_tpu_torch.ops.qp import solve_qp
+
+    def through(stages, P, q, A, lo, hi):
+        seen = {}
+
+        def wrapped(*args, **kw):
+            seen["args"], seen["kw"] = args, kw
+            out, seen["ms"] = timed(lambda: stages(*args, **kw))
+            seen["z"], seen["stages"] = out[0], out[3].cpu()
+            return out
+        with mock.patch.object(qp_lane, "admm_stages_exit", wrapped):
+            sol = solve_qp(P, q, A, lo, hi, iters=QP_ITERS, adapt_every=ADAPT_EVERY,
+                           exit_eps=EXIT_EPS)
+        return sol, seen
+
+    sets = [("random", random_qps(B_MAIN, 3, 6, 0)), ("descent", descent_lps(B_MAIN, 2)),
+            ("random", random_qps(B_MAIN, 4, 8, 1)),
+            ("random_B1000", random_qps(1000, 21, 42, 5))]
+    sets += [("exit_eps_path_3_6", a[:5]) for a, _ in exit_captured]
+    out = None
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 2e-3)):
+        for kind, arrays in sets:
+            P, q, A, lo, hi = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays)
+            nv, m = A.shape[-1], A.shape[-2]
+            qp_lane.launches = 0
+            sol_k, k = through(qp_lane.admm_stages_exit_cuda, P, q, A, lo, hi)
+            check(qp_lane.launches == 1, f"kernel launches {qp_lane.launches} != 1")
+            sol_p, t = through(qp_lane.admm_stages_exit_plain, P, q, A, lo, hi)
+            a, kw = t["args"], t["kw"]
+            twin = lambda A1: qp_lane.admm_stages_exit_plain(a[0], a[1], A1, *a[3:], **kw)
+            sensitive = torch.zeros_like(t["stages"], dtype=torch.bool)
+            for seed in ULP_PROBES:
+                sensitive |= twin(ten_ulps(a[2], seed))[3].cpu() != t["stages"]
+            parted = k["stages"] != t["stages"]
+            straddle, residuals = torch.zeros_like(parted), []
+            if dtype == torch.float32:
+                straddle = exit_straddles(a, kw, k["stages"], t["stages"],
+                                          parted & ~sensitive, residuals)
+            check(not (parted & ~sensitive & ~straddle).any(),
+                  f"exit {kind} nv={nv} m={m} {dtype}: lanes "
+                  f"{lane_list(parted & ~sensitive & ~straddle)} run another count of stages "
+                  f"than the twin; residuals {residuals}")
+            ok = sol_p.status_ok
+            status = (sol_k.status_ok != ok).cpu() & ~parted
+            check(not status.any(), f"exit {kind} {dtype}: status_ok differs on lanes "
+                  f"{lane_list(status)}")
+            dz = (k["z"] - t["z"]).abs().amax(-1).cpu()
+            limit = lane_limits(tol, lambda A1: twin(A1)[0], a[2], t["z"]).cpu()
+            ref = t["z"].clone()
+            for s_ in set(k["stages"][parted].tolist()):
+                lanes = (parted & (k["stages"] == s_)).to(ref.device)
+                fixed = qp_lane.admm_stages_plain(*a, **{**{x: kw[x] for x in kw
+                                                             if x != "exit_eps"},
+                                                          "n_stages": s_})[0]
+                ref = torch.where(lanes[:, None], fixed, ref)
+            dz = torch.where(parted, (k["z"] - ref).abs().amax(-1).cpu(), dz)
+            okc = ok.cpu()
+            over = okc & (dz > limit)
+            check(not over.any(), f"exit {kind} nv={nv} m={m} {dtype}: lanes "
+                  f"{lane_list(over)} over their limits, |dz| {dz[over].tolist()[:16]}")
+            # below every residual no lane stops: the fixed-trip arithmetic
+            full = qp_lane.admm_stages_exit_cuda(*a, **{**kw, "exit_eps": 1e-300})
+            fixed = qp_lane.admm_stages_cuda(*a, **{x: kw[x] for x in kw if x != "exit_eps"})
+            ran_all = (full[3] == kw["n_stages"])
+            bitwise = all(bool((x[ran_all] == y[ran_all]).all()) for x, y in zip(full, fixed))
+            check(bitwise and int(ran_all.sum()) > 0,
+                  f"exit {kind} {dtype}: the exit instance below every residual differs "
+                  "from the fixed-trip instance")
+            hist = torch.bincount(k["stages"].long(), minlength=kw["n_stages"] + 1).tolist()
+            ms = event_ms(lambda: qp_lane.admm_stages_exit_cuda(*a, **kw), 20)
+            fixed_ms = event_ms(lambda: qp_lane.admm_stages_cuda(
+                *a, **{x: kw[x] for x in kw if x != "exit_eps"}), 20)
+            B = A.shape[0]
+            flops = sum(c * admm_flops(nv, m, s_, kw["n_steps"]) for s_, c in enumerate(hist))
+            nbytes = B * admm_bytes(nv, m, A.element_size())
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            row = dict(set=kind, nv=nv, m=m, dtype=str(dtype), B=B, exit_eps=EXIT_EPS,
+                       stages_per_lane_hist=hist, lanes_parted=lane_list(parted),
+                       lanes_decision_within_ten_ulps=int(sensitive.sum()),
+                       lanes_parted_on_own_residuals=int(straddle.sum()),
+                       max_abs_err=float(dz[okc].max()) if okc.any() else 0.0, tol=tol,
+                       largest_lane_limit=float(limit[okc].max()) if okc.any() else tol,
+                       ms=ms, fixed_trip_ms=fixed_ms, plain_ms=t["ms"], bound_ms=bound_ms,
+                       bound_by=bound_by, flops_stages_run=flops, bytes=nbytes,
+                       below_every_residual_bitwise_fixed=bitwise)
+            phase("kernel_admm_exit", **row)
+            if kind == "exit_eps_path_3_6" and dtype == torch.float32:
+                out = row
+    check(out is not None, "no recorded exit_eps LPs")
+    return out
+
+
 def admm_row(args, kw, dtype, plain_ms, **fields):
     """Time the K1 launch on ``args`` and add its bound."""
     from morbit_tpu_torch.ops import qp_lane
@@ -1267,6 +1448,7 @@ def phase_routing():
 
 #: the wrappers whose inputs a path records, by the name of their captures
 _RECORDED = {"qp_admm": ("qp_lane", "admm_stages"),
+             "qp_admm_exit": ("qp_lane", "admm_stages_exit"),
              "selection": ("prepare_fused", "selection"),
              "round4": ("prepare_fused", "round4"),
              "gram": ("dense_kernels", "rbf_gram_matrix")}
@@ -1316,7 +1498,8 @@ def kernels_only():
             return fn(*args, **kw)
         return wrapped
 
-    twins = [(qp_lane, "admm_stages_plain"), (prepare_fused, "rbf_selection_core"),
+    twins = [(qp_lane, "admm_stages_plain"), (qp_lane, "admm_stages_exit_plain"),
+             (prepare_fused, "rbf_selection_core"),
              (prepare_fused, "run_round4"), (dense_kernels, "rbf_gram_matrix_plain"),
              (dense_kernels, "admm_iterations_plain")]
     with contextlib.ExitStack() as stack:
@@ -1774,18 +1957,37 @@ def constrained_pareto_fraction(x, tol=1e-2):
 
 @contextlib.contextmanager
 def k1_shapes(tally):
-    """Count the K1 calls by (nv, m) into ``tally`` (each CUDA call launches
-    the kernel once; the phase checks the tally against the kernel's own
-    count, ``qp_lane.launches``)."""
+    """Count the K1 calls by (nv, m) into ``tally``, its fixed-trip and exit
+    instances alike (each CUDA call launches the kernel once; the phase
+    checks the tally against the kernel's own count, ``qp_lane.launches``)."""
     from morbit_tpu_torch.ops import qp_lane
 
-    inner = qp_lane.admm_stages
+    def counted(inner):
+        def wrapped(P, q, A, *args, **kw):
+            key = f"nv{A.shape[-1]}_m{A.shape[-2]}"
+            tally[key] = tally.get(key, 0) + 1
+            return inner(P, q, A, *args, **kw)
+        return wrapped
+    with mock.patch.object(qp_lane, "admm_stages", counted(qp_lane.admm_stages)), \
+            mock.patch.object(qp_lane, "admm_stages_exit", counted(qp_lane.admm_stages_exit)):
+        yield
 
-    def wrapped(P, q, A, *args, **kw):
-        key = f"nv{A.shape[-1]}_m{A.shape[-2]}"
-        tally[key] = tally.get(key, 0) + 1
-        return inner(P, q, A, *args, **kw)
-    with mock.patch.object(qp_lane, "admm_stages", wrapped):
+
+@contextlib.contextmanager
+def k1_stage_counts(counts):
+    """Add the stages each lane of each K1 exit launch ran to the histogram
+    ``counts["hist"]`` (a tensor indexed by the stage count, summed on the
+    device: no sync a launch)."""
+    from morbit_tpu_torch.ops import qp_lane
+
+    inner = qp_lane.admm_stages_exit
+
+    def wrapped(*args, **kw):
+        out = inner(*args, **kw)
+        hist = torch.bincount(out[3].long(), minlength=kw["n_stages"] + 1)
+        counts["hist"] = hist if "hist" not in counts else counts["hist"] + hist
+        return out
+    with mock.patch.object(qp_lane, "admm_stages_exit", wrapped):
         yield
 
 
@@ -1930,8 +2132,15 @@ FAMILY_KINDS = ("taylor", "lagrange", "ps")
 #: group; the composite objectives g0 and g1 + 0.1 x0 and the composite
 #: constraint g0 - 9 <= 0) on [-4, 4]^2, and the main path with the
 #: per-iteration ``var_scaler_update='model'`` or with ``use_db=False``; the
-#: same protocol and lockstep as the families
-OPTION_KINDS = ("composite", "scaler_model", "no_db")
+#: main path with both objectives as NumPy host functions (``host=True,
+#: can_batch=True``, one multiquadric group), with the QP's early exit
+#: (``qp_exit_eps=EXIT_EPS``), and with ``RbfConfig(use_max_points=True)``
+#: and ``use_db=False`` (56 rows, so every round 4 also scans 60 random
+#: candidates: K3 at C = 116); the same protocol and lockstep as the
+#: families
+OPTION_KINDS = ("composite", "scaler_model", "no_db", "host", "exit_eps", "max_points")
+#: the QP's exit tolerance on the exit_eps path
+EXIT_EPS = 1e-5
 #: interleaved rounds of the plain and the tuned runner after the probe
 FAMILY_ROUNDS = 1
 #: max_iter of the float64 card-vs-CPU lockstep of each family
@@ -1939,10 +2148,27 @@ FAMILY_LOCKSTEP_ITERS = 25
 #: the (trip, lane) pairs of each family's lockstep recorded parting, with
 #: the cause ``family_part_cause`` names
 FAMILY_MAY_PART = {"taylor": {}, "lagrange": {}, "ps": {}, "composite": {},
-                   "scaler_model": {}, "no_db": {}}
+                   "scaler_model": {}, "no_db": {}, "host": {}, "exit_eps": {},
+                   "max_points": {}}
 #: the call of each K1 shape, and of K2 and K3, whose inputs the option
 #: paths record
 OPTION_CAPTURE_CALL = 8
+
+
+def host_parabolas(can_batch=True):
+    """The main path's problem with both objectives as NumPy functions on
+    the host, in one multiquadric group: the same IEEE operations as the
+    torch functions of ``make_two_parabolas`` (a square, then the sum of two
+    terms), so the values agree to the bit."""
+    from morbit_tpu_torch import MOP
+    from morbit_tpu_torch.models.configs import RbfConfig
+
+    mop = MOP(LB, UB)
+    for c in (1.0, -1.0):
+        mop.add_objective(lambda X, c=c: ((X - c) ** 2).sum(-1),
+                          model_cfg=RbfConfig(kernel="multiquadric"), host=True,
+                          can_batch=can_batch)
+    return mop
 
 
 def family_mop(kind):
@@ -1951,8 +2177,12 @@ def family_mop(kind):
 
     if kind == "composite":
         return make_composite(RbfConfig(kernel="cubic"), LB, UB)
+    if kind == "host":
+        return host_parabolas()
     cfg = {"taylor": TaylorConfig(degree=2, mode="fd"),
-           "lagrange": LagrangeConfig(degree=2)}.get(kind, RbfConfig(kernel="multiquadric"))
+           "lagrange": LagrangeConfig(degree=2),
+           "max_points": RbfConfig(kernel="multiquadric", use_max_points=True)}.get(
+               kind, RbfConfig(kernel="multiquadric"))
     return make_two_parabolas(cfg, LB, UB)
 
 
@@ -1964,8 +2194,10 @@ def family_config(kind, **budget):
         budget["descent_method"] = PascolettiSerafiniConfig()
     if kind == "scaler_model":
         budget["var_scaler_update"] = "model"
-    if kind == "no_db":
+    if kind in ("no_db", "max_points"):
         budget["use_db"] = False
+    if kind == "exit_eps":
+        budget["qp_exit_eps"] = EXIT_EPS
     return AlgorithmConfig(**budget)
 
 
@@ -1976,7 +2208,7 @@ def option_shapes():
     calls = {}
 
     def keep(name, call, args):
-        if name != "qp_admm":
+        if name != "qp_admm":   # K2, K3 and K1's exit instance
             return call == OPTION_CAPTURE_CALL
         shape = tuple(args[2].shape[-2:])
         calls[shape] = calls.get(shape, 0) + 1
@@ -2043,7 +2275,8 @@ def phase_family_main_path(kind):
     launches and the recorded inputs."""
     from morbit_tpu_torch.bench import tuned_runner
     from morbit_tpu_torch.ops import boxopt
-    from morbit_tpu_torch.parallel.multistart import build_solver, capacity_overflowed
+    from morbit_tpu_torch.parallel.multistart import (build_solver, capacity_overflowed,
+                                                      fleet_eligible)
     from morbit_tpu_torch.problems.synthetic import halton_starts
 
     cuda = torch.device("cuda")
@@ -2053,16 +2286,20 @@ def phase_family_main_path(kind):
                               dtype=torch.float32, device=cuda)
               for k in range(1 + FAMILY_ROUNDS)]
     results, batch_s = [], {"plain": [], "tuned": []}
-    captured = {"qp_admm": [], "selection": [], "round4": []}
+    captured = {"qp_admm": [], "qp_admm_exit": [], "selection": [], "round4": []}
     keep = option_shapes() if kind in OPTION_KINDS else (lambda *a: False)
-    shapes = {}
+    shapes, stage_counts = {}, {}
+    # one problem object for both runners: a host function's tallies then
+    # count every batch of the phase
+    mop = family_mop(kind)
     torch.cuda.synchronize()
     _zero_launch_counts()
     boxopt.ascent_steps = 0
     t0 = time.perf_counter()
-    with kernels_only(), recording(captured, keep), k1_shapes(shapes):
-        runner, probe = tuned_runner(family_mop(kind), ac, torch.float32, cuda, starts[0])
-        plain = build_solver(family_mop(kind), ac, torch.float32, cuda)
+    with kernels_only(), recording(captured, keep), k1_shapes(shapes), \
+            k1_stage_counts(stage_counts):
+        runner, probe = tuned_runner(mop, ac, torch.float32, cuda, starts[0])
+        plain = build_solver(mop, ac, torch.float32, cuda)
         for x0 in starts:
             for name, run in (("plain", plain.solve), ("tuned", runner)):
                 torch.cuda.synchronize()
@@ -2113,19 +2350,40 @@ def phase_family_main_path(kind):
     if kind == "composite":
         extra = {name: _composite_summary(r) for name, r in (("plain", p), ("tuned", t))}
     if kind in OPTION_KINDS:
-        check(runner.fleet == (kind == "composite")
+        check(runner.fleet == fleet_eligible(ac)
               and len(captured["selection"]) == len(captured["round4"]) == 1,
               f"{kind}: fleet {runner.fleet}, recorded {len(captured['selection'])} K2 and "
               f"{len(captured['round4'])} K3 calls")
         extra.update(fleet=runner.fleet, k1_launches_by_shape=shapes,
                      scale_range=[float(p.state.scal.scale.min()),
                                   float(p.state.scal.scale.max())])
+    if kind == "host":
+        extra.update(_host_summary(mop, [probe] + [r for _, r in results], trips, seconds,
+                                   starts[0], ac, p))
+    if kind == "exit_eps":
+        hist = stage_counts["hist"].tolist()
+        check(len(captured["qp_admm_exit"]) == 1 and shapes == {"nv3_m6": counts["qp_admm"]},
+              f"exit_eps: recorded {len(captured['qp_admm_exit'])} exit calls, shapes {shapes}")
+        extra.update(k1_stages_per_lane_hist=hist, k1_exit_eps=EXIT_EPS,
+                     k1_mean_stages=sum(i * c for i, c in enumerate(hist)) / max(1, sum(hist)))
+    else:
+        check("hist" not in stage_counts, f"{kind}: K1's exit instance ran")
+    if kind == "max_points":
+        C = captured["round4"][0][0][0].shape[1]
+        check(C == 116 and runner.solver.db_capacity == 56,
+              f"max_points: K3 recorded at C={C}, capacity {runner.solver.db_capacity}")
+        extra.update(k3_recorded_C=C)
     phase(f"{kind}_main_path", B=B_MAIN, dtype="float32", **budget,
           model={"taylor": "TaylorConfig(degree=2, mode='fd')",
                  "lagrange": "LagrangeConfig(degree=2)",
                  "composite": "make_composite(RbfConfig(kernel='cubic'))",
                  "scaler_model": "RbfConfig(kernel='multiquadric'), var_scaler_update='model'",
-                 "no_db": "RbfConfig(kernel='multiquadric'), use_db=False"}.get(
+                 "no_db": "RbfConfig(kernel='multiquadric'), use_db=False",
+                 "host": "RbfConfig(kernel='multiquadric'), NumPy objectives host=True, "
+                         "can_batch=True",
+                 "exit_eps": f"RbfConfig(kernel='multiquadric'), qp_exit_eps={EXIT_EPS}",
+                 "max_points": "RbfConfig(kernel='multiquadric', use_max_points=True), "
+                               "use_db=False"}.get(
                      kind, "RbfConfig(kernel='multiquadric')"),
           descent="PascolettiSerafiniConfig()" if kind == "ps" else "steepest_descent",
           **extra, launches=counts, trips_all_batches=trips,
@@ -2143,6 +2401,58 @@ def phase_family_main_path(kind):
           mean_iterations=float(p.n_iterations.double().mean()),
           mean_evals=float(p.n_evals.double().mean()))
     return counts, captured
+
+
+def _host_summary(mop, runs, trips, seconds, x0, ac, plain_host):
+    """The host path's tallies over every batch of its phase (``runs``, the
+    probe first): host round trips a trip, rows a round trip, the seconds
+    inside the user's functions and their share of the phase's wall time;
+    the rows passed must equal the sum of the group's counters. Then the
+    plain runner on the first starts with the objectives as torch functions
+    (stop codes, iterations and evaluations equal lane by lane; x and fx
+    equal to the bit, else the first lane that differs and the first leaf
+    of its state that does) and with ``can_batch=False`` (equal results)."""
+    from morbit_tpu_torch.models.configs import RbfConfig
+    from morbit_tpu_torch.parallel.multistart import build_solver
+    from morbit_tpu_torch.problems.synthetic import make_two_parabolas
+
+    stats = [f.stats for f in mop.functions]
+    counted = sum(int(r.state.groups[0].n_evals.sum()) for r in runs)
+    for st in stats:
+        check(st.rows["eval"] == counted and st.rows["fd"] == st.rows["restoration"] == 0,
+              f"host rows {st.rows} against the group's counters {counted}")
+    host_s = sum(st.seconds for st in stats)
+    out = dict(host_round_trips=stats[0].round_trips,
+               host_round_trips_per_trip=stats[0].round_trips / trips,
+               host_rows_per_round_trip=stats[0].rows["eval"] / stats[0].round_trips,
+               host_calls=[st.calls for st in stats], host_rows_eval=counted,
+               host_user_seconds=host_s, host_user_share_of_wall=host_s / seconds)
+    cuda = torch.device("cuda")
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("stop_code", "n_iterations", "n_evals"))
+    torch_run = build_solver(make_two_parabolas(RbfConfig(kernel="multiquadric"), LB, UB),
+                             ac, torch.float32, cuda).solve(x0)
+    check(same(plain_host, torch_run), "the host path's stop codes, iterations or "
+          "evaluations differ from the torch functions' run")
+    bits = bool(torch.equal(plain_host.x, torch_run.x) and torch.equal(plain_host.fx,
+                                                                      torch_run.fx))
+    out["x_fx_equal_to_torch_run_bitwise"] = bits
+    if not bits:
+        lane = int(((plain_host.x != torch_run.x).any(-1)
+                    | (plain_host.fx != torch_run.fx).any(-1)).nonzero()[0])
+        out["first_lane_differing"] = dict(lane=lane, cause=family_part_cause(
+            plain_host.state, torch_run.state, lane))
+    single = host_parabolas(can_batch=False)
+    t1 = time.perf_counter()
+    one_by_one = build_solver(single, ac, torch.float32, cuda).solve(x0)
+    out["can_batch_false_batch_s"] = time.perf_counter() - t1
+    check(same(one_by_one, plain_host) and torch.equal(one_by_one.x, plain_host.x)
+          and torch.equal(one_by_one.fx, plain_host.fx),
+          "the can_batch=False batch differs from the can_batch=True batch")
+    out["can_batch_false_calls"] = [f.stats.calls for f in single.functions]
+    return out
 
 
 def phase_family_card_vs_cpu(kind):
@@ -2504,6 +2814,7 @@ def main():
     wide_launches, wide_captured = phase_wide_main_path(B_WIDE)
     *admm_rows, con_rows, admm_opt = phase_kernel_admm(wide_captured["qp_admm"],
                                                        con_captured, option_captured)
+    exit_row = phase_kernel_admm_exit(option_captured["exit_eps"]["qp_admm_exit"])
     *sel_rows, sel_opt = phase_kernel_selection(
         captured["selection"], wide_captured["selection"], staged_captured["selection"],
         option_captured)
@@ -2577,6 +2888,8 @@ def main():
                     entry[f"{kind}_main_path"]["recorded"] = {
                         k: rec[k] for k in keys + ("B", "n")}
         if name == "qp_admm":              # K1 at the constrained LP shapes
+            entry["exit_eps_main_path"]["exit_instance_nv3_m6"] = {
+                k: exit_row[k] for k in keys + ("fixed_trip_ms", "stages_per_lane_hist", "B")}
             for b, counts in zip(STAGED_BUDGETS, con_launches):
                 entry["constrained_main_path"][f"max_iter_{b['max_iter']}"][
                     "launches_by_shape"] = counts["qp_admm_by_shape"]

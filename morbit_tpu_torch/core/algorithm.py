@@ -19,13 +19,22 @@ descent and Pascoletti-Serafini descent, box constraints, linear and
 nonlinear constraints through the filter, the normal step and restoration,
 the ``'auto'`` scaler and the per-iteration ``'model'`` scaler update,
 ``use_db=False``, database recycling (``populated_db``) and
-``untransform_final_database``.
+``untransform_final_database``, the QP's early exit (``qp_exit_eps``),
+``RbfConfig(use_max_points=True)`` and host (NumPy) functions.
+
+With a host function in the problem, every true evaluation whose result a
+lane may discard is masked to the lanes that keep it (``keep``, threaded
+from :meth:`Solver.iterate` down to the trial point, the normal step's
+candidate and restoration), so that the user's code runs only at counted
+sites, as the JAX package's gated evaluations do in a single run. Without
+one, ``keep`` is None and no mask is formed.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +54,7 @@ from morbit_tpu_torch.core.enums import ITER_TYPE, RADIUS_UPDATE, STOP_CODE
 from morbit_tpu_torch.core.mop import MOP, NL_EQ, NL_INEQ, CompiledMOP, compile_mop
 from morbit_tpu_torch.models.configs import LagrangeConfig, TaylorConfig
 from morbit_tpu_torch.models.container import SurrogateContainer, chain_rule
+from morbit_tpu_torch.ops import prng
 from morbit_tpu_torch.ops.batched_linalg import lane_matmul, lane_matvec
 from morbit_tpu_torch.ops.boxopt import halton_grid, maximize_in_box
 from morbit_tpu_torch.ops.geometry import project_into_box
@@ -148,6 +158,9 @@ class SolverState:
     filter: flt.FilterState
     traj: TrajectoryState
     scal: scaling.VarScaler  # (B, n) fields
+    #: (B, 2) PRNG key words (int64 holding uint32) when a group draws
+    #: random numbers (``RbfConfig(use_max_points=True)``), else None
+    key: Optional[torch.Tensor] = None
 
     @property
     def delta(self):
@@ -253,10 +266,6 @@ class Solver:
         self.ac = ac = ac or AlgorithmConfig()
         self.dtype = dtype
         self.device = torch.device(device)
-        if ac.qp_exit_eps != 0:
-            raise NotImplementedError(
-                f"AlgorithmConfig.qp_exit_eps={ac.qp_exit_eps!r} is not ported to "
-                "morbit_tpu_torch yet (ROADMAP queue 1 item 11)")
         if ac.var_scaler_update not in ("none", "model"):
             raise ValueError(f"unknown var_scaler_update {ac.var_scaler_update!r}")
         finite = bool(np.isfinite(mop.lb).all() and np.isfinite(mop.ub).all())
@@ -312,6 +321,8 @@ class Solver:
         #: to 0 (one per masked trip over the lanes, on the host)
         self.restoration_iterations = 0
         self._ps_consts = None
+        #: any host (NumPy) function: true evaluations are masked per lane
+        self._any_host = any(f.host for g in mop.groups for f in g.fns)
 
     # ------------------------------------------------------------------ helpers
     def _tensor(self, v, dtype=None):
@@ -407,7 +418,8 @@ class Solver:
         lin = self._linearized_constraints_at(groups, x_s, x_n_s, l_e_n, l_i_n, scal)
         d, omega = steepest_descent_direction(
             x_n_s, Dm, scal.lb_scaled, scal.ub_scaled, lin,
-            normalize=self.desc_cfg.normalize, qp_iters=self.ac.qp_iters)
+            normalize=self.desc_cfg.normalize, qp_iters=self.ac.qp_iters,
+            qp_exit_eps=self.ac.qp_exit_eps)
         return omega, d, groups
 
     def _ps_criticality(self, groups, x_s, x_n_s, fx_n, delta, scal):
@@ -579,7 +591,19 @@ class Solver:
             x=x, x_s=x_s, fx=fx, l_e=l_e, l_i=l_i, c_e=c_e, c_i=c_i,
             dlt=torch.stack([delta0, delta0], dim=-1), ints=ints, groups=groups,
             filter=flt.init_filter(B, cap, self.f_dim, dtype, dev), traj=traj,
-            scal=scal)
+            scal=scal, key=self._initial_key(x_s) if self.container.draws else None)
+
+    @staticmethod
+    def _initial_key(x_s):
+        """Each lane's key, ``fold_in(PRNGKey(1234), uint32(sum |x_s 1e6|))``
+        as the JAX package seeds it (algorithm.py:669-671): the sum in the
+        solver's dtype in index order, XLA's saturating conversion."""
+        v = (x_s * 1e6).abs()
+        total = v[:, 0]
+        for j in range(1, v.shape[-1]):
+            total = total + v[:, j]
+        return prng.fold_in(prng.prng_key(1234, x_s.device),
+                            prng.float_to_uint32(total))
 
     # ------------------------------------------------------------------ stopping
     def _tol_tests(self, x, x_t, fx, fx_t):
@@ -652,8 +676,16 @@ class Solver:
                                     SC.TOLERANCE, SC.CONTINUE)))
         stop = torch.where(state.crit_mode > _MODE_NORMAL, SC.CONTINUE, stop)
         go = stop == SC.CONTINUE
-        return tree_where(go, self._iterate_inner(state, go),
+        # host groups: the lanes whose trip is kept (a lane that stopped may
+        # pass the tests above again; the solve loops keep its state)
+        keep = go & (state.stop_code == SC.CONTINUE) if self._any_host else None
+        return tree_where(go, self._iterate_inner(state, go, keep),
                           state.replace(stop_code=stop))
+
+    def _keep(self, keep, drop):
+        """The lanes of ``keep`` without those of ``drop`` (None without a
+        host function: no mask is formed)."""
+        return None if keep is None else keep & ~drop
 
     def _check_device(self, state: SolverState) -> None:
         """Raise unless every tensor of ``state`` lies on the solver's
@@ -702,7 +734,7 @@ class Solver:
                             torch.where(x_idx >= 0, 0, -1).to(x_idx.dtype))
         return state.replace(groups=groups, x_indices=x_idx)
 
-    def _iterate_inner(self, state: SolverState, go) -> SolverState:
+    def _iterate_inner(self, state: SolverState, go, keep=None) -> SolverState:
         ac = self.ac
         in_crit = state.crit_mode > _MODE_NORMAL
         looping = state.crit_mode == _MODE_CRIT_LOOP
@@ -725,20 +757,30 @@ class Solver:
         # update-vs-improve and criticality rebuild passes
         improve_flag = (~in_crit) & (state.last_it_stat == ITER_TYPE.MODELIMPROVING)
         do_update = torch.where(in_crit, ~crit_halt, state.iter_counter > 1)
+        key = None
+        if self.container.draws:
+            # the pass's key: fold_in(key, iter_counter), in criticality
+            # fold_in(key, 7001 + crit_nloops) (JAX algorithm.py:840-843)
+            if state.key is None:
+                raise ValueError("a state without a PRNG key for a problem whose "
+                                 "RBF group has use_max_points")
+            key = prng.fold_in(state.key, torch.where(in_crit, 7001 + state.crit_nloops,
+                                                      state.iter_counter))
         upd = self.container.update_or_improve(
             state.groups, state.x_s, state.x_indices, state.delta,
-            improve_flag, scal=state.scal, efl_flag=in_crit, active=go & do_update)
+            improve_flag, scal=state.scal, efl_flag=in_crit,
+            active=(go if keep is None else keep) & do_update, key=key)
         state = state.replace(groups=tree_where(do_update, upd, state.groups))
 
         theta_k = self._theta(state)
         if self.has_constraints:
-            return self._constrained_phase(state, theta_k, crit_halt, pre_stats)
+            return self._constrained_phase(state, theta_k, crit_halt, pre_stats, keep)
         return self._main_phase(state, state, theta_k, theta_k, crit_halt,
-                                pre_stats)
+                                pre_stats, keep)
 
     # ---------------------------------------------------------------- phase A
     def _constrained_phase(self, state: SolverState, theta_k, crit_halt,
-                           pre_stats) -> SolverState:
+                           pre_stats, keep=None) -> SolverState:
         """Normal step / restoration dispatch (``find_normal_step``,
         ``algorithm.jl:406-521``). Each lane takes one of three outcomes:
         the main phase (from x or from x+n), restoration, or an INFEASIBLE
@@ -749,7 +791,8 @@ class Solver:
         scal = state.scal
         need_normal = ~self._violation_zero(theta_k)
         if not bool(need_normal.any()):
-            return self._main_phase(state, state, theta_k, theta_k, crit_halt, pre_stats)
+            return self._main_phase(state, state, theta_k, theta_k, crit_halt, pre_stats,
+                                    keep)
 
         # the normal-step LP (``compute_normal_step``), solved for every
         # lane and taken where a lane needs it (JAX: a 0/1-trip while_loop)
@@ -758,7 +801,8 @@ class Solver:
         variable_radius = state.last_it_stat == ITER_TYPE.RESTORATION
         n_raw, delta_raw, feas_raw = normal_step(
             state.x_s, scal.lb_scaled, scal.ub_scaled, lin, ac.filter_kappa_delta,
-            ac.delta_max, state.delta, variable_radius, qp_iters=ac.qp_iters)
+            ac.delta_max, state.delta, variable_radius, qp_iters=ac.qp_iters,
+            qp_exit_eps=ac.qp_exit_eps)
         n_step = lane_where(need_normal, n_raw, torch.zeros_like(n_raw))
         delta_n = torch.where(need_normal, delta_raw, state.delta)
         feasible = torch.where(need_normal, feas_raw, torch.ones_like(feas_raw))
@@ -778,8 +822,8 @@ class Solver:
         step = torch.where(take_n[:, None], torch.nan_to_num(n_step),
                            torch.zeros_like(n_step))
         x_n_s = state.x_s + step
-        fx_n, c_e_n, c_i_n, groups3, idx_n = self._gated_evaluate_true(groups2, x_n_s,
-                                                                       scal)
+        fx_n, c_e_n, c_i_n, groups3, idx_n = self._gated_evaluate_true(
+            groups2, x_n_s, scal, None if keep is None else keep & take_n)
         l_e_n, l_i_n = self._linear_values(x_n_s, scal)
         state_b = state.replace(groups=groups3,
                                 delta=torch.where(changed, delta_n, state.delta))
@@ -787,28 +831,32 @@ class Solver:
             x=scaling.untransform(scal, x_n_s), x_s=x_n_s, fx=fx_n, l_e=l_e_n,
             l_i=l_i_n, c_e=c_e_n, c_i=c_i_n, x_indices=idx_n)
         theta_sel = torch.where(take_n, self._theta(inter_b), theta_k)
+        incompatible = need_normal & ~compatible
         out_main = self._main_phase(tree_where(take_n, state_b, state),
                                     tree_where(take_n, inter_b, state), theta_k,
-                                    theta_sel, crit_halt, pre_stats)
+                                    theta_sel, crit_halt, pre_stats,
+                                    self._keep(keep, incompatible))
 
         # incompatible lanes: restoration or INFEASIBLE (``:440-493``)
-        incompatible = need_normal & ~compatible
         if not bool(incompatible.any()):
             return out_main
-        out_other = self._incompatible_path(state, theta_k, n_step, feasible,
-                                            incompatible)
+        out_other = self._incompatible_path(
+            state, theta_k, n_step, feasible,
+            incompatible if keep is None else incompatible & keep, keep)
         return tree_where(incompatible, out_other, out_main)
 
-    def _gated_evaluate_true(self, groups, x_s, scal):
+    def _gated_evaluate_true(self, groups, x_s, scal, active):
         """``container.evaluate_true`` at a candidate whose results a lane
-        may discard: the straight call (the JAX package gates it only for
-        host callbacks, which are not ported)."""
-        return self.container.evaluate_true(groups, x_s, scal)
+        may discard: host groups are called at the lanes of ``active`` only
+        (the JAX package's gated evaluation, algorithm.py:955-975; None
+        evaluates every lane, as for torch groups always)."""
+        return self.container.evaluate_true(groups, x_s, scal, active)
 
     def _incompatible_path(self, state: SolverState, theta_k, n_step, feasible,
-                           active) -> SolverState:
+                           active, keep=None) -> SolverState:
         """Restoration, or INFEASIBLE right after a restoration
-        (``algorithm.jl:440-452``)."""
+        (``algorithm.jl:440-452``). With ``keep`` (host functions), host
+        groups evaluate only the lanes whose result is kept."""
         last_restoration = state.last_it_stat == ITER_TYPE.RESTORATION
         infeasible = self._finish_early(state, STOP_CODE.INFEASIBLE)
         if self.mop.has_nl_constraints:
@@ -819,28 +867,34 @@ class Solver:
         n_ok = feasible & torch.isfinite(n_step).all(-1)
         scal = state.scal
         x_n_s = state.x_s + torch.nan_to_num(n_step)
-        fx_n, c_e_n, c_i_n, groups, idx_n = self.container.evaluate_true(
-            state.groups, x_n_s, scal)
+        take = n_ok & ~last_restoration
+        fx_n, c_e_n, c_i_n, groups, idx_n = self._gated_evaluate_true(
+            state.groups, x_n_s, scal, None if keep is None else active & take)
         l_e_n, l_i_n = self._linear_values(x_n_s, scal)
         restored = self._finish_restoration(state.replace(
             x=scaling.untransform(scal, x_n_s), x_s=x_n_s, fx=fx_n, l_e=l_e_n,
             l_i=l_i_n, c_e=c_e_n, c_i=c_i_n, groups=groups, x_indices=idx_n))
-        return tree_where(n_ok & ~last_restoration, restored, infeasible)
+        return tree_where(take, restored, infeasible)
 
-    def _true_constraints(self, xi, want_jac: bool):
+    def _true_constraints(self, xi, want_jac: bool, mask=None):
         """True constraint blocks (l_e, l_i, c_e, c_i) at unscaled sites
         ``xi`` (B, n), evaluating only the groups that feed nonlinear
         constraints, directly or through a composite (``algorithm.jl:355-362``:
         restoration never touches objective-only groups); with ``want_jac``
         also (J_e, J_i), a composite's rows by the chain rule
-        ``D_x phi + D_g phi J_inner``."""
+        ``D_x phi + D_g phi J_inner``. ``mask`` (B,): the lanes at which
+        host groups are called (their values, and finite-difference
+        Jacobians, zero elsewhere)."""
         mop, con = self.mop, (NL_EQ, NL_INEQ)
         need = {cs.group_index for cs in mop.composites if cs.role in con}
         vals, jacs = [], []
         for g in mop.groups:
             use = g.index in need or any(mb.role in con for mb in g.members)
-            vals.append(g.eval_unscaled(xi) if use else None)
-            jacs.append(g.jac_unscaled(xi) if use and want_jac else None)
+            host = use and g.any_host
+            vals.append(None if not use else g.eval_unscaled_batch_masked(
+                xi, mask, kind="restoration") if host else g.eval_unscaled(xi))
+            jacs.append(None if not (use and want_jac) else g.jac_unscaled(xi, mask)
+                        if host else g.jac_unscaled(xi))
         comp_v, comp_J = [], []
         for cs in mop.composites:
             if cs.role not in con:
@@ -887,14 +941,17 @@ class Solver:
         pos = lambda v: torch.clamp(v, min=0.0)
         sq = lambda v: (v * v).sum(-1)
 
-        def merit_and_theta(xi):
-            l_e, l_i, c_e, c_i = self._true_constraints(xi, False)
+        host = self._any_host
+
+        def merit_and_theta(xi, lanes):
+            l_e, l_i, c_e, c_i = self._true_constraints(xi, False, lanes if host else None)
             m = sq(c_e) + sq(pos(c_i)) + sq(l_e) + sq(pos(l_i))
             return m, flt.compute_constraint_val(l_e, l_i, c_e, c_i)
 
-        def grad(xi):
+        def grad(xi, lanes):
             # 2 (J_e' c_e + J_i' max(c_i, 0) + A_eq' l_e + A_ineq' max(l_i, 0))
-            (l_e, l_i, c_e, c_i), (J_e, J_i) = self._true_constraints(xi, True)
+            (l_e, l_i, c_e, c_i), (J_e, J_i) = self._true_constraints(
+                xi, True, lanes if host else None)
             tmv = lambda J, v: lane_matmul(v[..., None, :], J)[..., 0, :]
             return 2.0 * (tmv(J_e, c_e) + tmv(J_i, pos(c_i)) + tmv(A_eq, l_e)
                           + tmv(A_ineq, pos(l_i)))
@@ -928,7 +985,7 @@ class Solver:
                           torch.zeros_like(ev_cap))
         stopval = 10 * torch.finfo(dtype).eps
 
-        m_cur, t_best = merit_and_theta(xi)
+        m_cur, t_best = merit_and_theta(xi, active)
         x_best = xi
         sc = torch.full_like(m_cur, 0.1)
         done = t_best <= stopval
@@ -938,11 +995,11 @@ class Solver:
             go = ~done & (i_used < cap) & active
             if it % RESTORATION_SYNC_EVERY == 0 and not bool(go.any()):
                 break
-            g = grad(xi)
+            g = grad(xi, go)
             gn = g.abs().amax(-1)
             step = torch.where(gn > 0, sc * min_width / gn, torch.zeros_like(gn))
             xi_n = project_into_box(xi - step[:, None] * g, lb, ub)
-            m_n, t_n = merit_and_theta(xi_n)
+            m_n, t_n = merit_and_theta(xi_n, go)
             improved = m_n < m_cur
             better = t_n < t_best
             xi = lane_where(go & improved, xi_n, xi)
@@ -964,7 +1021,8 @@ class Solver:
 
         scal = state.scal
         x_r_s = scaling.transform(scal, x_best)
-        fx_r, c_e_r, c_i_r, groups, idx_r = self._gated_evaluate_true(groups, x_r_s, scal)
+        fx_r, c_e_r, c_i_r, groups, idx_r = self._gated_evaluate_true(
+            groups, x_r_s, scal, active if host else None)
         l_e_r, l_i_r = self._linear_values(x_r_s, scal)
         acceptable = flt.is_acceptable(state.filter, t_best, self._filter_objective(fx_r))
         accepted = self._finish_restoration(state.replace(
@@ -989,11 +1047,12 @@ class Solver:
 
     # ---------------------------------------------------------------- main phase
     def _main_phase(self, state: SolverState, inter: SolverState,
-                    theta_k, theta_n, crit_halt, pre_stats) -> SolverState:
+                    theta_k, theta_n, crit_halt, pre_stats, keep=None) -> SolverState:
         """Criticality + trial point + acceptance. ``state`` is the current
         iterate's bundle, ``inter`` the bundle at x+n (the same state on
         lanes that took no normal step, and on every criticality micro-trip:
-        entry requires theta_k ~ 0)."""
+        entry requires theta_k ~ 0). ``keep``: the lanes whose outcome of
+        this phase is kept (None without host functions)."""
         in_crit = state.crit_mode > _MODE_NORMAL
         omega, d, groups_c = self._get_criticality(
             inter.groups, state.x_s, inter.x_s, inter.l_e, inter.l_i, inter.fx,
@@ -1010,11 +1069,12 @@ class Solver:
         early = self._finish_early(inter.replace(delta=state.delta),
                                    STOP_CODE.CRITICAL)
         cont = self._crit_microstep(state, inter, theta_k, theta_k_zero,
-                                    omega, d, crit_halt, pre_stats)
+                                    omega, d, crit_halt, pre_stats,
+                                    self._keep(keep, crit_exit))
         return tree_where(crit_exit, early, cont)
 
     def _crit_microstep(self, state, inter, theta_k, theta_k_zero, omega, d,
-                        halt, pre_stats):
+                        halt, pre_stats, keep=None):
         """``criticality_routine`` (``algorithm.jl:523-613``) as micro-steps
         of the outer loop, as in the JAX package: each pass (the
         make-fully-linear pre-step ``:536-551`` and every shrink pass
@@ -1054,8 +1114,11 @@ class Solver:
 
         # fixpoint certificate: a pass that left every group database
         # untouched proves the next pass is an identity (see the JAX
-        # package); no ported model's phase 1 draws random numbers
+        # package), unless a group's phase 1 draws random numbers
+        # (use_max_points re-keys every pass: JAX's ``_crit_ff``)
         stable = passed | do_loops_pre
+        if self.container.draws:
+            stable = torch.zeros_like(stable)
         for (cnt0, nev0), st in zip(pre_stats, groups):
             stable = stable & (cnt0 == st.db.count) & (nev0 == st.n_evals)
 
@@ -1106,7 +1169,8 @@ class Solver:
         state_f = state.replace(delta=delta_new, crit_mode=0, crit_nloops=0)
         inter_f = inter.replace(delta=delta_new, crit_mode=0, crit_nloops=0)
         crit_exit = self._finish_early(inter_f, STOP_CODE.CRITICAL)
-        trial = self._trial_point(state_f, inter_f, theta_k, omega, d)
+        trial = self._trial_point(state_f, inter_f, theta_k, omega, d,
+                                  self._keep(keep, freeze | exit_critical))
         return tree_where(freeze, frozen,
                           tree_where(exit_critical, crit_exit, trial))
 
@@ -1179,9 +1243,11 @@ class Solver:
         omega = torch.where(usable, omega, torch.zeros_like(omega))
         return x_trial_s, omega, groups
 
-    def _trial_point(self, state, inter, theta_k, omega, d):
+    def _trial_point(self, state, inter, theta_k, omega, d, keep=None):
         """Descent step, true evaluation, acceptance tests, radius update
-        (``algorithm.jl:748-914``)."""
+        (``algorithm.jl:748-914``). Host groups evaluate the trial point at
+        the lanes of ``keep`` only: the lanes that take this outcome,
+        whether they accept the point or not."""
         ac = self.ac
         x_s = state.x_s
         scal = state.scal
@@ -1196,7 +1262,7 @@ class Solver:
 
         # true evaluation at the trial point (``algorithm.jl:760-764``)
         fx_t, c_e_t, c_i_t, groups, idx_t = container.evaluate_true(groups, x_trial_s,
-                                                                    scal)
+                                                                    scal, keep)
         l_e_t, l_i_t = self._linear_values(x_trial_s, scal)
         # fresh surrogate values at x and x_trial (``:766-767``)
         mx, groups = container.eval_objectives(groups, x_s, scal)
@@ -1346,13 +1412,20 @@ def optimize(mop, x0, algo_config: Optional[AlgorithmConfig] = None,
     ``populated_db`` recycles a previous run's databases
     (:meth:`Solver.initialize`); ``verbosity >= 1`` prints the final
     report, ``>= 2`` also a line per iteration replayed from the
-    trajectory (``utils/logging.print_report``). With
+    trajectory (``utils/logging.print_report``); ``>= 3`` warns once that
+    the live in-loop log is not ported (ROADMAP queue 1 item 17) and
+    prints the level-2 report. With
     ``untransform_final_database`` the returned databases are in unscaled
     coordinates and the state's scaler is the identity."""
     if algo_config is None:
         algo_config = AlgorithmConfig(**kwargs)
     elif kwargs:
         algo_config = dataclasses.replace(algo_config, **kwargs)
+    if verbosity >= 3:
+        warnings.warn(
+            f"optimize(verbosity={verbosity}): the live in-loop log is not ported to "
+            "morbit_tpu_torch yet (ROADMAP queue 1 item 17); printing the level-2 "
+            "report after the run", stacklevel=2)
     device = resolve_device(device)
     cmop = mop if isinstance(mop, CompiledMOP) else compile_mop(
         mop, algo_config.combine_models)

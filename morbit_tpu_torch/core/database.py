@@ -118,19 +118,27 @@ def add_sites(db: Database, x, do_add):
     return dataclasses.replace(db, data=data, count=count, overflow=overflow), idx
 
 
-def eval_missing(db: Database, eval_fn_scaled: Callable, window: int | None = None):
+def eval_missing(db: Database, eval_fn_scaled: Callable, window: int | None = None,
+                 eval_batch_masked: Callable | None = None):
     """Evaluate every unevaluated row in one batched call (``eval_missing!``,
     ``Databases.jl:258-277``). Returns the db and the per-lane number of
     evaluations performed.
 
     ``window``: static bound on how many trailing rows can be unevaluated
     (rows are append-only and each model update ends with this pass), so
-    only that tail is evaluated."""
+    only that tail is evaluated.
+
+    ``eval_batch_masked(X, missing)``: the evaluation of a group with host
+    functions, given the sites and the mask of the missing rows (of the
+    window with ``window``), so that user code runs at those rows only."""
     B, cap, _ = db.data.shape
     n, m = db.n, db.m
     if window is None or window >= cap:
         missing = valid_mask(db) & ~db.evaluated
-        new_vals = eval_fn_scaled(db.X)                   # (B, cap, m)
+        if eval_batch_masked is not None:
+            new_vals = eval_batch_masked(db.X, missing)
+        else:
+            new_vals = eval_fn_scaled(db.X)               # (B, cap, m)
         new_rows = torch.cat([new_vals, torch.ones_like(new_vals[..., :1])], -1)
         tail = torch.where(missing[..., None], new_rows, db.data[..., n:])
         data = torch.cat([db.data[..., :n], tail], dim=-1)
@@ -142,7 +150,10 @@ def eval_missing(db: Database, eval_fn_scaled: Callable, window: int | None = No
     Dw = torch.gather(db.data, 1, idx[..., None].expand(B, window, db.data.shape[-1]))
     Xw = Dw[..., :n]
     missing_w = (idx < db.count[:, None]) & (Dw[..., n + m] <= 0.5)
-    vals_w = eval_fn_scaled(Xw)
+    if eval_batch_masked is not None:
+        vals_w = eval_batch_masked(Xw, missing_w)
+    else:
+        vals_w = eval_fn_scaled(Xw)
     new_rows = torch.cat([Xw, vals_w, torch.ones_like(vals_w[..., :1])], -1)
     Dw_new = torch.where(missing_w[..., None], new_rows, Dw)
     data = db.data.scatter(1, idx[..., None].expand_as(Dw_new), Dw_new)

@@ -164,12 +164,13 @@ def descent_lp(x_n, Dm, lb, ub, normalize: bool = True, lin=None):
 
 
 def steepest_descent_direction(x_n, Dm, lb, ub, lin=None, normalize: bool = True,
-                               qp_iters: int = 400):
+                               qp_iters: int = 400, qp_exit_eps: float = 0.0):
     """Solve the min-max LP per lane; returns (d (B, n), omega (B,)).
     ``descent.jl:91-135``. On solver failure the reference returns a zero
     step with ``omega = -inf`` (``:130-134``)."""
     n = x_n.shape[-1]
-    sol = solve_qp(*descent_lp(x_n, Dm, lb, ub, normalize, lin), iters=qp_iters)
+    sol = solve_qp(*descent_lp(x_n, Dm, lb, ub, normalize, lin), iters=qp_iters,
+                   exit_eps=qp_exit_eps)
     d = sol.z[:, :n]
     omega = -sol.z[:, n]
     ok = sol.status_ok & torch.isfinite(d).all(-1)
@@ -286,7 +287,8 @@ def normal_lp(x, lb, ub, lin: LinearizedConstraints, kappa_delta: float,
 
 
 def normal_step(x, lb, ub, lin: LinearizedConstraints, kappa_delta: float,
-                delta_max: float, delta, variable_radius, qp_iters: int = 400):
+                delta_max: float, delta, variable_radius, qp_iters: int = 400,
+                qp_exit_eps: float = 0.0):
     """Min-inf-norm step onto the linearized feasible set per lane
     (``compute_normal_step``, ``descent.jl:691-758``). ``lin`` carries rows
     with their right-hand sides at ``x``. Returns (n (B, n), Delta (B,),
@@ -294,7 +296,7 @@ def normal_step(x, lb, ub, lin: LinearizedConstraints, kappa_delta: float,
     n = x.shape[-1]
     dtype = x.dtype
     sol = solve_qp(*normal_lp(x, lb, ub, lin, kappa_delta, delta_max,
-                              variable_radius), iters=qp_iters)
+                              variable_radius), iters=qp_iters, exit_eps=qp_exit_eps)
     # clip tiny box violations (``descent.jl:756``)
     n_step = torch.minimum(torch.maximum(x + sol.z[:, :n], lb), ub) - x
     # post-clip feasibility test against the (row-equilibrated) constraint

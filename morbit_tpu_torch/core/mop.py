@@ -13,19 +13,33 @@ constraints, linear equality and inequality rows and composite functions
 registered with :meth:`MOP.add_function`) are ported. Outer functions are
 plain torch functions of one unscaled site and the inner values, batched
 with ``torch.func.vmap`` and differentiated with ``torch.func.jacfwd``.
+
+``host=True`` registers a black box: a plain Python/NumPy callable that
+runs on the host (the JAX package bridges it with ``jax.pure_callback``).
+It gets NumPy arrays in the solver's dtype: one site ``(n,)`` a call, or
+with ``can_batch`` a whole ``(K, n)`` batch whose ``(K, n_out)`` values it
+returns. A pass over host functions copies the sites to the host in one
+transfer and the values back in another (:func:`host_pass`); with a mask
+only the masked rows reach the user's code, so it runs only at sites the
+solver keeps and counts. Jacobians and Hessians of host functions without
+callbacks are central finite differences (``fd_step``), as in the JAX
+package. Each host function keeps its own tallies in ``VecFun.stats``
+(:class:`HostStats`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch.func import jacfwd, jacrev, vmap
 
-from morbit_tpu_torch.models.configs import (ExactConfig, RbfConfig,
-                                             SurrogateConfig, check_ported)
+from morbit_tpu_torch.models.configs import (ExactConfig, LagrangeConfig,
+                                             RbfConfig, SurrogateConfig,
+                                             TaylorConfig, check_ported)
 
 OBJECTIVE = "objective"
 NL_EQ = "nl_eq"
@@ -47,10 +61,48 @@ def _flat_map(fn, X, out_shape, G=None):
     return out.reshape(lead + out_shape)
 
 
+#: the kinds of rows a host function is called at: counted true
+#: evaluations, finite-difference stencils of Jacobians and Hessians, and
+#: the restoration loop's merit passes (the last two uncounted, as in the
+#: JAX package)
+HOST_KINDS = ("eval", "fd", "restoration")
+
+
+@dataclasses.dataclass
+class HostStats:
+    """Tallies of one host function since :meth:`reset`: its rows by kind
+    (``rows[kind]``), its calls (one a batch with ``can_batch``, else one a
+    row), the host passes that reached it (``round_trips``: one copy of the
+    sites to the host and one of the values back), the seconds spent inside
+    it, and the ``"eval"`` rows of each lane (``lane_rows``, while every
+    pass has the same lane count; else None)."""
+
+    rows: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(HOST_KINDS, 0))
+    calls: int = 0
+    round_trips: int = 0
+    seconds: float = 0.0
+    lane_rows: Optional[np.ndarray] = None
+    _lanes_valid: bool = True
+
+    def reset(self):
+        self.__init__()
+
+    def add_lanes(self, per_lane: np.ndarray):
+        if not self._lanes_valid:
+            return
+        if self.lane_rows is None:
+            self.lane_rows = np.zeros(per_lane.shape, np.int64)
+        if self.lane_rows.shape != per_lane.shape:
+            self.lane_rows, self._lanes_valid = None, False
+            return
+        self.lane_rows += per_lane
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class VecFun:
     """A (vector-valued) user function with its model config and optional
-    Jacobian callback (``src/VecFun.jl:13-98``)."""
+    Jacobian callback (``src/VecFun.jl:13-98``). ``host``, ``can_batch``
+    and ``fd_step`` as in the JAX package (see the module docstring)."""
 
     fn: Callable
     n_out: int
@@ -59,29 +111,141 @@ class VecFun:
     jac: Optional[Callable] = None     # x -> (n_out, n) Jacobian callback
     hess: Optional[Callable] = None    # x -> (n_out, n, n) Hessians callback
     max_evals: int = 2 ** 31 - 1
+    host: bool = False
+    can_batch: bool = False
+    fd_step: float = 1.49e-7           # ~10 sqrt(eps64), the JAX package's default
+    stats: HostStats = dataclasses.field(default_factory=HostStats)
 
     def _fn_vec(self, x):
         return self.fn(x).reshape((self.n_out,))
 
+    def call_host(self, rows: np.ndarray, kind: str) -> np.ndarray:
+        """The user's host function at the rows ``(K, n)`` of a NumPy array:
+        one call with ``can_batch``, else one a row in order; values cast
+        to the rows' dtype, ``(K, n_out)``."""
+        K = rows.shape[0]
+        st = self.stats
+        t0 = time.perf_counter()
+        if self.can_batch:
+            out = np.asarray(self.fn(rows), dtype=rows.dtype).reshape((K, self.n_out))
+            st.calls += 1
+        else:
+            out = np.empty((K, self.n_out), dtype=rows.dtype)
+            for i in range(K):
+                out[i] = np.asarray(self.fn(rows[i]), dtype=rows.dtype).reshape(self.n_out)
+            st.calls += K
+        st.seconds += time.perf_counter() - t0
+        st.rows[kind] += K
+        return out
+
     def eval(self, X: torch.Tensor) -> torch.Tensor:
         """Values at sites ``X (..., n)`` -> ``(..., n_out)``."""
+        if self.host:
+            return host_pass((self,), X)
         return _flat_map(self._fn_vec, X, (self.n_out,))
 
-    def jacobian(self, X: torch.Tensor) -> torch.Tensor:
+    def eval_batch_masked(self, X: torch.Tensor, mask) -> torch.Tensor:
+        """Values at the sites ``X (..., n)`` where ``mask`` (broadcast
+        against ``X.shape[:-1]``) holds, zeros elsewhere. A host function is
+        called at the masked rows only (``eval_missing!``'s contract,
+        ``Databases.jl:258-277``); a torch function is evaluated everywhere
+        (masked rows cost no user code)."""
+        if self.host:
+            return host_pass((self,), X, mask)
+        return self.eval(X)
+
+    def _host_callback(self, X, cb, shape):
+        """A host ``jac``/``hess`` callback at every site of ``X``: one
+        NumPy site a call."""
+        rows = X.reshape((-1, X.shape[-1])).detach().cpu().numpy()
+        out = np.stack([np.asarray(cb(r), dtype=rows.dtype).reshape(shape) for r in rows])
+        return torch.as_tensor(out, device=X.device).reshape(X.shape[:-1] + shape)
+
+    def jacobian(self, X: torch.Tensor, mask=None) -> torch.Tensor:
         """Jacobians at sites ``X (..., n)`` -> ``(..., n_out, n)``: the user
-        callback, else reverse-mode autodiff (``DiffFn.jl:56-148``)."""
+        callback, else reverse-mode autodiff, and for a host function
+        central differences with ``fd_step`` (``DiffFn.jl:56-148``, the
+        JAX package's ``VecFun.jacobian`` term by term). ``mask`` limits a
+        host function's differences to the masked sites (zeros
+        elsewhere)."""
         n = X.shape[-1]
+        if self.host:
+            if self.jac is not None:
+                return self._host_callback(X, self.jac, (self.n_out, n))
+            return self._fd_jacobian(X, self.fd_step, mask)
         jac = self.jac if self.jac is not None else jacrev(self._fn_vec)
         return _flat_map(lambda x: jac(x).reshape((self.n_out, n)), X,
                          (self.n_out, n))
 
     def hessians(self, X: torch.Tensor) -> torch.Tensor:
         """Hessians at sites ``X (..., n)`` -> ``(..., n_out, n, n)``: the
-        user callback, else forward-over-reverse autodiff."""
+        user callback, else forward-over-reverse autodiff, and for a host
+        function central differences of central differences with step
+        ``fd_step ** 0.5`` (the JAX package's ``VecFun.hessians``)."""
         n = X.shape[-1]
+        if self.host:
+            if self.hess is not None:
+                return self._host_callback(X, self.hess, (self.n_out, n, n))
+            h = torch.tensor(self.fd_step ** 0.5, dtype=X.dtype, device=X.device)
+            E = h * torch.eye(n, dtype=X.dtype, device=X.device)
+            # (..., 2, n, n): x + h e_j, x - h e_j, then their Jacobians
+            Xj = torch.stack([X[..., None, :] + E, X[..., None, :] - E], dim=-3)
+            J = self._fd_jacobian(Xj, self.fd_step ** 0.5, None)   # (..., 2, n, m, n)
+            H = (J.select(-4, 0) - J.select(-4, 1)) / (2.0 * h)    # (..., n_j, m, n_k)
+            return H.transpose(-3, -2)
         hess = self.hess if self.hess is not None else jacfwd(jacrev(self._fn_vec))
         return _flat_map(lambda x: hess(x).reshape((self.n_out, n, n)), X,
                          (self.n_out, n, n))
+
+    def _fd_jacobian(self, X, step, mask):
+        """Central differences at every site of ``X (..., n)``: the 2n
+        stencil rows of all sites in one host pass."""
+        n = X.shape[-1]
+        h = torch.tensor(step, dtype=X.dtype, device=X.device)
+        E = h * torch.eye(n, dtype=X.dtype, device=X.device)
+        sites = torch.cat([X[..., None, :] + E, X[..., None, :] - E], dim=-2)
+        if mask is not None:
+            mask = _lead_mask(mask, X.shape[:-1])[..., None]
+        vals = host_pass((self,), sites, mask, kind="fd")         # (..., 2n, n_out)
+        return ((vals[..., :n, :] - vals[..., n:, :]) / (2.0 * h)).transpose(-1, -2)
+
+
+def _lead_mask(mask, lead):
+    """``mask`` with trailing axes added to broadcast against ``lead``."""
+    mask = torch.as_tensor(mask)
+    return mask.reshape(mask.shape + (1,) * (len(lead) - mask.dim())).expand(lead)
+
+
+def host_pass(fns, X: torch.Tensor, mask=None, kind: str = "eval") -> torch.Tensor:
+    """The host functions ``fns`` at the sites ``X (..., n)`` where ``mask``
+    holds (all sites without one): the sites and the mask go to the host in
+    one copy, each function is called at the masked rows (row-major order),
+    and the values come back in one copy, zeros at the other rows. Returns
+    ``(..., sum n_out)``, the functions' outputs side by side."""
+    lead, n = X.shape[:-1], X.shape[-1]
+    flat = X.reshape((-1, n))
+    if mask is None:
+        host = flat.detach().cpu().numpy()
+        sel = np.arange(host.shape[0])
+        m_host = None
+    else:
+        m = _lead_mask(mask, lead).reshape((-1, 1)).to(X.dtype)
+        host = torch.cat([flat, m], dim=-1).detach().cpu().numpy()
+        m_host = host[:, n] > 0.5
+        sel = np.flatnonzero(m_host)
+    rows = np.ascontiguousarray(host[sel, :n])
+    outs = []
+    for f in fns:
+        vals = np.zeros((host.shape[0], f.n_out), dtype=host.dtype)
+        if len(sel):
+            vals[sel] = f.call_host(rows, kind)
+        f.stats.round_trips += 1
+        if kind == "eval" and len(lead) >= 1:
+            per = (np.ones(host.shape[0], bool) if m_host is None else m_host)
+            f.stats.add_lanes(per.reshape((lead[0], -1)).sum(-1))
+        outs.append(vals)
+    out = torch.from_numpy(np.concatenate(outs, axis=-1)).to(X.device)
+    return out.reshape(lead + (out.shape[-1],))
 
 
 class MOP:
@@ -109,33 +273,47 @@ class MOP:
         self._A_ineq: list[np.ndarray] = []
         self._b_ineq: list[np.ndarray] = []
 
-    def _add(self, fn, n_out, model_cfg, role, jac, hess, max_evals):
+    def _add(self, fn, n_out, model_cfg, role, jac=None, hess=None,
+             max_evals=2 ** 31 - 1, host=False, can_batch=False):
         """Register a function; like the JAX package the default model is an
-        RBF surrogate (``RbfConfig()``)."""
+        RBF surrogate (``RbfConfig()``). ``host``/``can_batch``: a NumPy
+        black box (see the module docstring)."""
         cfg = check_ported(RbfConfig() if model_cfg is None else model_cfg)
         self.functions.append(VecFun(fn=fn, n_out=int(n_out), model_cfg=cfg,
                                      role=role, jac=jac, hess=hess,
-                                     max_evals=max_evals))
+                                     max_evals=max_evals, host=bool(host),
+                                     can_batch=bool(can_batch)))
         self._order.append(("fn", len(self.functions) - 1))
         return len(self.functions) - 1
 
     def add_objective(self, fn, n_out=1, model_cfg=None, jac=None, hess=None,
-                      max_evals=2 ** 31 - 1):
-        return self._add(fn, n_out, model_cfg, OBJECTIVE, jac, hess, max_evals)
+                      max_evals=2 ** 31 - 1, host=False, can_batch=False):
+        return self._add(fn, n_out, model_cfg, OBJECTIVE, jac, hess, max_evals,
+                         host, can_batch)
 
-    def add_exact_objective(self, fn, n_out=1, jac=None, hess=None,
-                            max_evals=2 ** 31 - 1):
-        """``add_exact_objective!`` — Jacobians from ``jac`` or autodiff."""
-        return self._add(fn, n_out, ExactConfig(), OBJECTIVE, jac, hess, max_evals)
+    def add_exact_objective(self, fn, n_out=1, jac=None, **kw):
+        """``add_exact_objective!`` — Jacobians from ``jac``, autodiff, or
+        for a host function finite differences."""
+        return self._add(fn, n_out, ExactConfig(), OBJECTIVE, jac, **kw)
+
+    def add_rbf_objective(self, fn, n_out=1, **cfg_kw):
+        """An objective in an RBF group configured by ``cfg_kw``."""
+        return self._add(fn, n_out, RbfConfig(**cfg_kw), OBJECTIVE)
+
+    def add_lagrange_objective(self, fn, n_out=1, **cfg_kw):
+        return self._add(fn, n_out, LagrangeConfig(**cfg_kw), OBJECTIVE)
+
+    def add_taylor_objective(self, fn, n_out=1, **cfg_kw):
+        return self._add(fn, n_out, TaylorConfig(**cfg_kw), OBJECTIVE)
 
     # -- nonlinear constraints (``MOP.jl:84-107``): ``fn(x) == 0`` / ``<= 0``
     def add_nl_eq_constraint(self, fn, n_out=1, model_cfg=None, jac=None,
-                             hess=None, max_evals=2 ** 31 - 1):
-        return self._add(fn, n_out, model_cfg, NL_EQ, jac, hess, max_evals)
+                             hess=None, **kw):
+        return self._add(fn, n_out, model_cfg, NL_EQ, jac, hess, **kw)
 
     def add_nl_ineq_constraint(self, fn, n_out=1, model_cfg=None, jac=None,
-                               hess=None, max_evals=2 ** 31 - 1):
-        return self._add(fn, n_out, model_cfg, NL_INEQ, jac, hess, max_evals)
+                               hess=None, **kw):
+        return self._add(fn, n_out, model_cfg, NL_INEQ, jac, hess, **kw)
 
     # -- linear constraints (``AbstractMOPInterface.jl:354-375``)
     def add_eq_constraint(self, A, b):
@@ -150,11 +328,13 @@ class MOP:
 
     # -- composite functions (``CompositeVecFun``, ``VecFun.jl``): outer
     #    phi(x, g(x)) over an expensive modelled inner g
-    def add_function(self, fn, n_out=1, model_cfg=None, jac=None, hess=None):
+    def add_function(self, fn, n_out=1, model_cfg=None, jac=None, hess=None,
+                     host=False, can_batch=False):
         """Register an *inner* function: modelled, but not itself an
         objective or constraint, for use in composites (``_add_function!``
         and ``RefVecFun`` sharing, ``MOP.jl:84-107``)."""
-        return self._add(fn, n_out, model_cfg, INNER, jac, hess, 2 ** 31 - 1)
+        return self._add(fn, n_out, model_cfg, INNER, jac, hess, host=host,
+                         can_batch=can_batch)
 
     def _add_composite(self, outer, inner_index, n_out, role):
         if not 0 <= inner_index < len(self.functions):
@@ -241,10 +421,30 @@ class GroupSpec:
 
     def eval_unscaled(self, X: torch.Tensor) -> torch.Tensor:
         """Concatenated member values at unscaled sites ``(..., n)``."""
-        return torch.cat([f.eval(X) for f in self.fns], dim=-1)
+        return self.eval_unscaled_batch_masked(X, None)
 
-    def jac_unscaled(self, X: torch.Tensor) -> torch.Tensor:
-        return torch.cat([f.jacobian(X) for f in self.fns], dim=-2)
+    @property
+    def any_host(self) -> bool:
+        return any(f.host for f in self.fns)
+
+    def eval_unscaled_batch_masked(self, X: torch.Tensor, mask,
+                                   kind: str = "eval") -> torch.Tensor:
+        """Concatenated member values at unscaled sites ``(..., n)``, the
+        host members called in one :func:`host_pass` at the rows where
+        ``mask`` holds (every row without one; zeros at the others). The
+        torch members are evaluated everywhere."""
+        if not self.any_host:
+            return torch.cat([f.eval(X) for f in self.fns], dim=-1)
+        hosts = tuple(f for f in self.fns if f.host)
+        vals = iter(torch.split(host_pass(hosts, X, mask, kind),
+                                [f.n_out for f in hosts], dim=-1))
+        return torch.cat([next(vals) if f.host else f.eval(X) for f in self.fns], dim=-1)
+
+    def jac_unscaled(self, X: torch.Tensor, mask=None) -> torch.Tensor:
+        """Concatenated member Jacobians; ``mask`` limits a host member's
+        finite differences to the masked sites."""
+        return torch.cat([f.jacobian(X, mask) if f.host else f.jacobian(X)
+                          for f in self.fns], dim=-2)
 
     def hess_unscaled(self, X: torch.Tensor) -> torch.Tensor:
         return torch.cat([f.hessians(X) for f in self.fns], dim=-3)
@@ -375,7 +575,8 @@ def compile_mop(mop: MOP, combine_models: bool = True) -> CompiledMOP:
         for j in range(i):
             g = mop.functions[j]
             if (f.fn is g.fn and f.n_out == g.n_out and f.jac is g.jac
-                    and f.hess is g.hess and f.model_cfg == g.model_cfg):
+                    and f.hess is g.hess and f.model_cfg == g.model_cfg
+                    and f.host == g.host and f.can_batch == g.can_batch):
                 canonical[i] = canonical[j]
                 break
 

@@ -42,6 +42,16 @@
 //   only its own earlier entries), and M^-1 entry by entry. The residual
 //   maxima are warp shuffles with the NaN-propagating nan_max.
 //
+// The exit instances (kExit = true) add the JAX package's residual early
+// exit (solve_qp(exit_eps=), morbit_tpu/ops/qp.py:216-238) per lane: after
+// every stage but the last, the residuals pr and dr of the rho rescale
+// (computed as the fixed-trip instances compute them) decide; a lane whose
+// max(pr, dr) is not above exit_eps (NaN included) leaves the stage loop
+// with its carry, and its stage count goes to `stages`. In the wide
+// instance the residuals are warp-reduced first, so the exit is
+// warp-uniform. The fixed-trip instances (kExit = false) compile to the
+// loop they had before the exit existed.
+//
 // Bound on an H100: at nv=21/m=42 a 400-step solve is ~1.9 Mflop per lane,
 // ~2 Gflop per launch at B=1024 against ~5 MB of operands: compute-bound
 // on paper (~0.03 ms at the fp32 peak). The wide instance is bound by
@@ -119,14 +129,15 @@ __device__ __forceinline__ bool chol(const T (&M)[NV][NV], T (&L)[NV][NV]) {
   return ok;
 }
 
-template <typename T, int NV, int M_>
+template <typename T, int NV, int M_, bool kExit>
 __global__ void __launch_bounds__(kThreads)
 qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
                const T* __restrict__ A, const T* __restrict__ l,
                const T* __restrict__ u, const T* __restrict__ rho0,
                T* __restrict__ z_out, T* __restrict__ zz_out,
                T* __restrict__ y_out, int B, int n_stages, int n_steps,
-               T sigma, T alpha, T rho_lo, T rho_hi) {
+               T sigma, T alpha, T rho_lo, T rho_hi, T exit_eps,
+               int* __restrict__ stages_out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
@@ -151,6 +162,7 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
   }
 
   const T one_m_alpha = T(1) - alpha;
+  int ran = n_stages;
   for (int stage = 0; stage < n_stages; ++stage) {
     // ---- M = P + sigma I + A' diag(rho) A (lower triangle, mirrored)
     T M[NV][NV];
@@ -261,6 +273,10 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
         for (int r = 0; r < M_; ++r) g = g + Ak[r][i] * y[r];
         dr = nan_max(dr, dabs(g));
       }
+      if (kExit && !(nan_max(pr, dr) > exit_eps)) {
+        ran = stage + 1;
+        break;
+      }
       T scale = dsqrt(nan_max(pr, T(1e-30)) / nan_max(dr, T(1e-30)));
       scale = clip(scale, T(0.1), T(10));
 #pragma unroll
@@ -268,6 +284,7 @@ qp_admm_kernel(const T* __restrict__ P, const T* __restrict__ q,
     }
   }
 
+  if (kExit) stages_out[b] = ran;
 #pragma unroll
   for (int i = 0; i < NV; ++i) z_out[(size_t)b * NV + i] = z[i];
 #pragma unroll
@@ -337,7 +354,7 @@ __device__ bool chol_warp(const T* M, T* L, int ld, int nv, int t) {
   return ok;
 }
 
-template <typename T>
+template <typename T, bool kExit>
 __global__ void __launch_bounds__(kLanesPerBlock * 32)
 qp_admm_wide_kernel(const T* __restrict__ P, const T* __restrict__ q,
                     const T* __restrict__ A, const T* __restrict__ l,
@@ -345,7 +362,7 @@ qp_admm_wide_kernel(const T* __restrict__ P, const T* __restrict__ q,
                     T* __restrict__ z_out, T* __restrict__ zz_out,
                     T* __restrict__ y_out, int B, int nv, int m,
                     int n_stages, int n_steps, T sigma, T alpha, T rho_lo,
-                    T rho_hi) {
+                    T rho_hi, T exit_eps, int* __restrict__ stages_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
   const int b = blockIdx.x * kLanesPerBlock + warp;
@@ -387,6 +404,7 @@ qp_admm_wide_kernel(const T* __restrict__ P, const T* __restrict__ q,
 
   const T one_m_alpha = T(1) - alpha;
   const int tri = nv * (nv + 1) / 2;
+  int ran = n_stages;
   for (int stage = 0; stage < n_stages; ++stage) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -506,6 +524,10 @@ qp_admm_wide_kernel(const T* __restrict__ P, const T* __restrict__ q,
         pr = nan_max(pr, __shfl_xor_sync(kFull, pr, off));
         dr = nan_max(dr, __shfl_xor_sync(kFull, dr, off));
       }
+      if (kExit && !(nan_max(pr, dr) > exit_eps)) {  // the same on every thread
+        ran = stage + 1;
+        break;
+      }
       T scale = dsqrt(nan_max(pr, T(1e-30)) / nan_max(dr, T(1e-30)));
       scale = clip(scale, T(0.1), T(10));
 #pragma unroll
@@ -514,6 +536,7 @@ qp_admm_wide_kernel(const T* __restrict__ P, const T* __restrict__ q,
     }
   }
 
+  if (kExit && t == 0) stages_out[b] = ran;
   if (t < nv) z_out[(size_t)b * nv + t] = z;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -525,22 +548,25 @@ qp_admm_wide_kernel(const T* __restrict__ P, const T* __restrict__ q,
   }
 }
 
-template <typename T>
+// kExit selects the exit instances; exit_eps and stages are read only there
+template <typename T, bool kExit>
 int launch(const T* P, const T* q, const T* A, const T* l, const T* u,
            const T* rho0, T* z, T* zz, T* y, int B, int nv, int m,
            int n_stages, int n_steps, double sigma, double alpha,
            double rho_lo, double rho_hi, long long smem_bytes,
-           cudaStream_t stream) {
+           cudaStream_t stream, double exit_eps = 0.0, int* stages = nullptr) {
   if (B <= 0) return 0;
   if (nv < 1 || m < 1 || nv > kMaxNV || m > kMaxM) return cudaErrorInvalidValue;
+  if (kExit && (stages == nullptr || !(exit_eps > 0.0))) return cudaErrorInvalidValue;
   const T s = T(sigma), a = T(alpha), lo = T(rho_lo), hi = T(rho_hi);
+  const T ee = T(exit_eps);
   const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
   if (nv == 3 && m == 6) {
-    qp_admm_kernel<T, 3, 6><<<grid, block, 0, stream>>>(
-        P, q, A, l, u, rho0, z, zz, y, B, n_stages, n_steps, s, a, lo, hi);
+    qp_admm_kernel<T, 3, 6, kExit><<<grid, block, 0, stream>>>(
+        P, q, A, l, u, rho0, z, zz, y, B, n_stages, n_steps, s, a, lo, hi, ee, stages);
   } else if (nv == 4 && m == 8) {
-    qp_admm_kernel<T, 4, 8><<<grid, block, 0, stream>>>(
-        P, q, A, l, u, rho0, z, zz, y, B, n_stages, n_steps, s, a, lo, hi);
+    qp_admm_kernel<T, 4, 8, kExit><<<grid, block, 0, stream>>>(
+        P, q, A, l, u, rho0, z, zz, y, B, n_stages, n_steps, s, a, lo, hi, ee, stages);
   } else {
     // the wrapper's size must cover this layout
     const long long need =
@@ -548,13 +574,14 @@ int launch(const T* P, const T* q, const T* A, const T* l, const T* u,
     if (smem_bytes < need || smem_bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
     if (smem_bytes > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          qp_admm_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          qp_admm_wide_kernel<T, kExit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem_bytes);
       if (e != cudaSuccess) return (int)e;
     }
     const dim3 grid_w((B + kLanesPerBlock - 1) / kLanesPerBlock), block_w(kLanesPerBlock * 32);
-    qp_admm_wide_kernel<T><<<grid_w, block_w, (size_t)smem_bytes, stream>>>(
-        P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi);
+    qp_admm_wide_kernel<T, kExit><<<grid_w, block_w, (size_t)smem_bytes, stream>>>(
+        P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi, ee,
+        stages);
   }
   return (int)cudaGetLastError();
 }
@@ -568,9 +595,9 @@ int qp_admm_f32(const float* P, const float* q, const float* A,
                 float* zz, float* y, int B, int nv, int m, int n_stages,
                 int n_steps, double sigma, double alpha, double rho_lo,
                 double rho_hi, long long smem_bytes, void* stream) {
-  return launch<float>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
-                       n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
-                       (cudaStream_t)stream);
+  return launch<float, false>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
+                              n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
+                              (cudaStream_t)stream);
 }
 
 int qp_admm_f64(const double* P, const double* q, const double* A,
@@ -579,9 +606,32 @@ int qp_admm_f64(const double* P, const double* q, const double* A,
                 int n_stages, int n_steps, double sigma, double alpha,
                 double rho_lo, double rho_hi, long long smem_bytes,
                 void* stream) {
-  return launch<double>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
-                        n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
-                        (cudaStream_t)stream);
+  return launch<double, false>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
+                               n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
+                               (cudaStream_t)stream);
+}
+
+// the exit instances: exit_eps > 0, and the stages each lane ran in `stages`
+int qp_admm_exit_f32(const float* P, const float* q, const float* A,
+                     const float* l, const float* u, const float* rho0, float* z,
+                     float* zz, float* y, int* stages, int B, int nv, int m,
+                     int n_stages, int n_steps, double sigma, double alpha,
+                     double rho_lo, double rho_hi, double exit_eps,
+                     long long smem_bytes, void* stream) {
+  return launch<float, true>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
+                             n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
+                             (cudaStream_t)stream, exit_eps, stages);
+}
+
+int qp_admm_exit_f64(const double* P, const double* q, const double* A,
+                     const double* l, const double* u, const double* rho0,
+                     double* z, double* zz, double* y, int* stages, int B, int nv,
+                     int m, int n_stages, int n_steps, double sigma, double alpha,
+                     double rho_lo, double rho_hi, double exit_eps,
+                     long long smem_bytes, void* stream) {
+  return launch<double, true>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
+                              n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
+                              (cudaStream_t)stream, exit_eps, stages);
 }
 
 }  // extern "C"

@@ -33,6 +33,10 @@ class ModelContext(NamedTuple):
     # family may skip work that no kept lane needs; every lane's values
     # stay what they would be without it.
     active: Optional[torch.Tensor] = None
+    # (B, 2) per-lane PRNG key of this group's pass (``ops/prng.py``; the
+    # round-4 random candidates of ``RbfConfig(use_max_points=True)``),
+    # None when no group draws
+    key: Optional[torch.Tensor] = None
 
 
 class SurrogateOps:

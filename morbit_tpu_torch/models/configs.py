@@ -3,9 +3,8 @@
 Mirrors the JAX package's ``morbit_tpu/models/configs.py``: one config
 type per model family of the reference (``ExactModel.jl``,
 ``RbfModel.jl``, ``TaylorModel.jl``, ``LagrangeModel.jl``), with the JAX
-package's fields, defaults and checks. ``RbfConfig(use_max_points=True)``
-raises ``NotImplementedError`` (ROADMAP queue 1 item 11), as does a config
-type this package does not know.
+package's fields, defaults and checks. A config type this package does
+not know raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -160,15 +159,7 @@ SurrogateConfig = Union[ExactConfig, RbfConfig, TaylorConfig, LagrangeConfig]
 
 def check_ported(cfg):
     """Return ``cfg`` if this package can solve it, else raise."""
-    if isinstance(cfg, (ExactConfig, TaylorConfig, LagrangeConfig)):
-        return cfg
-    if isinstance(cfg, RbfConfig):
-        if cfg.use_max_points:
-            raise NotImplementedError(
-                "RbfConfig(use_max_points=True) is not ported to "
-                "morbit_tpu_torch yet: its random round-4 candidates come from "
-                "jax.random in the reference, and they arrive with ROADMAP "
-                "queue 1 item 11")
+    if isinstance(cfg, (ExactConfig, RbfConfig, TaylorConfig, LagrangeConfig)):
         return cfg
     raise NotImplementedError(
         f"{type(cfg).__name__} surrogates are not ported to morbit_tpu_torch "

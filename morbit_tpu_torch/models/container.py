@@ -12,6 +12,12 @@ that group's rounds-1-3 training set (``_exploit_other_rbf_metas!``,
 ``RbfModel.jl:311-342``). A composite ``phi(x, g(x))`` takes its value
 ``phi(untransform(x_s), m_g(x_s))`` from its inner group's model and its
 Jacobian by the chain rule ``D_x phi diag(1/scale) + D_g phi J_m``.
+
+A group with host functions (``VecFun.host``) is evaluated on the host at
+the rows whose results are kept only: the lanes the caller names
+(``active``), the sites not found in the database, the missing rows of
+``eval_missing``. Torch groups are evaluated at every lane as before, their
+results selected away where a lane discards them.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from morbit_tpu_torch.models.exact import ExactOps, broadcast_scaler
 from morbit_tpu_torch.models.lagrange import LagrangeOps
 from morbit_tpu_torch.models.rbf_model import RbfOps
 from morbit_tpu_torch.models.taylor import TaylorOps
+from morbit_tpu_torch.ops import prng
 from morbit_tpu_torch.utils.tree import tree_where
 
 
@@ -67,6 +74,9 @@ class SurrogateContainer:
         self.db_capacity = db_capacity
         self.device = device
         self.ops = tuple(make_ops(g, mop.n_vars, dtype, ac) for g in mop.groups)
+        #: whether a group draws random numbers (``RbfConfig.use_max_points``)
+        self.draws = any(isinstance(g.cfg, RbfConfig) and g.cfg.use_max_points
+                         for g in mop.groups)
         # index of the earlier RBF group with the same geometry signature
         # whose rounds-1-3 set each group reuses, or None
         self.reuse_from = []
@@ -92,15 +102,18 @@ class SurrogateContainer:
             for g, ops in zip(self.mop.groups, self.ops))
 
     # --------------------------------------------------------- true evaluation
-    def evaluate_true(self, states, x_s, scal):
+    def evaluate_true(self, states, x_s, scal, active=None):
         """Evaluate every group's true functions at one scaled site per
         lane, insert the results and bump the counters
         (``algorithm.jl:760-764``). Returns (fx, c_e, c_i, states,
-        x_indices (B, G))."""
+        x_indices (B, G)). ``active`` (B,): the lanes whose results the
+        caller keeps; a host group is called at those lanes only (zeros
+        elsewhere)."""
         x = scaling.untransform(scal, x_s)
         vals, new_states, x_indices = [], [], []
         for g, st in zip(self.mop.groups, states):
-            v = g.eval_unscaled(x)
+            v = (g.eval_unscaled_batch_masked(x, active) if g.any_host
+                 else g.eval_unscaled(x))
             db, idx = dbm.add_evaluated(st.db, x_s, v)
             vals.append(v)
             x_indices.append(idx)
@@ -111,7 +124,8 @@ class SurrogateContainer:
     def ensure_evaluated(self, states, x_s, scal):
         """Like :meth:`evaluate_true`, but reuse an evaluated database row
         holding the same site (``ensure_contains_values!``,
-        ``algorithm.jl:289-295``)."""
+        ``algorithm.jl:289-295``); a host group is called at the lanes
+        without one only."""
         x = scaling.untransform(scal, x_s)
         vals, new_states, x_indices = [], [], []
         for g, st in zip(self.mop.groups, states):
@@ -120,7 +134,8 @@ class SurrogateContainer:
                     & db.evaluated)
             found = hits.any(-1)
             found_id = torch.argmax(hits.to(torch.int32), dim=-1).to(torch.int32)
-            v_new = g.eval_unscaled(x)
+            v_new = (g.eval_unscaled_batch_masked(x, ~found) if g.any_host
+                     else g.eval_unscaled(x))
             v_old = torch.gather(db.Y, 1, found_id.long()[:, None, None]
                                  .expand(-1, 1, g.m))[:, 0]
             v = torch.where(found[:, None], v_old, v_new)
@@ -134,9 +149,17 @@ class SurrogateContainer:
                 torch.stack(x_indices, dim=-1))
 
     # ------------------------------------------------------------ model update
-    def _contexts(self, states, x_s, x_indices, delta, scal, active=None):
+    def _contexts(self, states, x_s, x_indices, delta, scal, active=None, key=None):
+        """One context per group. When a group draws, ``key`` (B, 2) is
+        split into one key per group (``PRNGKey(0)`` without one), as the
+        JAX package splits it (container.py:146-156)."""
+        keys = [None] * len(states)
+        if self.draws:
+            if key is None:
+                key = prng.prng_key(0, x_s.device).expand(x_s.shape[0], 2)
+            keys = prng.split(key, len(states)).unbind(1)
         return [ModelContext(x_s=x_s, x_index=x_indices[:, i], delta=delta,
-                             n_evals=st.n_evals, scal=scal, active=active)
+                             n_evals=st.n_evals, scal=scal, active=active, key=keys[i])
                 for i, st in enumerate(states)]
 
     def update(self, states, x_s, x_indices, delta, ensure_fully_linear,
@@ -160,15 +183,15 @@ class SurrogateContainer:
         return self.ops[gi].prepare(st.model, st.db, ctx, ensure_fully_linear)
 
     def update_or_improve(self, states, x_s, x_indices, delta, improve_flag,
-                          scal, efl_flag, active=None):
+                          scal, efl_flag, active=None, key=None):
         """Update or improve, selected per lane by ``improve_flag``
         (``algorithm.jl:682-688``): both phase-1 variants run and are
         selected (in one pass where the family offers
         ``prepare_or_improve``), then evaluation and fitting run once.
         ``efl_flag`` is the per-lane ensure-fully-linear flag of criticality
         rebuild passes; ``active`` marks the lanes whose update the caller
-        keeps."""
-        ctxs = self._contexts(states, x_s, x_indices, delta, scal, active)
+        keeps; ``key`` (B, 2) the pass's PRNG key where a group draws."""
+        ctxs = self._contexts(states, x_s, x_indices, delta, scal, active, key)
         mid = []
         for gi, (ops, st, ctx) in enumerate(zip(self.ops, states, ctxs)):
             if hasattr(ops, "prepare_or_improve"):
@@ -183,15 +206,20 @@ class SurrogateContainer:
         return self._finish_two_phase(mid, ctxs)
 
     def _finish_two_phase(self, mid, ctxs):
-        scal = ctxs[0].scal
+        scal, keep = ctxs[0].scal, ctxs[0].active
         out = []
         for g, ops, st, ctx in zip(self.mop.groups, self.ops, mid, ctxs):
-            fn = lambda X, g=g: g.eval_unscaled(
-                scaling.untransform(broadcast_scaler(scal, X), X))
+            unscaled = lambda X: scaling.untransform(broadcast_scaler(scal, X), X)
+            fn = lambda X, g=g: g.eval_unscaled(unscaled(X))
+            # a host group: the missing rows of the lanes the caller keeps
+            batch_fn = None
+            if g.any_host:
+                batch_fn = lambda X, missing, g=g: g.eval_unscaled_batch_masked(
+                    unscaled(X), missing if keep is None else missing & keep[:, None])
             # tail window only for large databases (``eval_missing``)
             win = ops.eval_window if (self.db_capacity >= 256 and
                                       self.db_capacity >= 8 * ops.eval_window) else None
-            db, n_new = dbm.eval_missing(st.db, fn, window=win)
+            db, n_new = dbm.eval_missing(st.db, fn, window=win, eval_batch_masked=batch_fn)
             st = st._replace(db=db, n_evals=st.n_evals + n_new)
             out.append(st._replace(model=ops.fit(st.model, st.db, ctx)))
         return tuple(out)

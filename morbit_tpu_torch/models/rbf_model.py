@@ -6,7 +6,11 @@ training-set construction (``RbfModel.jl:518-655``) run as kernel K2 and
 round 4 (``:352-499``) as kernel K3, both routed by
 :mod:`morbit_tpu_torch.ops.prepare_fused`; the fit is the masked batched KKT
 solve of :mod:`morbit_tpu_torch.ops.rbf`. Model improvement steps
-(``:699-732``) consume one stored improving direction per call.
+(``:699-732``) consume one stored improving direction per call. With
+``use_max_points`` round 4 also tries ``10 * max_points`` random in-box
+candidates after the database rows, drawn from the context's key as the
+JAX package draws them (:mod:`morbit_tpu_torch.ops.prng`); the ones it
+accepts become new unevaluated sites.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 
 from morbit_tpu_torch.core import database as dbm
 from morbit_tpu_torch.models.base import ModelContext, SurrogateOps
-from morbit_tpu_torch.ops import prepare_fused
+from morbit_tpu_torch.ops import prepare_fused, prng
 from morbit_tpu_torch.ops.geometry import intersect_box, local_bounds
 from morbit_tpu_torch.ops.prepare_coord import round3_proposal
 from morbit_tpu_torch.ops.rbf import (EXPONENT_KERNELS, RbfFit, eval_rbf,
@@ -62,7 +66,9 @@ class RbfOps(SurrogateOps):
         # the last training row, rbf_model.py:261-270 of the JAX package)
         self.cap_train = max(self.max_points, n_vars + 1) + n_vars
         self.train_stamp_len = self.cap_train + 1
-        self.eval_window = n_vars + 1
+        #: random round-4 candidates (``use_max_points``, ``RbfModel.jl:408-417``)
+        self.n_rand = 10 * self.max_points if cfg.use_max_points else 0
+        self.eval_window = n_vars + 1 + self.n_rand
         self.kernel = cfg.kernel
         self.poly_deg = cfg.polynomial_degree
         self.pd = poly_dim(n_vars, self.poly_deg)
@@ -166,7 +172,7 @@ class RbfOps(SurrogateOps):
         idx, count = _masked_append(idx, count, r3_idx, n_new)
 
         if cfg.optimized_sampling and self.max_points > n + 1:
-            idx, count = self._round4(db, idx, count, lb2, ub2, ctx)
+            db, idx, count = self._round4(db, idx, count, lb2, ub2, ctx)
 
         return state._replace(idx=idx, n_train=count,
                               fully_linear=fully_linear.to(torch.bool),
@@ -175,19 +181,30 @@ class RbfOps(SurrogateOps):
 
     def _round4(self, db, idx, count, lb2, ub2, ctx):
         """Accept extra in-box database rows while the Cholesky factor of
-        ``Z' Phi Z`` stays bounded (``_rbf_round4``, ``RbfModel.jl:352-499``);
-        the first ``min(cap, 10 max_points)`` rows are scanned."""
+        ``Z' Phi Z`` stays bounded (``_rbf_round4``, ``RbfModel.jl:352-499``).
+        The candidates are the database rows and, with ``use_max_points``,
+        ``n_rand`` random in-box points after them; the first ``scan_cap =
+        min(cap, 10 max_points) + n_rand`` are scanned, as in the JAX package
+        (rbf_model.py:546-551): past ``10 max_points`` rows the scan ends
+        inside the database and the random points are not reached. Returns
+        the database (the accepted random points appended unevaluated), the
+        training rows and their count."""
         cap = db.data.shape[-2]
         dev = idx.device
-        C = min(cap, 10 * self.max_points)
-        X = db.X[:, :C]
-        rows = torch.arange(C, device=dev)
+        C = min(cap, 10 * self.max_points) + self.n_rand
+        X = db.X[:, :min(C, cap)]
+        rows = torch.arange(X.shape[1], device=dev)
         in_box = (((X >= lb2[:, None, :]) & (X <= ub2[:, None, :])).all(-1)
                   & (rows[None, :] < db.count[:, None]))
         live = torch.arange(self.cap_train, device=dev)[None, :] < count[:, None]
         in_training = ((rows[None, :, None] == idx[:, None, :])
                        & live[:, None, :]).any(-1)
         cand = in_box & ~in_training
+        if C > cap:
+            u = prng.uniform(ctx.key, (self.n_rand, self.n_vars), self.dtype)
+            rand = (lb2[:, None, :] + (ub2 - lb2)[:, None, :] * u)[:, :C - cap]
+            X = torch.cat([X, rand], dim=1)
+            cand = torch.cat([cand, torch.ones_like(cand[:, :1]).expand(-1, C - cap)], 1)
         init_sites, _ = dbm.get_rows(db, idx)
         param = self._resolve_param(ctx.delta)
         if self.kernel in EXPONENT_KERNELS:
@@ -203,12 +220,26 @@ class RbfOps(SurrogateOps):
             chol_pivot=self.cfg.theta_pivot_cholesky ** 2)
         # append accepted rows in database order: slot j takes the row whose
         # acceptance rank lands on j
-        pos = count[:, None] + torch.cumsum(accepted.to(torch.int32), -1) - 1
+        acc_db = accepted[:, :cap]
+        pos = count[:, None] + torch.cumsum(acc_db.to(torch.int32), -1) - 1
         slots = torch.arange(self.cap_train, device=dev)
-        match = accepted[:, None, :] & (pos[:, None, :] == slots[None, :, None])
+        match = acc_db[:, None, :] & (pos[:, None, :] == slots[None, :, None])
         row_for_slot = torch.argmax(match.to(torch.int32), dim=-1).to(torch.int32)
         idx = torch.where(match.any(-1), row_for_slot, idx)
-        return idx, (count + accepted.sum(-1, dtype=torch.int32)).to(torch.int32)
+        count = (count + acc_db.sum(-1, dtype=torch.int32)).to(torch.int32)
+        if C > cap:
+            # the accepted random points become new sites in order, each
+            # taking the next training slot (rbf_model.py:565-582)
+            acc_r = accepted[:, cap:]
+            db, new_id = dbm.add_sites(db, X[:, cap:], acc_r)
+            slot = torch.clamp(count[:, None] + torch.cumsum(acc_r.to(torch.int32), -1) - 1,
+                               0, self.cap_train - 1)
+            match = acc_r[:, None, :] & (slot[:, None, :] == slots[None, :, None])
+            # the last write to a slot wins, as in the sequential loop
+            last = match.shape[-1] - 1 - torch.argmax(match.flip(-1).to(torch.int32), dim=-1)
+            idx = torch.where(match.any(-1), torch.gather(new_id, 1, last), idx)
+            count = (count + acc_r.sum(-1, dtype=torch.int32)).to(torch.int32)
+        return db, idx, count
 
     def prepare_with_reuse(self, state, db, ctx: ModelContext, other_state,
                            other_db):
@@ -240,7 +271,7 @@ class RbfOps(SurrogateOps):
                                dirs_count=other_state.dirs_count)
         if self.cfg.optimized_sampling and self.max_points > n + 1:
             _, _, _, lb2, ub2 = self._boxes(ctx)
-            idx, count = self._round4(db, state.idx, state.n_train, lb2, ub2, ctx)
+            db, idx, count = self._round4(db, state.idx, state.n_train, lb2, ub2, ctx)
             state = state._replace(idx=idx, n_train=count)
         return state, db
 

@@ -52,12 +52,18 @@ def _rho_vec(l, u, rho: float):
 def solve_qp(P, q, A, l, u, iters: int = 400, rho: float = 0.1,
              sigma: float | None = None, alpha: float = 1.6,
              polish: bool = True, adapt_every: int = 100,
-             eps: float | None = None) -> QPSolution:
+             eps: float | None = None, exit_eps: float = 0.0) -> QPSolution:
     """Solve a batch of dense QPs with ``iters`` fixed ADMM trips.
 
     One KKT factorization ``M = P + sigma I + A' diag(rho) A`` per rho-stage
     (OSQP, Stellato et al. 2020), ``rho`` rescaled from the residual ratio
-    every ``adapt_every`` trips, then the fixed-shape polish."""
+    every ``adapt_every`` trips, then the fixed-shape polish.
+
+    ``exit_eps > 0`` (with more than one stage) is the JAX package's
+    stage-granular early exit, per lane: a lane whose residuals after a
+    stage are both at most ``exit_eps`` runs no later stage
+    (:func:`morbit_tpu_torch.ops.qp_lane.admm_stages_exit`). At 0, the
+    default, every lane runs the fixed trips."""
     nv = q.shape[-1]
     m = A.shape[-2]
     dtype = q.dtype
@@ -77,11 +83,17 @@ def solve_qp(P, q, A, l, u, iters: int = 400, rho: float = 0.1,
         eps = 1e-6 if f32 else 1e-8
     rho_lo, rho_hi = (1e-3, 1e4) if f32 else (1e-6, 1e6)
 
-    z, zz, y = qp_lane.admm_stages(
-        P.contiguous(), q.contiguous(), A, l.contiguous(), u.contiguous(),
-        rho_v0.contiguous(), n_stages=max(1, iters // adapt_every),
-        n_steps=min(adapt_every, iters), sigma=float(sigma),
-        alpha=float(alpha), rho_lo=rho_lo, rho_hi=rho_hi)
+    n_stages = max(1, iters // adapt_every)
+    stage_kw = dict(n_stages=n_stages, n_steps=min(adapt_every, iters),
+                    sigma=float(sigma), alpha=float(alpha), rho_lo=rho_lo,
+                    rho_hi=rho_hi)
+    data = (P.contiguous(), q.contiguous(), A, l.contiguous(), u.contiguous(),
+            rho_v0.contiguous())
+    if exit_eps and n_stages > 1:
+        z, zz, y, _ = qp_lane.admm_stages_exit(*data, exit_eps=float(exit_eps),
+                                               **stage_kw)
+    else:
+        z, zz, y = qp_lane.admm_stages(*data, **stage_kw)
 
     if polish:
         z, y = _polish(P, q, A, l, u, z, y, delta=1e-5 if f32 else 1e-8)

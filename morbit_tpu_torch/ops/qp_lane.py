@@ -12,6 +12,13 @@ batch of tiny QPs and returns ``(z, zz, y)``:
 * on CPU tensors it runs :func:`admm_stages_plain`, the batched torch
   version of the JAX package's ``_make_stage`` loop (``ops/qp.py:40-110``).
 
+:func:`admm_stages_exit` runs the same stages with the JAX package's
+residual early exit (``solve_qp(exit_eps=)``, ``ops/qp.py:216-238``), per
+lane: after a stage, a lane whose ``max(pr, dr)`` (the residuals of the rho
+rescale) is not above ``exit_eps`` stops and keeps its carry. It also
+returns the stages each lane ran. The fixed-trip path above is a separate
+instance of the kernel, which tests nothing.
+
 There is no fallback between the two: a CUDA tensor launches the kernel or
 raises.
 """
@@ -25,6 +32,7 @@ import torch
 from morbit_tpu_torch.ops import cuda_build
 from morbit_tpu_torch.ops.batched_linalg import (GJ_MAX_K, chol_factor,
                                                  chol_solve)
+from morbit_tpu_torch.utils.tree import lane_where
 
 #: largest problem the kernel takes (a lane's variables and its rows spread
 #: over one warp, two rows a thread; the 30-variable descent LP with three
@@ -74,6 +82,26 @@ def admm_stages_plain(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
     order. At <= 32 bits and ``nv <= GJ_MAX_K`` the factorization is the
     unrolled ``chol_factor``/``chol_solve``, as ``unroll_chol`` selects in
     JAX (qp.py:202); otherwise ``torch.linalg`` Cholesky."""
+    return _stages_plain(P, q, A, l, u, rho0, n_stages=n_stages, n_steps=n_steps,
+                         sigma=sigma, alpha=alpha, rho_lo=rho_lo, rho_hi=rho_hi)[:3]
+
+
+def admm_stages_exit_plain(P, q, A, l, u, rho0, *, exit_eps: float, n_stages: int,
+                           n_steps: int, sigma: float, alpha: float, rho_lo: float,
+                           rho_hi: float):
+    """Twin of the kernel's exit instance: the stages of
+    :func:`admm_stages_plain`, a lane frozen (its carry masked) once
+    ``max(pr, dr)`` after a stage is not above ``exit_eps``, as the JAX
+    package's ``while_loop`` under ``vmap`` (NaN residuals exit too).
+    Returns ``(z, zz, y, stages)``, ``stages`` the (B,) int32 stages each
+    lane ran."""
+    return _stages_plain(P, q, A, l, u, rho0, n_stages=n_stages, n_steps=n_steps,
+                         sigma=sigma, alpha=alpha, rho_lo=rho_lo, rho_hi=rho_hi,
+                         exit_eps=float(exit_eps))
+
+
+def _stages_plain(P, q, A, l, u, rho0, *, n_stages, n_steps, sigma, alpha, rho_lo,
+                  rho_hi, exit_eps=0.0):
     B, nv = q.shape
     m = A.shape[-2]
     dtype = q.dtype
@@ -84,7 +112,10 @@ def admm_stages_plain(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
     zz = torch.clamp(torch.zeros_like(l), l, u)
     y = torch.zeros_like(l)
     rho = rho0
-    for _ in range(n_stages):
+    running = torch.ones((B,), dtype=torch.bool, device=q.device)
+    stages = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    for s in range(n_stages):
+        carry = (z, zz, y)
         M = P + sigma * eye + (At * rho[..., None, :]) @ A
         L, bad = _chol(M, unroll)
         jitter = 1e-3 * (M.diagonal(dim1=-2, dim2=-1).sum(-1) / nv + 1.0)
@@ -106,7 +137,17 @@ def admm_stages_plain(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
         scale = torch.sqrt(torch.clamp(pr, min=1e-30) / torch.clamp(dr, min=1e-30))
         scale = torch.clamp(scale, 0.1, 10.0)
         rho = torch.clamp(rho * scale[..., None], rho_lo, rho_hi)
-    return z, zz, y
+        if not exit_eps:
+            continue
+        # the exit: lanes that stopped before this stage keep their carry
+        z, zz, y = (lane_where(running, a, b) for a, b in zip((z, zz, y), carry))
+        stages = stages + running.to(torch.int32)
+        running = running & (torch.maximum(pr, dr) > exit_eps)
+        if s + 1 < n_stages and not bool(running.any()):
+            break
+    if not exit_eps:
+        stages = torch.full_like(stages, n_stages)
+    return z, zz, y, stages
 
 
 # ---------------------------------------------------------------- CUDA kernel
@@ -134,15 +175,38 @@ def _library():
     if _lib is None:
         argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                     + [ctypes.c_double] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
+        # the exit instances take the stages buffer after y, exit_eps after rho_hi
+        exit_types = argtypes[:9] + [ctypes.c_void_p] + argtypes[9:18] \
+            + [ctypes.c_double] + argtypes[18:]
         _lib = cuda_build.load(SOURCE, {"qp_admm_f32": argtypes,
-                                        "qp_admm_f64": argtypes})
+                                        "qp_admm_f64": argtypes,
+                                        "qp_admm_exit_f32": exit_types,
+                                        "qp_admm_exit_f64": exit_types})
     return _lib
 
 
 def admm_stages_cuda(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
                      sigma: float, alpha: float, rho_lo: float,
                      rho_hi: float):
-    """Launch the ``qp_admm`` kernel on the current stream."""
+    """Launch the ``qp_admm`` kernel's fixed-trip instance on the current
+    stream."""
+    return _launch(P, q, A, l, u, rho0, n_stages, n_steps, sigma, alpha, rho_lo,
+                   rho_hi, 0.0)[:3]
+
+
+def admm_stages_exit_cuda(P, q, A, l, u, rho0, *, exit_eps: float, n_stages: int,
+                          n_steps: int, sigma: float, alpha: float, rho_lo: float,
+                          rho_hi: float):
+    """Launch the ``qp_admm`` kernel's exit instance on the current stream;
+    returns ``(z, zz, y, stages)`` as :func:`admm_stages_exit_plain`."""
+    if not exit_eps > 0:
+        raise ValueError(f"the exit instance takes exit_eps > 0, got {exit_eps!r}")
+    return _launch(P, q, A, l, u, rho0, n_stages, n_steps, sigma, alpha, rho_lo,
+                   rho_hi, float(exit_eps))
+
+
+def _launch(P, q, A, l, u, rho0, n_stages, n_steps, sigma, alpha, rho_lo, rho_hi,
+            exit_eps):
     global launches
     B, nv = q.shape
     m = A.shape[-2]
@@ -160,15 +224,22 @@ def admm_stages_cuda(P, q, A, l, u, rho0, *, n_stages: int, n_steps: int,
     z = torch.empty_like(q)
     zz = torch.empty_like(l)
     y = torch.empty_like(l)
-    fn = _library().qp_admm_f32 if dt == torch.float32 else _library().qp_admm_f64
     ptr = cuda_build.ptr
-    err = fn(ptr(P), ptr(q), ptr(A), ptr(l_s), ptr(u_s), ptr(rho0),
-             ptr(z), ptr(zz), ptr(y), B, nv, m, n_stages, n_steps,
-             sigma, alpha, rho_lo, rho_hi, smem, cuda_build.stream_of(q))
+    head = (ptr(P), ptr(q), ptr(A), ptr(l_s), ptr(u_s), ptr(rho0), ptr(z), ptr(zz), ptr(y))
+    dims = (B, nv, m, n_stages, n_steps, sigma, alpha, rho_lo, rho_hi)
+    t = "f32" if dt == torch.float32 else "f64"
+    if exit_eps:
+        stages = torch.empty((B,), dtype=torch.int32, device=q.device)
+        err = getattr(_library(), f"qp_admm_exit_{t}")(
+            *head, ptr(stages), *dims, exit_eps, smem, cuda_build.stream_of(q))
+    else:
+        stages = None
+        err = getattr(_library(), f"qp_admm_{t}")(*head, *dims, smem,
+                                                  cuda_build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"qp_admm kernel launch failed: cudaError_t {err}")
     launches += 1
-    return z, zz, y
+    return z, zz, y, stages
 
 
 def admm_stages(P, q, A, l, u, rho0, **kw):
@@ -179,3 +250,13 @@ def admm_stages(P, q, A, l, u, rho0, **kw):
     if q.device.type == "cpu":
         return admm_stages_plain(P, q, A, l, u, rho0, **kw)
     return admm_stages_cuda(P, q, A, l, u, rho0, **kw)
+
+
+def admm_stages_exit(P, q, A, l, u, rho0, **kw):
+    """The rho-stages with the per-lane residual exit (``exit_eps`` > 0):
+    ``(z, zz, y, stages)``. CPU tensors take :func:`admm_stages_exit_plain`;
+    CUDA tensors launch the kernel's exit instance
+    (:func:`admm_stages_exit_cuda`) or raise."""
+    if q.device.type == "cpu":
+        return admm_stages_exit_plain(P, q, A, l, u, rho0, **kw)
+    return admm_stages_exit_cuda(P, q, A, l, u, rho0, **kw)

@@ -16,8 +16,11 @@ reference's ``Threads.@threads`` benchmark loop,
 
 Each stage is a host loop of :meth:`Solver.iterate` trips with one host
 sync a trip, like ``Solver.solve_from_state`` with a trip bound. The JAX
-package's ``mesh`` (sharding over devices) and ``CompactedMultistart`` are
-not ported yet.
+package's ``mesh`` (sharding over devices; the runners take the argument
+and raise, naming ROADMAP queue 1 item 18) and ``CompactedMultistart`` are
+not ported yet. Host (NumPy) functions evaluate each lane's kept sites
+only, so compaction and the fleet loop send the same sites to the host as
+the plain runner.
 """
 
 from __future__ import annotations
@@ -37,6 +40,13 @@ from morbit_tpu_torch.core.mop import CompiledMOP, compile_mop
 from morbit_tpu_torch.utils.tree import lane_where, tree_map
 
 
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "the mesh argument (sharding the lanes over devices) is not ported to "
+            "morbit_tpu_torch yet (ROADMAP queue 1 item 18)")
+
+
 def build_solver(mop, algo_config: Optional[AlgorithmConfig] = None,
                  dtype=torch.float32, device=None) -> Solver:
     ac = algo_config or AlgorithmConfig()
@@ -46,10 +56,12 @@ def build_solver(mop, algo_config: Optional[AlgorithmConfig] = None,
 
 def multistart_optimize(mop, x0_batch,
                         algo_config: Optional[AlgorithmConfig] = None,
-                        dtype=torch.float32, device=None) -> OptimizeResult:
+                        dtype=torch.float32, device=None, mesh=None) -> OptimizeResult:
     """Run one full optimize() per row of ``x0_batch`` (B, n), batched on
     one device (CUDA unless ``device`` says otherwise). Every field of the
-    result carries the lane axis first."""
+    result carries the lane axis first. ``mesh`` raises
+    ``NotImplementedError`` (ROADMAP queue 1 item 18)."""
+    _no_mesh(mesh)
     return build_solver(mop, algo_config, dtype, device).solve(x0_batch)
 
 
@@ -232,7 +244,8 @@ class StagedMultistart:
     def __init__(self, mop, algo_config: Optional[AlgorithmConfig] = None,
                  dtype=torch.float32, schedule: Optional[tuple] = None,
                  fleet: Optional[bool] = None, widths: Optional[tuple] = None,
-                 device=None):
+                 device=None, mesh=None):
+        _no_mesh(mesh)
         ac = algo_config or AlgorithmConfig()
         if fleet is None:
             fleet = fleet_eligible(ac)
@@ -404,8 +417,9 @@ def suggest_schedule(n_iterations, max_iter: int, n_stages: int = 5) -> tuple:
 
 def staged_multistart(mop, x0_batch, algo_config: Optional[AlgorithmConfig] = None,
                       dtype=torch.float32, schedule: Optional[tuple] = None,
-                      widths: Optional[tuple] = None, device=None) -> OptimizeResult:
+                      widths: Optional[tuple] = None, device=None,
+                      mesh=None) -> OptimizeResult:
     """One-shot :class:`StagedMultistart` (build the runner once to run
     several batches)."""
     return StagedMultistart(mop, algo_config, dtype, schedule, widths=widths,
-                            device=device)(x0_batch)
+                            device=device, mesh=mesh)(x0_batch)

@@ -10,7 +10,10 @@ CUDA events; and K5 (``admm_iterations_cuda``, no caller) at (n, m) =
 (3, 6) and (21, 42), 100 steps, float32 and float64, B=1024, on
 ``chip_smoke.admm_iterations_case``. It prints a SHA-256 of K3's outputs
 (``accepted``, N), of K4's Gram bytes and of K5's (z, zz, y), so that the
-lines of the two checkouts show whether their kernels agree to the bit.
+lines of the two checkouts show whether their kernels agree to the bit,
+and of K1's fixed-trip (z, zz, y) at (21, 42) float32 and at (3, 6)
+float32 and float64 (``K1_nv21_m42_sha256``, ``K1_nv3_m6_f32_sha256``,
+``K1_nv3_m6_f64_sha256``).
 K4 is timed over ten launches back to back and K5 over five (their
 wrappers' host time exceeds or nears the kernels'). ``--inputs`` also times K3
 on the wide path's recorded inputs (``round4_phases --record``). With
@@ -76,6 +79,18 @@ def time_here(wide_batch: bool, inputs) -> dict:
     rho0 = _rho_vec(lo, hi, 0.1)
     out = {"K1_nv21_m42_ms": _event_ms(
         lambda: qp_lane.admm_stages_cuda(P, q, A, lo, hi, rho0, **kw), 10)}
+    digest = lambda *ts: hashlib.sha256(b"".join(
+        t.contiguous().cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+    out["K1_nv21_m42_sha256"] = digest(*qp_lane.admm_stages_cuda(P, q, A, lo, hi, rho0, **kw))
+    for tag, k1_dt in (("f32", torch.float32), ("f64", torch.float64)):
+        P3, q3, A3, lo3, hi3 = (torch.as_tensor(a, dtype=k1_dt, device="cuda")
+                                for a in cs.random_qps(1024, 3, 6, 0))
+        r3 = A3.abs().amax(-1)
+        A3, lo3, hi3 = (A3 / r3[..., None]).contiguous(), lo3 / r3, hi3 / r3
+        kw3 = dict(kw, sigma=1e-4 if tag == "f32" else 1e-6,
+                   rho_lo=1e-3 if tag == "f32" else 1e-6, rho_hi=1e4 if tag == "f32" else 1e6)
+        out[f"K1_nv3_m6_{tag}_sha256"] = digest(*qp_lane.admm_stages_cuda(
+            P3, q3, A3, lo3, hi3, _rho_vec(lo3, hi3, 0.1), **kw3))
     for cap in (5332, 1200):
         args = cs._selection_tensors(cs.selection_case(
             np.random.default_rng(20 + cap), 1024, cap, 20, "mixed"), dt)
@@ -84,8 +99,6 @@ def time_here(wide_batch: bool, inputs) -> dict:
 
     from morbit_tpu_torch.ops import dense_kernels
 
-    digest = lambda *ts: hashlib.sha256(b"".join(
-        t.contiguous().cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
     X, cand, init, count, _ = cs.round4_case(np.random.default_rng(11), 1024, 2310, 20,
                                              231, 0.4, 251)
     cand &= np.arange(2310)[None, :] < np.random.default_rng(12).integers(21, 300, 1024)[:, None]

@@ -36,9 +36,16 @@ time and the operators with the most host time. The models:
   objectives g0 and g1 + 0.1 x0 and the composite constraint g0 - 9 <= 0),
   ``scaler_model``: the ``rbf`` model with ``var_scaler_update='model'``,
   ``no_db``: the ``rbf`` model with ``use_db=False`` (``chip_smoke.py``
-  ``composite_main_path`` and its siblings), each run by the plain runner.
+  ``composite_main_path`` and its siblings), each run by the plain runner;
+* ``host``: the ``rbf`` model with both objectives as NumPy functions on
+  the host (``host=True, can_batch=True``), ``exit_eps``: the ``rbf`` model
+  with ``qp_exit_eps=1e-5``, ``max_points``: the ``rbf`` model with
+  ``use_max_points=True`` and ``use_db=False`` (``chip_smoke.py``
+  ``host_main_path`` and its siblings), each run by the plain runner; the
+  host line adds the host round trips and the seconds inside the user's
+  functions.
 
-    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps|composite|scaler_model|no_db]
+    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps|composite|scaler_model|no_db|host|exit_eps|max_points]
 
 Needs a CUDA card.
 """
@@ -78,7 +85,8 @@ def main(argv=None) -> int:
     args = argparse.ArgumentParser()
     args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged", "constrained",
                                           "taylor", "lagrange", "ps", "composite",
-                                          "scaler_model", "no_db"), default="rbf")
+                                          "scaler_model", "no_db", "host", "exit_eps",
+                                          "max_points"), default="rbf")
     model = args.parse_args(argv).model
     B, window = 1024, 5
     #: the trips a windowed profile skips before its window
@@ -88,7 +96,7 @@ def main(argv=None) -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
+    from morbit_tpu_torch import MOP, AlgorithmConfig, multistart_optimize
     from morbit_tpu_torch.core.descent import PascolettiSerafiniConfig
     from morbit_tpu_torch.models.configs import LagrangeConfig, RbfConfig, TaylorConfig
     from morbit_tpu_torch.ops import boxopt
@@ -103,15 +111,24 @@ def main(argv=None) -> int:
     elif model == "composite":
         mop = make_composite(RbfConfig(kernel="cubic"))
         ac = AlgorithmConfig(max_iter=100, qp_iters=400)
+    elif model == "host":
+        mop = MOP([-4.0, -4.0], [4.0, 4.0])
+        for c in (1.0, -1.0):
+            mop.add_objective(lambda X, c=c: ((X - c) ** 2).sum(-1), host=True,
+                              can_batch=True, model_cfg=RbfConfig(kernel="multiquadric"))
+        ac = AlgorithmConfig(max_iter=100, qp_iters=400)
     else:
         cfg = {"exact": None, "taylor": TaylorConfig(degree=2, mode="fd"),
-               "lagrange": LagrangeConfig(degree=2)}.get(model, RbfConfig(kernel="multiquadric"))
+               "lagrange": LagrangeConfig(degree=2),
+               "max_points": RbfConfig(kernel="multiquadric", use_max_points=True)}.get(
+                   model, RbfConfig(kernel="multiquadric"))
         make = make_constrained_two_parabolas if model == "constrained" else make_two_parabolas
         mop = make(cfg, lb=[-4.0, -4.0], ub=[4.0, 4.0])
         ac = AlgorithmConfig(max_iter=100, qp_iters=400, descent_method=(
             PascolettiSerafiniConfig() if model == "ps" else "steepest_descent"),
             var_scaler_update="model" if model == "scaler_model" else "none",
-            use_db=model != "no_db")
+            use_db=model not in ("no_db", "max_points"),
+            qp_exit_eps=1e-5 if model == "exit_eps" else 0.0)
     starts = [torch.as_tensor(halton_starts(B, mop.lb, mop.ub, 1 + k * B),
                               dtype=torch.float32, device="cuda") for k in range(2)]
     extra = {}
@@ -157,6 +174,8 @@ def main(argv=None) -> int:
         run(starts[0])
         if model in ("constrained", "composite"):
             solver.restoration_iterations = 0
+        for f in mop.functions:
+            f.stats.reset()
         torch.cuda.synchronize()
         boxopt.ascent_steps = 0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -168,6 +187,10 @@ def main(argv=None) -> int:
         extra["stage_trips"] = list(res.stage_trips)
         if model in ("constrained", "composite"):
             extra["restoration_iterations"] = solver.restoration_iterations
+        if model == "host":
+            st = mop.functions[0].stats
+            extra.update(host_round_trips=st.round_trips, host_rows=st.rows["eval"],
+                         host_user_s=sum(f.stats.seconds for f in mop.functions))
 
     extra["ascent_steps"] = boxopt.ascent_steps
     kernels = [e for e in prof.events()

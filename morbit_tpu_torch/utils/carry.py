@@ -19,8 +19,10 @@ The port imports nothing of the JAX package, so both cross as plain data:
   ``H``, ``site_idx``, and for a Lagrange group of ``B``, ``coef``,
   ``idx``, ``lb``, ``ub``, ``fully_linear`` (the JAX states' own fields). A
   state without a lane axis (one ``optimize`` run) gets one. The filter
-  crosses with its entries (a dummy filter has capacity 0). The PRNG key of
-  the JAX state is not carried. States of runs with composites (an inner
+  crosses with its entries (a dummy filter has capacity 0). The PRNG key
+  ``key`` (uint32 words) crosses when the dict has it, and the port's
+  state has one only when a group draws random numbers
+  (``RbfConfig(use_max_points=True)``). States of runs with composites (an inner
   function's group is an ordinary group) and with the ``'model'`` scaler
   update (each lane's scaler is a leaf) cross as they are.
 
@@ -72,6 +74,8 @@ def state_from_numpy(leaves: dict, device=None, dtype=None) -> SolverState:
         a = np.array(leaves[name])  # a writable copy
         if not batched:
             a = a[None]
+        if a.dtype == np.uint32:
+            a = a.astype(np.int64)
         return torch.as_tensor(a, dtype=kind or dtype, device=device)
 
     x = t("x")
@@ -107,7 +111,8 @@ def state_from_numpy(leaves: dict, device=None, dtype=None) -> SolverState:
                                overflow=t("filter.overflow", torch.bool)),
         traj=TrajectoryState(data=traj, count=t("traj.count", torch.int32),
                              n=n, m=m, G=G, MW=traj.shape[-1] - (n + m + 5 + G)),
-        scal=scaling.VarScaler(*(t(f"scal.{f}") for f in scaling.VarScaler._fields)))
+        scal=scaling.VarScaler(*(t(f"scal.{f}") for f in scaling.VarScaler._fields)),
+        key=t("key", torch.int64) if "key" in leaves else None)
 
 
 def state_to_numpy(state: SolverState) -> dict:
@@ -121,6 +126,8 @@ def state_to_numpy(state: SolverState) -> dict:
         out[f"scal.{f}"] = host(getattr(state.scal, f))
     for f in flt.FilterState._fields:
         out[f"filter.{f}"] = host(getattr(state.filter, f))
+    if state.key is not None:
+        out["key"] = host(state.key).astype(np.uint32)
     for i, g in enumerate(state.groups):
         for f in ("data", "count", "overflow"):
             out[f"groups.{i}.db.{f}"] = host(getattr(g.db, f))

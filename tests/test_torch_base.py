@@ -315,15 +315,19 @@ def test_solver_restores_tf32_flags_when_an_objective_raises(tf32_on):
 @pytest.mark.parametrize("cfg", [RbfConfig(use_max_points=True),
                                  JaxTaylorConfig(), JaxLagrangeConfig()])
 def test_unported_models_raise(cfg):
-    """``RbfConfig(use_max_points=True)`` still raises, naming ROADMAP queue
-    1 item 11; Taylor and Lagrange models are ported: the port's own config
-    with the JAX config's fields and defaults builds and solves one
-    iteration; composites are ported: a composite objective over an inner
-    function compiles and solves one iteration."""
+    """(The name is kept from when these raised.) Every model option is
+    ported: ``RbfConfig(use_max_points=True)``
+    builds and solves one iteration (``tests/test_torch_max_points.py``
+    holds it against the JAX package); the port's Taylor and Lagrange
+    configs with the JAX configs' fields and defaults build and solve one
+    iteration; a composite objective over an inner function compiles and
+    solves one iteration."""
     mop = mt.MOP([-1.0], [1.0])
     if isinstance(cfg, RbfConfig):
-        with pytest.raises(NotImplementedError, match=r"not ported[\s\S]*queue 1 item 11"):
-            mop.add_objective(lambda x: x.sum(), model_cfg=cfg)
+        mop.add_objective(lambda x: (x ** 2).sum(), model_cfg=cfg)
+        res = mt.optimize(mop, [0.5], max_iter=1, device="cpu")
+        assert int(res.n_iterations) == 1 and torch.isfinite(res.x).all()
+        assert res.state.key is not None and res.state.key.shape == (2,)
     else:
         port_cfg = {JaxTaylorConfig: TaylorConfig, JaxLagrangeConfig: LagrangeConfig}[
             type(cfg)](**dataclasses.asdict(cfg))
@@ -347,12 +351,51 @@ def test_unported_models_raise(cfg):
         k: v for k, v in ref.items() if k != "shape_parameter"}
 
 
+@pytest.mark.parametrize("runner", ["multistart_optimize", "StagedMultistart",
+                                    "staged_multistart"])
+def test_mesh_argument_raises_naming_its_item(runner):
+    """The runners take the JAX package's ``mesh`` argument and raise,
+    naming ROADMAP queue 1 item 18 (sharding over devices is not ported)."""
+    mop = tsyn.make_two_parabolas()
+    x0 = np.array([[0.5, -0.5]])
+    call = {"multistart_optimize": lambda: mt.multistart_optimize(
+                mop, x0, device="cpu", mesh=object()),
+            "StagedMultistart": lambda: mt.StagedMultistart(mop, device="cpu", mesh=object()),
+            "staged_multistart": lambda: mt.staged_multistart(mop, x0, device="cpu",
+                                                              mesh=object())}[runner]
+    with pytest.raises(NotImplementedError, match=r"mesh[\s\S]*queue 1 item 18"):
+        call()
+
+
+def test_verbosity_three_warns_once_and_prints_the_report(capsys):
+    """``optimize(verbosity=3)`` warns once that the live log is ROADMAP
+    queue 1 item 17 and prints the level-2 report; the adders take
+    ``host``/``can_batch``."""
+    mop = mt.MOP([-2.0, -2.0], [2.0, 2.0])
+    mop.add_objective(lambda x: np.sum((x - 1.0) ** 2), host=True,
+                      model_cfg=RbfConfig(kernel="multiquadric"))
+    mop.add_exact_objective(lambda X: np.sum((X + 1.0) ** 2, axis=-1), host=True,
+                            can_batch=True)
+    mop.add_nl_ineq_constraint(lambda x: np.sum(x ** 2) - 50.0, host=True,
+                               model_cfg=RbfConfig(kernel="cubic"))
+    mop.add_nl_eq_constraint(lambda x: torch.sum(x * 0.0), host=False)
+    mop.add_function(lambda x: np.sum(x), host=True, can_batch=False)
+    with pytest.warns(UserWarning, match=r"live[\s\S]*queue 1 item 17") as rec:
+        mt.optimize(mop, [0.5, -0.5], max_iter=2, verbosity=3, device="cpu")
+    assert len([w for w in rec if "item 17" in str(w.message)]) == 1
+    out = capsys.readouterr().out
+    assert "| iter   0" in out and "FINISHED" in out
+
+
 def test_qp_exit_eps_still_raises():
-    """``AlgorithmConfig.qp_exit_eps`` (the QP's early exit) is not ported:
-    a solver raises, naming ROADMAP queue 1 item 11."""
-    with pytest.raises(NotImplementedError, match="qp_exit_eps[\\s\\S]*queue 1 item 11"):
-        build_solver(tsyn.make_two_parabolas(), mt.AlgorithmConfig(qp_exit_eps=1e-6),
-                     torch.float64, "cpu")
+    """(The name is kept from when it raised.) ``AlgorithmConfig.qp_exit_eps``
+    (the QP's early exit) is ported: a solver with it builds and solves one
+    iteration
+    (``tests/test_torch_exit_eps.py`` holds it against the JAX package)."""
+    solver = build_solver(tsyn.make_two_parabolas(), mt.AlgorithmConfig(
+        qp_exit_eps=1e-6, max_iter=1), torch.float64, "cpu")
+    res = solver.solve(torch.tensor([[0.5, -2.0]], dtype=torch.float64))
+    assert int(res.n_iterations[0]) == 1 and torch.isfinite(res.x).all()
 
 
 @pytest.mark.parametrize("window", [None, 2])

@@ -333,10 +333,12 @@ def test_family_card_matches_cpu(cuda, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["composite", "scaler_model", "no_db"])
+@pytest.mark.parametrize("kind", ["composite", "scaler_model", "no_db", "host", "exit_eps",
+                                  "max_points"])
 def test_option_card_matches_cpu(cuda, kind):
-    """The composite, 'model'-scaler and no-database paths of
-    ``chip_smoke.OPTION_KINDS`` at float64, B=4 Halton starts, max_iter=6:
+    """The composite, 'model'-scaler, no-database, host-function, QP-exit
+    and ``use_max_points`` paths of ``chip_smoke.OPTION_KINDS`` at
+    float64, B=4 Halton starts, max_iter=6:
     every trip on the card from the CPU's state equals the CPU's trip
     (``chip_smoke.lockstep``), and no lane parts."""
     from chip_smoke import LB, QP_ITERS, UB, family_config, family_mop, lockstep
@@ -345,3 +347,54 @@ def test_option_card_matches_cpu(cuda, kind):
     ac = family_config(kind, max_iter=6, qp_iters=QP_ITERS)
     trips, _, _, parted, _ = lockstep(lambda: family_mop(kind), halton_starts(4, LB, UB), ac)
     assert trips >= 6 and parted == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 2e-3)])
+@pytest.mark.parametrize("problem", ["random36", "random48", "descent36", "B1000_2142"])
+def test_exit_kernel_matches_twin(cuda, problem, dtype, tol):
+    """K1's exit instance (``exit_eps`` 1e-5) against its twin: each lane
+    runs the twin's count of stages unless the twin's own decision moves
+    when A moves by ten ulps (``chip_smoke.ten_ulps``) or, at float32, the
+    tolerance lies between the two implementations' own residuals where
+    they part (``chip_smoke.exit_straddles``), and z is within the
+    larger of the fixed tolerance and ten times the lane's own one-ulp
+    sensitivity; below every residual the exit instance equals the
+    fixed-trip instance to the bit."""
+    from chip_smoke import ULP_PROBES, exit_straddles, ten_ulps
+
+    arrays = {"random36": lambda: random_qps(1024, 3, 6, 0),
+              "random48": lambda: random_qps(1024, 4, 8, 1),
+              "descent36": lambda: descent_lps(1024, 2),
+              "B1000_2142": lambda: random_qps(1000, 21, 42, 24)}[problem]()
+    P, q, A, lo, hi = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in arrays)
+    r = A.abs().amax(-1)
+    A, lo, hi = (A / r[..., None]).contiguous(), lo / r, hi / r
+    f32 = dtype == torch.float32
+    kw = dict(n_stages=4, n_steps=100, sigma=1e-4 if f32 else 1e-6, alpha=1.6,
+              rho_lo=1e-3 if f32 else 1e-6, rho_hi=1e4 if f32 else 1e6)
+    rho0 = _rho_vec(lo, hi, 0.1)
+    twin = lambda A1: qp_lane.admm_stages_exit_plain(P, q, A1, lo, hi, rho0, exit_eps=1e-5,
+                                                     **kw)
+    z, _, _, stages = qp_lane.admm_stages_exit_cuda(P, q, A, lo, hi, rho0, exit_eps=1e-5,
+                                                    **kw)
+    zt, _, _, st = twin(A)
+    sensitive = torch.zeros_like(st, dtype=torch.bool)
+    for seed in ULP_PROBES:
+        sensitive |= twin(ten_ulps(A, seed))[3] != st
+    parted = stages != st
+    straddle, residuals = torch.zeros_like(parted), []
+    if f32:   # each implementation stops on its own residual
+        kw_e = dict(kw, exit_eps=1e-5)
+        straddle = exit_straddles((P, q, A, lo, hi, rho0), kw_e, stages.cpu(), st.cpu(),
+                                  (parted & ~sensitive).cpu(), residuals).to(cuda)
+    assert not (parted & ~sensitive & ~straddle).any(), residuals
+    limit = lane_limits(tol, lambda A1: twin(A1)[0], A, zt)
+    dz = (z - zt).abs().amax(-1)
+    assert not ((dz > limit) & ~parted).any()
+    full = qp_lane.admm_stages_exit_cuda(P, q, A, lo, hi, rho0, exit_eps=1e-300, **kw)
+    fixed = qp_lane.admm_stages_cuda(P, q, A, lo, hi, rho0, **kw)
+    ran_all = full[3] == kw["n_stages"]
+    assert ran_all.any()
+    for got, want in zip(full, fixed):
+        assert torch.equal(got[ran_all], want[ran_all])

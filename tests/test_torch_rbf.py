@@ -172,9 +172,14 @@ def test_f32_fit_beyond_unrolled_solve_raises():
 
 
 def test_use_max_points_raises():
+    """(The name is kept from when it raised.) ``use_max_points`` is
+    ported: a problem with it builds and solves one iteration
+    (``tests/test_torch_max_points.py`` holds it against the JAX
+    package)."""
     mop = mt.MOP([-1.0], [1.0])
-    with pytest.raises(NotImplementedError, match="use_max_points"):
-        mop.add_objective(lambda x: x.sum(), model_cfg=RbfConfig(use_max_points=True))
+    mop.add_objective(lambda x: (x ** 2).sum(), model_cfg=RbfConfig(use_max_points=True))
+    res = mt.optimize(mop, [0.5], max_iter=1, device="cpu")
+    assert int(res.n_iterations) == 1 and torch.isfinite(res.x).all()
 
 
 # ------------------------------------------------------------ affine filter
