@@ -140,10 +140,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     twin (``phase_kernel_admm_exit``). ``host_card_vs_cpu``,
     ``exit_eps_card_vs_cpu``, ``max_points_card_vs_cpu`` — phase 12's
     lockstep on these paths.
+15. ``compacted_main_path`` — the main path's problem at float32, B=1024,
+    both budgets of ``STAGED_BUDGETS``: ``CompactedMultistart`` (default
+    ladder, ``stage_iters=10``) and the plain runner in turns on distinct
+    Halton starts under ``kernels_only``; each pair equal lane by lane in
+    stop codes, iterations and evaluations (x and fx differences reported);
+    runs/s of both, trips and buckets of each stage, K1-K3 launches a
+    batch. ``grid_main_path`` — the benchmark harness
+    (``parallel/benchmarks.py``): ``run_benchmarks`` with
+    ``steady_state=True`` at float32 over the default grid
+    (``generate_all_settings()``: zdt1-3 x n in {2, 5, 10} x {rbf_cubic,
+    taylor1, lagrange1, lagrange2}, 8 starts) less ``GRID_CUTS``, and the
+    ``GRID_EXTRA`` settings (K4 at n=15, DTLZ1, staged PS; one
+    ``perform_test`` each); no ``error``
+    entry, final stop codes, finite fx and omega; one ``grid_setting`` line
+    per setting with its K1-K4 launches; a second call on the save file
+    runs nothing. ``compacted_card_exact`` — the compacted runner at
+    float64 (``COMPACTED_EXACT``) equal to the plain runner on the card
+    leaf by leaf, on the CPU equal to the CPU's plain runner in integers,
+    and parting card from CPU on the plain runner's lanes only (ties,
+    ROADMAP 3.4). ``grid_card_vs_cpu`` —
+    ``perform_test`` at float64 on the card and on the CPU
+    (``GRID_CARD_VS_CPU``): integers exact, floats within 1e-10 (the lanes
+    of ``GRID_MAY_PART`` within their own bounds, each with the first trip
+    a lockstep finds it parting, if any).
 
 Then the card's name and power limit, one JSON line with the kernel table
 (K1-K3 also with the staged main path's launches at each budget, the
-``routing`` times, the launches of the paths of phases 12-14, the rows of
+``routing`` times, the launches of the paths of phases 12-15, the rows of
 the inputs the paths of phases 13-14 recorded and K1's exit instance), the
 script's total seconds, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any result. Imports nothing of JAX.
@@ -1184,6 +1208,20 @@ def _zero_launch_counts():
     qp_lane.launches = prepare_fused.selection_launches = prepare_fused.round4_launches = 0
 
 
+def _all_launch_counts():
+    """K1-K4's launch counts (K4 runs where an RBF fits P >= 128 sites)."""
+    from morbit_tpu_torch.ops import dense_kernels
+
+    return {**_launch_counts(), "rbf_gram": dense_kernels.gram_launches}
+
+
+def _zero_all_launch_counts():
+    from morbit_tpu_torch.ops import dense_kernels
+
+    _zero_launch_counts()
+    dense_kernels.gram_launches = 0
+
+
 def stage_shapes(B):
     """A ``recording`` predicate: the first K2/K3 call at the smallest stage
     capacity of the main path (22 rows at one iteration) and the first at
@@ -1534,7 +1572,6 @@ def phase_wide_main_path(B):
     records the K1-K4 inputs of the calls in WIDE_CAPTURE_CALLS, and no
     plain twin may run on the card in it."""
     from morbit_tpu_torch import STOP_CODE, AlgorithmConfig, multistart_optimize
-    from morbit_tpu_torch.ops import dense_kernels, prepare_fused, qp_lane
     from morbit_tpu_torch.problems.synthetic import halton_starts
 
     mop = wide_mop()
@@ -1544,15 +1581,8 @@ def phase_wide_main_path(B):
               for k in range(1 + WIDE_SUSTAINED)]
     captured = {"qp_admm": [], "selection": [], "round4": [], "gram": []}
 
-    def counts():
-        return {"qp_admm": qp_lane.launches,
-                "rbf_selection": prepare_fused.selection_launches,
-                "rbf_round4": prepare_fused.round4_launches,
-                "rbf_gram": dense_kernels.gram_launches}
-
     def batch(x0, record):
-        qp_lane.launches = prepare_fused.selection_launches = 0
-        prepare_fused.round4_launches = dense_kernels.gram_launches = 0
+        _zero_all_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
@@ -1562,7 +1592,7 @@ def phase_wide_main_path(B):
             res = multistart_optimize(mop, x0, ac, dtype=torch.float32)
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = counts()
+        launches = _all_launch_counts()
         for name, count in launches.items():
             check(count >= res.trips,
                   f"{name} launched {count} times in {res.trips} trips of the wide path")
@@ -2794,6 +2824,365 @@ def phase_kernel_admm_iterations():
     return rows[("n3_m6", torch.float32)], rows[("n21_m42", torch.float32)]
 
 
+# ------------------------------------------------- the compacted runner (slice 13)
+
+#: interleaved rounds of the plain and the compacted runner per budget
+COMPACTED_ROUNDS = 1
+#: the f64 card check of the compacted runner: its budget, ladder, stage length
+COMPACTED_EXACT = dict(B=64, max_iter=25, ladder=(64, 32, 16, 8), stage_iters=3)
+
+
+def _integer_lanes_differing(res, ref):
+    """Lanes whose stop code, iteration count or evaluations differ."""
+    return ((res.stop_code != ref.stop_code) | (res.n_iterations != ref.n_iterations)
+            | (res.n_evals != ref.n_evals)).nonzero().flatten().tolist()
+
+
+def phase_compacted_main_path():
+    """The main path (two parabolas, one multiquadric group, f32, B=1024,
+    Halton starts) at both budgets of STAGED_BUDGETS, run by
+    ``CompactedMultistart`` with its default ladder (1024, 512, 256, 128, 64)
+    and ``stage_iters=10``, and by the plain ``multistart_optimize`` in turns
+    on distinct starts, under ``kernels_only``. The counts are set to 0 just
+    before each batch and read just after it. Each compacted batch must
+    equal the plain batch on the same starts lane by lane (stop code,
+    iterations and evaluations exactly; x and fx reported: the largest
+    difference and the lanes equal to the bit). Returns the launches of
+    the first compacted batch at each budget."""
+    from morbit_tpu_torch import AlgorithmConfig, CompactedMultistart, multistart_optimize
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+    from morbit_tpu_torch.tools.profile_main_path import stage_log
+
+    cuda = torch.device("cuda")
+    out = []
+    for budget in STAGED_BUDGETS:
+        ac = AlgorithmConfig(**budget)
+        mop = rbf_mop()
+        runner = CompactedMultistart(mop, ac, torch.float32, stage_iters=10)
+        batch_s = {"plain": [], "compacted": []}
+        launches = {"plain": [], "compacted": []}
+        stages, rows = [], []
+        t0 = time.perf_counter()
+        for k in range(COMPACTED_ROUNDS):
+            x0 = torch.as_tensor(halton_starts(B_MAIN, LB, UB, 1 + k * B_MAIN),
+                                 dtype=torch.float32, device=cuda)
+            res = {}
+            for name, run in (("plain", lambda x: multistart_optimize(mop, x, ac)),
+                              ("compacted", runner)):
+                log = []
+                torch.cuda.synchronize()
+                _zero_all_launch_counts()
+                t1 = time.perf_counter()
+                with kernels_only(), stage_log(log):
+                    res[name] = run(x0)
+                    torch.cuda.synchronize()
+                batch_s[name].append(time.perf_counter() - t1)
+                counts = _all_launch_counts()
+                launches[name].append(counts)
+                for kname in ("qp_admm", "rbf_selection", "rbf_round4"):
+                    check(counts[kname] >= res[name].trips,
+                          f"{kname} launched {counts[kname]} times in {res[name].trips} "
+                          f"trips of the {name} runner")
+                _check_result(res[name], B_MAIN)
+                if name == "compacted":
+                    stages.append(log)
+            p, c = res["plain"], res["compacted"]
+            lanes = _integer_lanes_differing(c, p)
+            check(not lanes, f"compacted vs plain at {budget}: lanes {lanes[:16]} differ")
+            dx = (c.x - p.x).abs().amax(-1)
+            dfx = (c.fx - p.fx).abs().amax(-1)
+            check(bool(torch.isfinite(dx).all() and torch.isfinite(dfx).all()),
+                  "non-finite x or fx difference between the compacted and plain runners")
+            rows.append(dict(trips={"plain": p.trips, "compacted": c.trips},
+                             stage_trips=list(c.stage_trips),
+                             stage_buckets=[w for w, *_ in stages[-1]],
+                             max_abs_dx=float(dx.max()), max_abs_dfx=float(dfx.max()),
+                             lanes_x_fx_equal_bitwise=int(((dx == 0) & (dfx == 0)).sum())))
+        first = launches["compacted"][0]
+        phase("compacted_main_path", B=B_MAIN, dtype="float32", **budget,
+              model="RbfConfig(kernel='multiquadric')", stage_iters=10,
+              ladder=[B_MAIN >> s for s in range(5)], batches=rows,
+              lanes_differing_plain_vs_compacted=0,
+              runs_per_s={k: len(v) * B_MAIN / sum(v) for k, v in batch_s.items()},
+              batch_s=batch_s, launches_per_batch=launches,
+              k1_k3_launches_per_batch={
+                  name: {k: [b[k] for b in v] for k in ("qp_admm", "rbf_selection",
+                                                         "rbf_round4")}
+                  for name, v in launches.items()},
+              stop_codes=_stop_codes(c), mean_iterations=float(c.n_iterations.double().mean()),
+              seconds=time.perf_counter() - t0)
+        out.append(first)
+    return out
+
+
+def phase_compacted_card_exact():
+    """At float64, B=64 Halton starts, max_iter=25, ladder (64, 32, 16, 8),
+    ``stage_iters=3``: the compacted runner on the card against the plain
+    runner on the card, every leaf of the state (integers exact, floats
+    within 1e-12), and the compacted runner on the CPU against the plain
+    runner on the CPU (every integer leaf equal). Card and CPU free runs
+    part on some lanes by the rounding of plain operations met at exact
+    ties (ROADMAP 3.4; ``rbf_card_vs_cpu`` holds them trip by trip): the
+    lanes where the compacted runs part card from CPU must be those where
+    the plain runs do."""
+    from morbit_tpu_torch import AlgorithmConfig, CompactedMultistart, multistart_optimize
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+    from morbit_tpu_torch.tools.profile_main_path import stage_log
+    from morbit_tpu_torch.utils.carry import state_to_numpy
+
+    cfg = COMPACTED_EXACT
+    B = cfg["B"]
+    ac = AlgorithmConfig(max_iter=cfg["max_iter"], qp_iters=QP_ITERS)
+    x0 = halton_starts(B, LB, UB)
+    t0 = time.perf_counter()
+    ref = multistart_optimize(rbf_mop(), x0, ac, dtype=torch.float64)
+    ref_cpu = multistart_optimize(rbf_mop(), x0, ac, dtype=torch.float64, device="cpu")
+    runs, logs = {}, {}
+    for dev in ("cuda", "cpu"):
+        logs[dev] = []
+        with stage_log(logs[dev]):
+            runs[dev] = CompactedMultistart(rbf_mop(), ac, torch.float64,
+                                            stage_iters=cfg["stage_iters"],
+                                            bucket_ladder=cfg["ladder"], device=dev)(x0)
+    card, cpu = runs["cuda"], runs["cpu"]
+    a, b = state_to_numpy(card.state), state_to_numpy(ref.state)
+    worst = 0.0
+    for name in b:
+        va, vb = a[name], b[name]
+        check(va.dtype == vb.dtype and va.shape == vb.shape, f"{name}: dtype or shape")
+        if va.dtype.kind in "biu":
+            check(np.array_equal(va, vb), f"compacted vs plain on the card: {name} differs")
+            continue
+        check(np.array_equal(np.isfinite(va), np.isfinite(vb)),
+              f"compacted vs plain on the card: {name} non-finite entries differ")
+        fin = np.isfinite(vb)
+        d = float(np.max(np.abs(va[fin] - vb[fin]), initial=0.0))
+        check(d <= 1e-12, f"compacted vs plain on the card: {name} differs by {d}")
+        worst = max(worst, d)
+    for name in ("stop_code", "n_iterations", "n_evals"):
+        check(bool(torch.equal(getattr(card, name), getattr(ref, name))), f"{name} differs")
+    def integer_lanes(u, v):
+        return sorted({int(i) for name in u if u[name].dtype.kind in "biu"
+                       for i in np.nonzero((u[name] != v[name]).reshape(B, -1).any(-1))[0]})
+    c, c_ref = state_to_numpy(cpu.state), state_to_numpy(ref_cpu.state)
+    on_cpu = integer_lanes(c, c_ref)
+    check(not on_cpu, f"compacted vs plain on the CPU: lanes {on_cpu[:16]} differ")
+    compacted_apart, plain_apart = integer_lanes(a, c), integer_lanes(b, c_ref)
+    check(compacted_apart == plain_apart,
+          f"the compacted runs part card from CPU on lanes {compacted_apart}, the plain "
+          f"runs on {plain_apart}")
+    phase("compacted_card_exact", B=B, dtype="float64", max_iter=cfg["max_iter"],
+          ladder=list(cfg["ladder"]), stage_iters=cfg["stage_iters"],
+          plain_trips=ref.trips, trips=card.trips, stage_trips=list(card.stage_trips),
+          stage_buckets=[w for w, *_ in logs["cuda"]],
+          stage_buckets_cpu=[w for w, *_ in logs["cpu"]],
+          max_abs_float_diff_vs_plain=worst, integer_lanes_differing_vs_plain_on_cpu=0,
+          lanes_card_vs_cpu_apart=compacted_apart,
+          lanes_card_vs_cpu_apart_plain_runner=plain_apart,
+          seconds=time.perf_counter() - t0)
+
+
+# ------------------------------------------------ the benchmark grid (slice 13)
+
+#: the settings the grid runs beside the harness's default grid, each by
+#: one ``perform_test`` call without the steady-state call (to save time),
+#: with its ``staged`` flag: K4 (an RBF of (16 * 17) / 2 = 136 >= 128 sites
+#: at n = 15), a DTLZ problem, and Pascoletti-Serafini through the staged
+#: runner (``tools/bench_grid_r5.py``'s first row)
+GRID_EXTRA = ((("zdt1", 15, "rbf_cubic", "steepest_descent", 8), False),
+              (("dtlz1", 5, "rbf_cubic", "steepest_descent", 8), False),
+              (("zdt1", 10, "rbf_cubic", "ps", 8), True))
+#: settings of the default grid left out of grid_main_path to keep the
+#: script within its time, each named in its output and in PERF.md: the
+#: n=10 Lagrange-2 rows (~130 s each with the steady-state call), the n=10
+#: Lagrange-1 rows (~32 s), the n=10 RBF rows (~50 s), the n=5 RBF and
+#: Lagrange-2 rows (~23-35 s), ZDT2's and ZDT3's n=5 Lagrange-1 rows (~10 s)
+#: and ZDT3's n=2 Lagrange rows (~12-19 s); every family keeps rows at n=2,
+#: Lagrange-1 ZDT1's at n=5, Taylor-1 all nine (NVIDIA H100 80GB HBM3,
+#: 700 W)
+GRID_CUTS = tuple(
+    [f"zdt{k}-n10-{m}-steepest_descent-s8"
+     for m in ("lagrange2", "lagrange1", "rbf_cubic") for k in (1, 2, 3)]
+    + [f"zdt{k}-n5-{m}-steepest_descent-s8"
+       for m in ("rbf_cubic", "lagrange1", "lagrange2") for k in (2, 3)]
+    + ["zdt1-n5-lagrange2-steepest_descent-s8", "zdt1-n5-rbf_cubic-steepest_descent-s8",
+       "zdt3-n2-lagrange1-steepest_descent-s8", "zdt3-n2-lagrange2-steepest_descent-s8"])
+#: where grid_main_path saves its results (and resumes from)
+GRID_SAVE = ROOT / "build" / "grid_main_path.json"
+#: the settings grid_card_vs_cpu runs on the card and on the CPU, with their
+#: budget overrides
+GRID_CARD_VS_CPU = ((("two_parabolas", 2, "exact", "steepest_descent", 3),
+                     dict(max_iter=6, qp_iters=100)),
+                    (("zdt1", 2, "taylor1", "steepest_descent", 4), {}),
+                    (("zdt1", 5, "rbf_cubic", "steepest_descent", 4), {}))
+#: lanes of grid_card_vs_cpu recorded beyond 1e-10 apart, by setting key:
+#: lane -> (its bound, the property (ROADMAP) that parts it). The bound is
+#: the lane's largest float gap in three card runs (NVIDIA H100 80GB HBM3,
+#: 700 W), which read the same to the bit, rounded up; its integers stay
+#: exact, and ``lockstep`` names the first trip where it parts beyond the
+#: lockstep standard (1e-9 + 1e-6 |x|), if any
+GRID_MAY_PART = {
+    # qp_iters=100 leaves the first descent LP unconverged, and the card's
+    # and the CPU's polish take the two sides of its discontinuity (3.5):
+    # the largest gap is fx's, 8.11e-10 (the CPU port ends as far from JAX)
+    "two_parabolas-n2-exact-steepest_descent-s3": {1: (1e-9, "3.5 polish")},
+    # the rounding of the card's plain operations, carried over the run's
+    # trips (3.4): the largest gap 3.77e-10
+    "zdt1-n5-rbf_cubic-steepest_descent-s4": {1: (5e-10, "3.4 rounding")},
+}
+
+
+@contextlib.contextmanager
+def per_setting_launches(log):
+    """Set K1-K4's counts to 0 just before each ``perform_test`` of the
+    harness and record them just after it, by setting key, in ``log``."""
+    from morbit_tpu_torch.parallel import benchmarks
+
+    inner = benchmarks.perform_test
+
+    def wrapped(setting, *args, **kw):
+        torch.cuda.synchronize()
+        _zero_all_launch_counts()
+        try:
+            return inner(setting, *args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            log[setting.key] = _all_launch_counts()
+    with mock.patch.object(benchmarks, "perform_test", wrapped):
+        yield
+
+
+def _check_grid_entry(key, obs, n_starts, n_vars):
+    """One setting's observations: no ``error``, final stop codes, finite
+    fx and omega, x of shape (starts, n)."""
+    from morbit_tpu_torch import STOP_CODE
+
+    check("error" not in obs, f"{key}: {obs.get('error')}")
+    codes = np.asarray(obs["stop_code"])
+    check(bool(((codes >= STOP_CODE.MAX_ITER) & (codes <= STOP_CODE.INFEASIBLE)).all()),
+          f"{key}: a stop code that is not final, {codes.tolist()}")
+    check(bool(np.isfinite(obs["fx"]).all() and np.isfinite(obs["omega"]).all()),
+          f"{key}: non-finite fx or omega")
+    check(np.asarray(obs["x"]).shape == (n_starts, n_vars), f"{key}: x's shape")
+    return {STOP_CODE(c).name: int((codes == c).sum()) for c in np.unique(codes)}
+
+
+def phase_grid_main_path():
+    """``run_benchmarks(generate_all_settings(), steady_state=True)`` at
+    float32 on the card (the harness's default grid: zdt1-3 x n in {2, 5,
+    10} x {rbf_cubic, taylor1, lagrange1, lagrange2} x steepest descent, 8
+    starts) less GRID_CUTS, saving to GRID_SAVE, and ``perform_test`` on
+    each GRID_EXTRA setting, under ``kernels_only``. Fails on an ``error``
+    entry, on a stop code that is not final and on a non-finite fx or
+    omega; one line per setting. A second ``run_benchmarks`` on the same
+    file must run no setting (no launch) and return the same entries.
+    Returns the launches of all the settings."""
+    from morbit_tpu_torch.parallel import benchmarks
+    from morbit_tpu_torch.parallel.benchmarks import Setting, generate_all_settings
+
+    GRID_SAVE.parent.mkdir(parents=True, exist_ok=True)
+    GRID_SAVE.unlink(missing_ok=True)
+    grid = [s for s in generate_all_settings() if s.key not in GRID_CUTS]
+    extra = [(Setting(*key), staged) for key, staged in GRID_EXTRA]
+    launches = {}
+    t0 = time.perf_counter()
+    with kernels_only(), per_setting_launches(launches):
+        results = benchmarks.run_benchmarks(grid, save_path=str(GRID_SAVE),
+                                            steady_state=True, verbose=False)
+        extra_obs = {s.key: benchmarks.perform_test(s, staged=staged)
+                     for s, staged in extra}
+    seconds = time.perf_counter() - t0
+    observed = {**results, **extra_obs}
+    for s, staged in [(s, False) for s in grid] + extra:
+        obs = observed[s.key]
+        codes = _check_grid_entry(s.key, obs, s.n_starts, s.n_vars)
+        phase("grid_setting", key=s.key, staged=staged, wall_s=obs["wall_s"],
+              steady_state_s=obs.get("steady_state_s"),
+              steady_runs_per_sec=obs.get("steady_runs_per_sec"),
+              mean_n_evals=float(np.mean(obs["n_evals"])),
+              mean_n_iterations=float(np.mean(obs["n_iterations"])),
+              stop_codes=codes, launches=launches[s.key])
+    # the resume: no setting runs again, and the entries are the file's
+    again_launches = {}
+    torch.cuda.synchronize()
+    _zero_all_launch_counts()
+    with per_setting_launches(again_launches):
+        again = benchmarks.run_benchmarks(grid, save_path=str(GRID_SAVE),
+                                          steady_state=True, verbose=False)
+    relaunched = sum(_all_launch_counts().values())
+    check(not again_launches and relaunched == 0,
+          f"the resumed grid ran {sorted(again_launches)} ({relaunched} launches)")
+    check(again == results == json.loads(GRID_SAVE.read_text()),
+          "the resumed grid's entries differ from the first run's")
+    total = {k: sum(v[k] for v in launches.values()) for k in _all_launch_counts()}
+    check(total["rbf_gram"] > 0, "K4 did not launch on the grid")
+    phase("grid_main_path", dtype="float32", settings=len(grid) + len(extra),
+          default_grid_settings=len(grid), cuts=list(GRID_CUTS),
+          extra=[s.key + (" (staged)" if staged else "") for s, staged in extra],
+          seconds=seconds, launches=total, resumed_settings_run=len(again_launches),
+          resumed_launches=relaunched, save_file=str(GRID_SAVE.relative_to(ROOT)))
+    return total
+
+
+def phase_grid_card_vs_cpu():
+    """``perform_test`` at float64 on the card and on the CPU on the
+    GRID_CARD_VS_CPU settings: integers exact, floats within 1e-10; the
+    lanes of GRID_MAY_PART within their own bounds. Where a lane is
+    recorded or parts, ``lockstep`` runs the setting trip by trip and names
+    each lane's first trip beyond the lockstep standard with the cause
+    ``family_part_cause`` finds, or none."""
+    from morbit_tpu_torch.parallel import benchmarks
+    from morbit_tpu_torch.parallel.benchmarks import Setting, _default_config, make_problem
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    rows = {}
+    for key, over in GRID_CARD_VS_CPU:
+        s = Setting(*key)
+        t0 = time.perf_counter()
+        obs = {dev: benchmarks.perform_test(s, dtype=torch.float64, device=dev, **over)
+               for dev in ("cuda", "cpu")}
+        recorded = GRID_MAY_PART.get(s.key, {})
+        bounds = np.full(s.n_starts, 1e-10)
+        for lane, (tol, _) in recorded.items():
+            bounds[lane] = tol
+        apart = np.zeros(s.n_starts, bool)
+        lane_gap = np.zeros(s.n_starts)
+        for k in ("x", "fx", "n_evals", "n_iterations", "stop_code", "omega"):
+            a, b = obs["cuda"][k], obs["cpu"][k]
+            if a.dtype.kind in "iu":
+                bad = (a != b).reshape(s.n_starts, -1).any(-1)
+            else:
+                both = np.isfinite(a) & np.isfinite(b)
+                d = np.where(both, np.abs(a - b), 0.0).reshape(s.n_starts, -1).max(-1)
+                bad = (np.isfinite(a) != np.isfinite(b)).reshape(s.n_starts, -1).any(-1)
+                bad |= d > bounds
+                lane_gap = np.maximum(lane_gap, d)
+            apart |= bad
+        first_parting = {}
+        if recorded or apart.any():
+            mop = lambda: make_problem(s.problem, s.n_vars, s.model)
+            starts = halton_starts(s.n_starts, mop().lb, mop().ub)
+            _, _, _, pairs, _ = lockstep(mop, starts, _default_config(s, **over),
+                                         may_part=[(t, i) for t in range(1000)
+                                                   for i in range(s.n_starts)],
+                                         eligible=lambda st: np.ones(st.x.shape[0], bool),
+                                         describe=family_part_cause)
+            for (t, i), cause in sorted(pairs.items()):
+                first_parting.setdefault(i, f"trip {t}: {cause}")
+        check(not apart.any(), f"{s.key}: lanes {np.nonzero(apart)[0].tolist()} part card "
+              f"from CPU (first trips {first_parting}); recorded: {recorded}")
+        rows[s.key] = dict(
+            overrides=over, max_abs_float_diff=float(lane_gap.max()),
+            lanes_beyond_1e10={int(i): float(lane_gap[i])
+                               for i in np.nonzero(lane_gap > 1e-10)[0]},
+            recorded={i: {"bound": tol, "cause": cause,
+                          "lockstep": first_parting.get(
+                              i, "none beyond the lockstep standard")}
+                      for i, (tol, cause) in recorded.items()},
+            seconds=time.perf_counter() - t0)
+    phase("grid_card_vs_cpu", dtype="float64", settings=rows)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2811,6 +3200,8 @@ def main():
     option_runs = {kind: phase_family_main_path(kind) for kind in OPTION_KINDS}
     option_launches = {kind: v[0] for kind, v in option_runs.items()}
     option_captured = {kind: v[1] for kind, v in option_runs.items()}
+    compacted_launches = phase_compacted_main_path()
+    grid_launches = phase_grid_main_path()
     wide_launches, wide_captured = phase_wide_main_path(B_WIDE)
     *admm_rows, con_rows, admm_opt = phase_kernel_admm(wide_captured["qp_admm"],
                                                        con_captured, option_captured)
@@ -2832,6 +3223,8 @@ def main():
     phase_optimize_surface()
     phase_staged_card_exact()
     phase_staged_quality_f64()
+    phase_compacted_card_exact()
+    phase_grid_card_vs_cpu()
     phase_card_vs_cpu()
     phase_main_path()
 
@@ -2887,6 +3280,13 @@ def main():
                 elif rec is not None:
                     entry[f"{kind}_main_path"]["recorded"] = {
                         k: rec[k] for k in keys + ("B", "n")}
+        # the compacted runner's first batch at each budget (K1-K3) and the
+        # benchmark grid (K1-K4; K4 at n=15)
+        if main_row is not None:
+            entry["compacted_main_path"] = {
+                f"max_iter_{b['max_iter']}": {"launches": counts[name]}
+                for b, counts in zip(STAGED_BUDGETS, compacted_launches)}
+        entry["grid_main_path"] = {"launches": grid_launches.get(name, 0)}
         if name == "qp_admm":              # K1 at the constrained LP shapes
             entry["exit_eps_main_path"]["exit_instance_nv3_m6"] = {
                 k: exit_row[k] for k in keys + ("fixed_trip_ms", "stages_per_lane_hist", "B")}

@@ -21,8 +21,11 @@ report (``utils/logging.py``), state checkpoints (``utils/checkpoint.py``),
 the plain batched multistart runner, the staged runner
 (:class:`StagedMultistart`: capacity stages, the fleet loop, lane
 compaction and its probe tuning) with its bench
-(``python3 -m morbit_tpu_torch.bench``), and the ZDT/DTLZ benchmark
-problems.
+(``python3 -m morbit_tpu_torch.bench``), the compacted runner
+(:class:`CompactedMultistart`: stages and a bucket ladder), the ZDT/DTLZ
+benchmark problems and the reference's benchmark grid
+(``parallel/benchmarks.py``: :func:`generate_all_settings`,
+:func:`perform_test`, :func:`run_benchmarks` with save and resume).
 """
 
 from morbit_tpu_torch.core.algorithm import (OptimizeResult, Solver, SolverState,
@@ -33,7 +36,10 @@ from morbit_tpu_torch.core.mop import MOP, CompiledMOP, compile_mop
 from morbit_tpu_torch.core.descent import PascolettiSerafiniConfig, SteepestDescentConfig
 from morbit_tpu_torch.models.configs import (ExactConfig, LagrangeConfig, RbfConfig,
                                              TaylorConfig)
-from morbit_tpu_torch.parallel.multistart import (StagedMultistart,
+from morbit_tpu_torch.parallel.benchmarks import (Setting, generate_all_settings,
+                                                  perform_test, run_benchmarks)
+from morbit_tpu_torch.parallel.multistart import (CompactedMultistart, StagedMultistart,
+                                                  compacted_multistart,
                                                   multistart_optimize,
                                                   staged_multistart)
 
@@ -57,6 +63,12 @@ __all__ = [
     "multistart_optimize",
     "StagedMultistart",
     "staged_multistart",
+    "CompactedMultistart",
+    "compacted_multistart",
+    "Setting",
+    "generate_all_settings",
+    "perform_test",
+    "run_benchmarks",
     "OptimizeResult",
     "ITER_TYPE",
     "STOP_CODE",

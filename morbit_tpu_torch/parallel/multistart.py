@@ -13,14 +13,16 @@ reference's ``Threads.@threads`` benchmark loop,
   the lanes still active only (lane compaction, ``widths``). Its probe
   helpers (:func:`suggest_db_capacity`, :func:`suggest_schedule`,
   :func:`suggest_widths`) tune it from a first run.
+* :class:`CompactedMultistart` runs fixed-length stages and, between them,
+  shrinks the batch to the smallest bucket of a ladder that holds every
+  lane still running, with a growing database capacity.
 
 Each stage is a host loop of :meth:`Solver.iterate` trips with one host
 sync a trip, like ``Solver.solve_from_state`` with a trip bound. The JAX
 package's ``mesh`` (sharding over devices; the runners take the argument
-and raise, naming ROADMAP queue 1 item 18) and ``CompactedMultistart`` are
-not ported yet. Host (NumPy) functions evaluate each lane's kept sites
-only, so compaction and the fleet loop send the same sites to the host as
-the plain runner.
+and raise, naming ROADMAP queue 1 item 18) is not ported yet. Host (NumPy)
+functions evaluate each lane's kept sites only, so compaction and the
+fleet loop send the same sites to the host as the plain runner.
 """
 
 from __future__ import annotations
@@ -179,6 +181,19 @@ def _rejoin(head, tail):
     return tree_map(lambda h, t: torch.cat([h, t], dim=0), head, tail)
 
 
+def _run_stage(solver: Solver, states, order, w: int, k: Optional[int], fleet: bool):
+    """One stage of at most ``k`` trips (:func:`_run_bounded`); below the
+    full width, on the first ``w`` lanes after a stable active-first sort
+    (:func:`_compact`). Returns the state, the composed permutation and the
+    trips run."""
+    if w >= states.x.shape[0]:
+        states, trips = _run_bounded(solver, states, k, fleet)
+        return states, order, trips
+    head, tail, order = _compact(states, order, w)
+    head, trips = _run_bounded(solver, head, k, fleet)
+    return _rejoin(head, tail), order, trips
+
+
 def canonicalize_buffer_tails(states):
     """Zero the rows at or past the fill counter of every group database and
     of the trajectory. Those rows are dead storage (every read masks by the
@@ -293,27 +308,19 @@ class StagedMultistart:
         order = None            # composed lane permutation: states[i] = orig[order[i]]
         stage_trips = []
 
-        def run_stage(states, order, w, k):
-            """One stage of at most ``k`` trips; below full width, on the
-            first ``w`` lanes after a stable active-first sort."""
-            if w >= B:
-                states, trips = _run_bounded(solver, states, k, self.fleet)
-                return states, order, trips
-            head, tail, order = _compact(states, order, w)
-            head, trips = _run_bounded(solver, head, k, self.fleet)
-            return _rejoin(head, tail), order, trips
-
         prev = 0
         for i, (t, (cap, tcap)) in enumerate(self.schedule):
             states = _resize_traj(_resize_dbs(states, cap), tcap)
             w = B if widths is None else min(widths[i], B)
-            states, order, trips = run_stage(states, order, w, t - prev)
+            states, order, trips = _run_stage(solver, states, order, w, t - prev,
+                                              self.fleet)
             stage_trips.append(trips)
             prev = t
         states = _resize_traj(_resize_dbs(states, solver.db_capacity), solver.T)
         if widths is not None and len(widths) == len(self.schedule) + 1 \
                 and widths[-1] < B:
-            states, order, trips = run_stage(states, order, widths[-1], None)
+            states, order, trips = _run_stage(solver, states, order, widths[-1], None,
+                                              self.fleet)
             stage_trips.append(trips)
         # full-width catch-all: no trip unless a width starved a lane
         states, trips = _run_bounded(solver, states, None, self.fleet)
@@ -352,6 +359,111 @@ class StagedMultistart:
         ws = suggest_widths(tmp, n_iterations, slack=slack, quantum=quantum)
         return StagedMultistart(cmop, ac, self.dtype, schedule=sched, widths=ws,
                                 device=dev)
+
+
+# ---------------------------------------------------------- compacted runner
+
+class CompactedMultistart:
+    """Straggler-free multistart: stages of a bounded number of trips, and
+    between them lane compaction into the buckets of a ladder.
+
+    A plain batched solve runs every trip at the full batch until its
+    slowest lane stops, while most lanes stop early. This runner runs
+    ``stage_iters`` trips a stage and, between stages, stably sorts the
+    lanes active-first on the device (:func:`_compact`) so that the next
+    stage runs on the smallest ``bucket_ladder`` entry that holds every
+    lane still running; finished lanes fill the bucket up and are frozen
+    by the runner's lane select. Once the bucket is the ladder's smallest
+    entry, the next stage runs to completion. Only the stop codes cross to
+    the host between stages. Lane order is restored once at the end.
+
+    ``bucket_ladder``: the allowed batch widths (default ``B >> s`` for
+    ``s < 5``), sorted descending and led by ``B``. ``stage_schedule``:
+    explicit trips of each stage (overrides ``stage_iters``); once it is
+    exhausted, the next stage runs to completion. ``grow_db``: each stage
+    runs at the database capacity its cumulative trip bound implies
+    (:func:`_cap_at`), grown by zero rows between stages; the result
+    carries the full capacity.
+
+    Results equal :func:`multistart_optimize` lane by lane (integers
+    exactly, floats up to the reassociation of another batch width); the
+    result's ``trips`` counts the trips of every stage and
+    ``stage_trips`` holds them per stage.
+    """
+
+    def __init__(self, mop, algo_config: Optional[AlgorithmConfig] = None,
+                 dtype=torch.float32, stage_iters: int = 10,
+                 bucket_ladder: Optional[tuple] = None,
+                 stage_schedule: Optional[tuple] = None, grow_db: bool = True,
+                 device=None):
+        self.solver = build_solver(mop, algo_config, dtype, device)
+        self.dtype = dtype
+        self.stage_iters = int(stage_iters) if stage_iters is not None else 10
+        self.bucket_ladder = bucket_ladder
+        self.stage_schedule = (tuple(int(k) for k in stage_schedule)
+                               if stage_schedule is not None else None)
+        self.grow_db = bool(grow_db)
+
+    def _cap_at(self, cum_iters: int) -> int:
+        if not self.grow_db:
+            return self.solver.db_capacity
+        return _cap_at(self.solver, cum_iters)
+
+    @_full_precision_matmuls()
+    def __call__(self, x0_batch) -> OptimizeResult:
+        solver = self.solver
+        states = solver.initialize(x0_batch)
+        B = states.x.shape[0]
+        max_iter = solver.ac.max_iter
+        ladder = self.bucket_ladder
+        if ladder is None:
+            ladder = tuple(max(1, B >> s) for s in range(5))
+        ladder = sorted({int(b) for b in ladder if b <= B}, reverse=True)
+        if not ladder or ladder[0] != B:
+            ladder = [B] + [b for b in ladder if b < B]
+        schedule = self.stage_schedule
+        n_stages_max = (len(schedule) + 1 if schedule is not None else
+                        (max_iter + 2 + self.stage_iters - 1) // self.stage_iters + 1)
+        order = None            # composed lane permutation: states[i] = orig[order[i]]
+        bucket, cum_iters, stage_trips = B, 0, []
+        for i_stage in range(n_stages_max):
+            if schedule is not None:
+                k = schedule[i_stage] if i_stage < len(schedule) else max_iter + 2
+            else:
+                k = self.stage_iters if bucket > ladder[-1] else max_iter + 2
+            cum_iters = min(cum_iters + k, max_iter + 2)
+            states = _resize_dbs(states, self._cap_at(cum_iters))
+            states, order, trips = _run_stage(solver, states, order, bucket, k,
+                                              fleet=False)
+            stage_trips.append(trips)
+            if k > max_iter:
+                break
+            n_active = int(np.count_nonzero(
+                states.stop_code.cpu().numpy() == int(STOP_CODE.CONTINUE)))
+            if n_active == 0:
+                break
+            bucket = next((b for b in reversed(ladder) if b >= n_active), ladder[0])
+        states = _resize_dbs(states, solver.db_capacity)
+        if order is not None:
+            inv = torch.argsort(order, stable=True)
+            states = tree_map(lambda a: a[inv], states)
+        return OptimizeResult(
+            x=states.x, fx=states.fx, stop_code=states.stop_code,
+            n_iterations=states.iter_counter - 1,
+            n_evals=solver._total_evals(states.groups), state=states,
+            trips=sum(stage_trips), stage_trips=tuple(stage_trips))
+
+
+def compacted_multistart(mop, x0_batch, algo_config: Optional[AlgorithmConfig] = None,
+                         dtype=torch.float32, stage_iters: int = 10,
+                         bucket_ladder: Optional[tuple] = None,
+                         stage_schedule: Optional[tuple] = None,
+                         device=None) -> OptimizeResult:
+    """One-shot :class:`CompactedMultistart` (build the runner once to run
+    several batches)."""
+    return CompactedMultistart(mop, algo_config, dtype, stage_iters=stage_iters,
+                               bucket_ladder=bucket_ladder, stage_schedule=stage_schedule,
+                               device=device)(x0_batch)
 
 
 # ---------------------------------------------------------------- probe helpers

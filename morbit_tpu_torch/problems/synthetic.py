@@ -31,8 +31,12 @@ def zdt_bounds(name: str, n: int):
 
 
 def _pos(v):
-    """``jnp.maximum(v, 0.0)``, whose derivative splits ties in half."""
-    return torch.maximum(v, torch.zeros_like(v))
+    """``jnp.maximum(v, 0.0)`` with its derivative: 1, 1/2 at a tie, 0 below,
+    as a factor that multiplies the incoming derivative, so that an
+    infinite one (``sqrt`` at 0) becomes NaN below 0 as in JAX (torch's
+    ``maximum`` masks it to 0 instead)."""
+    slope = (v > 0).to(v.dtype) + 0.5 * (v == 0).to(v.dtype)
+    return v * slope
 
 
 def zdt_objectives(name: str, n: int):

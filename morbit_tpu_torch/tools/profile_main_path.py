@@ -43,9 +43,13 @@ time and the operators with the most host time. The models:
   ``use_max_points=True`` and ``use_db=False`` (``chip_smoke.py``
   ``host_main_path`` and its siblings), each run by the plain runner; the
   host line adds the host round trips and the seconds inside the user's
-  functions.
+  functions;
+* ``compacted``: the ``rbf`` model run by ``CompactedMultistart`` with its
+  default ladder (B >> s for s < 5) and ``stage_iters=10`` (``chip_smoke.py``
+  ``compacted_main_path``); the line adds the lanes and trips of each
+  stage.
 
-    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps|composite|scaler_model|no_db|host|exit_eps|max_points]
+    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps|composite|scaler_model|no_db|host|exit_eps|max_points|compacted]
 
 Needs a CUDA card.
 """
@@ -53,6 +57,7 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -81,12 +86,33 @@ def boundary_kernels(runner, x0) -> int:
     return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
 
 
+@contextlib.contextmanager
+def stage_log(log):
+    """Append (lanes, trips, lanes running at entry) of every stage a
+    runner runs to ``log``."""
+    from morbit_tpu_torch.core.enums import STOP_CODE
+    from morbit_tpu_torch.parallel import multistart
+
+    inner = multistart._run_bounded
+
+    def wrapped(solver, states, k, fleet):
+        running = int((states.stop_code == STOP_CODE.CONTINUE).sum())
+        out = inner(solver, states, k, fleet)
+        log.append((int(states.x.shape[0]), out[1], running))
+        return out
+    multistart._run_bounded = wrapped
+    try:
+        yield
+    finally:
+        multistart._run_bounded = inner
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser()
     args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged", "constrained",
                                           "taylor", "lagrange", "ps", "composite",
                                           "scaler_model", "no_db", "host", "exit_eps",
-                                          "max_points"), default="rbf")
+                                          "max_points", "compacted"), default="rbf")
     model = args.parse_args(argv).model
     B, window = 1024, 5
     #: the trips a windowed profile skips before its window
@@ -164,6 +190,10 @@ def main(argv=None) -> int:
             extra = dict(schedule=[t for t, _ in runner.schedule],
                          widths=list(runner.widths), db_capacity=runner.solver.db_capacity,
                          boundary_kernels=boundary_kernels(runner, starts[0]))
+        elif model == "compacted":
+            from morbit_tpu_torch import CompactedMultistart
+
+            run = CompactedMultistart(mop, ac, torch.float32, stage_iters=10)
         elif model in ("constrained", "composite"):
             from morbit_tpu_torch.parallel.multistart import build_solver
 
@@ -178,13 +208,17 @@ def main(argv=None) -> int:
             f.stats.reset()
         torch.cuda.synchronize()
         boxopt.ascent_steps = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stages = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                stage_log(stages):
             t0 = time.perf_counter()
             res = run(starts[1])
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         trips = res.trips
         extra["stage_trips"] = list(res.stage_trips)
+        if model == "compacted":
+            extra["stage_lanes"] = [w for w, *_ in stages]
         if model in ("constrained", "composite"):
             extra["restoration_iterations"] = solver.restoration_iterations
         if model == "host":

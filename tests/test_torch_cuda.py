@@ -398,3 +398,56 @@ def test_exit_kernel_matches_twin(cuda, problem, dtype, tol):
     assert ran_all.any()
     for got, want in zip(full, fixed):
         assert torch.equal(got[ran_all], want[ran_all])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ladder,stage_iters", [((16, 8, 4, 2), 3), ((16, 12, 11, 10, 4), 2)])
+def test_compacted_matches_plain_on_card(cuda, ladder, stage_iters):
+    """The compacted runner on the card at float64, B=16 Halton starts of
+    the main path, max_iter=12, qp_iters=100, against the plain runner on
+    the card: every leaf of the state, integers exact and floats within
+    1e-12 (the CPU test's ladders: (16, 8, 4, 2) never compacts these
+    lanes, the other does)."""
+    from chip_smoke import LB, UB, rbf_mop
+    from morbit_tpu_torch import AlgorithmConfig, CompactedMultistart, multistart_optimize
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+    from morbit_tpu_torch.utils.carry import state_to_numpy
+
+    ac = AlgorithmConfig(max_iter=12, qp_iters=100)
+    x0 = torch.as_tensor(halton_starts(16, LB, UB), dtype=torch.float64, device=cuda)
+    ref = multistart_optimize(rbf_mop(), x0, ac, dtype=torch.float64)
+    res = CompactedMultistart(rbf_mop(), ac, torch.float64, stage_iters=stage_iters,
+                              bucket_ladder=ladder)(x0)
+    a, b = state_to_numpy(res.state), state_to_numpy(ref.state)
+    assert a.keys() == b.keys()
+    for name in a:
+        assert a[name].dtype == b[name].dtype and a[name].shape == b[name].shape, name
+        if a[name].dtype.kind in "biu":
+            np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+        else:
+            np.testing.assert_allclose(a[name], b[name], rtol=0, atol=1e-12, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_perform_test_on_card_matches_cpu(cuda):
+    """``perform_test(device="cuda")`` on ``two_parabolas-n2-exact-steepest_descent-s3``
+    (max_iter=6, qp_iters=100, float64) against the same on the CPU:
+    integers exact, floats within 1e-10 (lane 1 within its bound in
+    ``chip_smoke.GRID_MAY_PART``, 1e-9: its first LP's polish), and the
+    keys of the JAX harness."""
+    from chip_smoke import GRID_MAY_PART
+    from morbit_tpu_torch.parallel.benchmarks import Setting, perform_test
+
+    s = Setting("two_parabolas", 2, "exact", "steepest_descent", 3)
+    card = perform_test(s, dtype=torch.float64, device="cuda", steady_state=True,
+                        max_iter=6, qp_iters=100)
+    cpu = perform_test(s, dtype=torch.float64, device="cpu", max_iter=6, qp_iters=100)
+    assert set(card) == set(cpu) | {"steady_state_s", "steady_runs_per_sec",
+                                    "compile_s_approx"}
+    for k in ("n_evals", "n_iterations", "stop_code"):
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    for k in ("x", "fx", "omega"):
+        lim = np.full(card[k].shape, 1e-10)
+        for lane, (tol, _) in GRID_MAY_PART[s.key].items():
+            lim[lane] = tol
+        assert np.all(np.abs(card[k] - cpu[k]) <= lim), (k, np.abs(card[k] - cpu[k]))
