@@ -163,11 +163,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``perform_test`` at float64 on the card and on the CPU
     (``GRID_CARD_VS_CPU``): integers exact, floats within 1e-10 (the lanes
     of ``GRID_MAY_PART`` within their own bounds, each with the first trip
-    a lockstep finds it parting, if any).
+    a lockstep finds it parting, if any). ``grid_main_path`` also runs
+    ``ZDT2_F32`` (fault 3.14's setting, 8 starts, f32, no steady-state
+    call): fx finite on every lane, and omega too but on the lanes of
+    ``ZDT2_F32_MAY_NAN``, each of which must end in the recorded state
+    from which the JAX package's trip also fits non-finitely (ROADMAP
+    3.14).
+16. ``parametric_main_path`` — ``parametric_multistart`` on ``build_shifted``
+    (the two parabolas centred at +-theta_i, one multiquadric RBF group),
+    B=1024, theta_i from ``numpy.random.default_rng`` in [0.5, 2.5]^2,
+    Halton starts, float32, max_iter=100, qp_iters=400, under
+    ``kernels_only``, with the plain runner on the main path in the same
+    call: a warm-up and one timed batch each, runs/s of both, trips, K1-K3
+    launches of the parametric warm-up, the share of lanes within 0.3 of
+    their own Pareto segment (a gauge). ``parametric_card_vs_cpu`` — the
+    same at float64, 64 lanes, max_iter=FAMILY_LOCKSTEP_ITERS, card against
+    CPU trip by trip (``lockstep``); no lane may part. ``mesh_main_path`` —
+    the main path at float32, B=1024, the reference budget, with the mesh
+    ``MESH`` (four shards on one card) against the unsharded run: every
+    lane equal to the bit (integers, x and fx); ``StagedMultistart`` with
+    the probe-tuned schedule and widths over the mesh (each shard compacts
+    its own lanes) against the plain run in integers;
+    ``entry.dryrun_multichip(1)``. ``optimize_surface`` also prints the
+    live log (``optimize(verbosity=4)``) at float64 on the card and on the
+    CPU: the same lines, integers and booleans equal, floats within 1e-10
+    relative.
 
 Then the card's name and power limit, one JSON line with the kernel table
 (K1-K3 also with the staged main path's launches at each budget, the
-``routing`` times, the launches of the paths of phases 12-15, the rows of
+``routing`` times, the launches of the paths of phases 12-16, the rows of
 the inputs the paths of phases 13-14 recorded and K1's exit instance), the
 script's total seconds, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any result. Imports nothing of JAX.
@@ -176,6 +200,7 @@ exits non-zero before printing any result. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import pathlib
@@ -1874,9 +1899,10 @@ def duplicate_site_lanes(state):
     return dup.numpy()
 
 
-def lockstep(make_mop, starts, ac, may_part=None, eligible=None, describe=None):
+def lockstep(make_mop, starts, ac, may_part=None, eligible=None, describe=None, theta=()):
     """Trip by trip at float64: the card's trip from the CPU's state equals
-    the CPU's trip (``_compare_states``). With ``may_part``, a collection of
+    the CPU's trip (``_compare_states``); ``theta``, a parametric problem's
+    per-lane leaves, goes into both initial states. With ``may_part``, a collection of
     (trip, lane) pairs, such a lane may part at such a trip if
     ``eligible(state)`` (default ``duplicate_site_lanes``: its database then
     holds one site twice) marks it; any other parting lane fails. Returns
@@ -1891,8 +1917,9 @@ def lockstep(make_mop, starts, ac, may_part=None, eligible=None, describe=None):
 
     on = {d: build_solver(make_mop(), ac, torch.float64, d) for d in ("cuda", "cpu")}
     t0 = time.perf_counter()
-    state = on["cpu"].initialize(starts)
-    diffs, _ = _compare_states(on["cuda"].initialize(starts), state)
+    lanes = lambda d: tuple(t.to(d) for t in theta)
+    state = on["cpu"].initialize(starts, theta=lanes("cpu"))
+    diffs, _ = _compare_states(on["cuda"].initialize(starts, theta=lanes("cuda")), state)
     trips, parted, seen, cards, states = 0, [], {}, {}, {}
     while bool((state.stop_code == STOP_CODE.CONTINUE).any()):
         card_in = tree_map(lambda t: t.to("cuda"), state)
@@ -2575,6 +2602,40 @@ def _surface_runs(device, recycle=None):
     return runs, resumed, whole, first_rows
 
 
+#: a number in a live line (integers, floats, inf and nan)
+_NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:e[-+]?\d+)?|[-+]?inf|nan")
+
+
+def live_lines(device):
+    """The live lines of ``optimize(verbosity=4)`` on the main path's
+    problem at float64 from (-3, 2.5), max_iter=20."""
+    from morbit_tpu_torch import optimize
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        optimize(rbf_mop(), [-3.0, 2.5], device=device, dtype=torch.float64, max_iter=20,
+                 qp_iters=QP_ITERS, verbosity=4)
+    return [ln for ln in out.getvalue().splitlines() if ln.startswith(("| Iteration", "|  "))]
+
+
+def same_live_lines(ours, theirs):
+    """The same lines in the same order: the text between numbers equal,
+    integers equal, floats within 1e-10 relative. Returns the first line
+    pair that differs, or None."""
+    if len(ours) != len(theirs):
+        return (f"{len(ours)} lines", f"{len(theirs)} lines")
+    for a, b in zip(ours, theirs):
+        if _NUMBER.split(a) != _NUMBER.split(b):
+            return a, b
+        for u, v in zip(_NUMBER.findall(a), _NUMBER.findall(b)):
+            if re.fullmatch(r"[-+]?\d+", v):
+                if u != v:
+                    return a, b
+            elif not (u == v or abs(float(u) - float(v)) <= 1e-10 * abs(float(v))):
+                return a, b
+    return None
+
+
 def phase_optimize_surface():
     """``optimize``'s options on the card at float64 (``_surface_runs``): the
     recycled runs start past the first run's database rows, the
@@ -2637,7 +2698,14 @@ def phase_optimize_surface():
                              n_evals=int(r.n_evals), x=r.x.tolist(),
                              db_rows=int(r.state.groups[0].db.count))
     check(first_rows_cpu == first_rows, "the CPU's recycled runs start elsewhere")
+    t0 = time.perf_counter()
+    lines = {dev: live_lines(dev) for dev in ("cuda", "cpu")}
+    log_s = time.perf_counter() - t0
+    differs = same_live_lines(lines["cuda"], lines["cpu"])
+    check(bool(lines["cuda"]) and differs is None,
+          f"the card's live lines differ from the CPU's: {differs}")
     phase("optimize_surface", dtype="float64", runs=summary, recycled_first_rows=first_rows,
+          live_log_lines=len(lines["cuda"]), live_log_equal=True, live_log_s=log_s,
           auto_scale={k: v.tolist() for k, v in auto_scale.items()},
           checkpoint_resumed_bit_equal=True,
           card_equals_cpu=True, seconds=seconds)
@@ -3009,6 +3077,19 @@ GRID_CUTS = tuple(
        "zdt3-n2-lagrange1-steepest_descent-s8", "zdt3-n2-lagrange2-steepest_descent-s8"])
 #: where grid_main_path saves its results (and resumes from)
 GRID_SAVE = ROOT / "build" / "grid_main_path.json"
+#: fault 3.14's grid setting (cut from the timed grid above), run once by
+#: grid_main_path: at a box corner round 3 can hold one site several times,
+#: and such a training set fits non-finitely in the port exactly where it
+#: does in the JAX package (tests/test_torch_zdt2_f32.py)
+ZDT2_F32 = ("zdt2", 10, "rbf_cubic", "steepest_descent", 8)
+#: the lanes of ZDT2_F32 whose omega may end non-finite on the card, each
+#: with its record in ZDT2_F32_NAN_FITS: the card's state before the lane's
+#: first non-finite fit and after it (``tools/nan_fit_states.py``, NVIDIA
+#: H100 80GB HBM3, 700 W), and the JAX package's trip from that state, which
+#: fits non-finitely too (``tests/test_torch_zdt2_f32.py``). Such a lane
+#: must end with the recorded state's integer leaves.
+ZDT2_F32_MAY_NAN = {3: "card_lane3"}
+ZDT2_F32_NAN_FITS = ROOT / "tests" / "golden" / "zdt2_n10_rbf_cubic_f32_nan_fits.npz"
 #: the settings grid_card_vs_cpu runs on the card and on the CPU, with their
 #: budget overrides
 GRID_CARD_VS_CPU = ((("two_parabolas", 2, "exact", "steepest_descent", 3),
@@ -3114,6 +3195,7 @@ def phase_grid_main_path():
           f"the resumed grid ran {sorted(again_launches)} ({relaunched} launches)")
     check(again == results == json.loads(GRID_SAVE.read_text()),
           "the resumed grid's entries differ from the first run's")
+    launches[Setting(*ZDT2_F32).key] = grid_zdt2_f32()
     total = {k: sum(v[k] for v in launches.values()) for k in _all_launch_counts()}
     check(total["rbf_gram"] > 0, "K4 did not launch on the grid")
     phase("grid_main_path", dtype="float32", settings=len(grid) + len(extra),
@@ -3122,6 +3204,61 @@ def phase_grid_main_path():
           seconds=seconds, launches=total, resumed_settings_run=len(again_launches),
           resumed_launches=relaunched, save_file=str(GRID_SAVE.relative_to(ROOT)))
     return total
+
+
+def grid_zdt2_f32():
+    """ZDT2_F32 as ``perform_test`` runs it (the plain runner on its 8
+    Halton starts, the reference budget, float32), under ``kernels_only``:
+    final stop codes, fx finite on every lane, and omega finite but on the
+    lanes of ZDT2_F32_MAY_NAN, each ending with the integer leaves of its
+    recorded state (ROADMAP 3.14). Prints a ``grid_setting`` line; returns
+    its K1-K4 launches."""
+    from morbit_tpu_torch import STOP_CODE, multistart_optimize
+    from morbit_tpu_torch.parallel.benchmarks import Setting, _default_config, make_problem
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+    from morbit_tpu_torch.tools.nan_fit_states import fit_non_finite
+    from morbit_tpu_torch.utils.carry import state_to_numpy
+
+    s = Setting(*ZDT2_F32)
+    mop = make_problem(s.problem, s.n_vars, s.model)
+    x0 = torch.as_tensor(halton_starts(s.n_starts, mop.lb, mop.ub), dtype=torch.float32,
+                         device="cuda")
+    torch.cuda.synchronize()
+    _zero_all_launch_counts()
+    t0 = time.perf_counter()
+    with kernels_only():
+        res = multistart_optimize(mop, x0, _default_config(s), dtype=torch.float32)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _all_launch_counts()
+    traj = res.state.traj
+    omega = traj.omega[torch.arange(s.n_starts, device="cuda"),
+                       (traj.count.long() - 1).clamp(min=0)].cpu().numpy()
+    codes = res.stop_code.cpu().numpy()
+    check(bool(((codes >= STOP_CODE.MAX_ITER) & (codes <= STOP_CODE.INFEASIBLE)).all()),
+          f"{s.key}: a stop code that is not final, {codes.tolist()}")
+    check(bool(torch.isfinite(res.fx).all()), f"{s.key}: non-finite fx")
+    open_omega = np.nonzero(~np.isfinite(omega))[0].tolist()
+    check(set(open_omega) <= set(ZDT2_F32_MAY_NAN),
+          f"{s.key}: non-finite omega on lanes {open_omega}; recorded lanes "
+          f"{sorted(ZDT2_F32_MAY_NAN)}")
+    if open_omega:
+        recorded = np.load(ZDT2_F32_NAN_FITS)
+        final = state_to_numpy(res.state)
+        for lane in open_omega:
+            tag = ZDT2_F32_MAY_NAN[lane]
+            apart = [k for k, a in final.items() if a.dtype.kind in "biu"
+                     and not np.array_equal(a[lane:lane + 1], recorded[f"{tag}/port_after/{k}"])]
+            check(not apart, f"{s.key}: lane {lane} ends with a non-finite omega away from "
+                  f"its recorded state ({tag}): {apart}")
+    phase("grid_setting", key=s.key, staged=False, wall_s=seconds,
+          stop_codes={STOP_CODE(c).name: int((codes == c).sum()) for c in np.unique(codes)},
+          n_iterations=res.n_iterations.tolist(), n_evals=res.n_evals.tolist(),
+          omega_finite_lanes=int(np.isfinite(omega).sum()),
+          non_finite_omega_lanes=open_omega,
+          non_finite_fit_lanes=np.nonzero(fit_non_finite(res.state))[0].tolist(),
+          launches=launches)
+    return launches
 
 
 def phase_grid_card_vs_cpu():
@@ -3183,6 +3320,167 @@ def phase_grid_card_vs_cpu():
     phase("grid_card_vs_cpu", dtype="float64", settings=rows)
 
 
+# ------------------------------------- parametric runner and the mesh (slice 14)
+
+#: the seed of the parametric path's per-lane centres (one stream a batch)
+PARAMETRIC_SEED = 0
+#: (trip, lane) pairs of parametric_card_vs_cpu that may part: none
+PARAMETRIC_MAY_PART = {}
+#: the mesh of mesh_main_path: four shards of the batch on the one card
+MESH = ("cuda:0",) * 4
+
+
+def parametric_thetas(B, batch):
+    """The centres theta_i of one batch, (B, 2) uniform in [0.5, 2.5]."""
+    return np.random.default_rng(PARAMETRIC_SEED + batch).uniform(0.5, 2.5, (B, 2))
+
+
+def segment_share(x, theta, tol=0.3):
+    """The share of lanes within ``tol`` of their own Pareto segment
+    {s theta_i : s in [-1, 1]} (the check of the JAX package's
+    tests/test_parametric.py:37-47, here a gauge)."""
+    x, th = np.asarray(x, float), np.asarray(theta, float)
+    s = np.clip((x * th).sum(-1) / (th * th).sum(-1), -1.0, 1.0)
+    return float(np.mean(np.linalg.norm(x - s[:, None] * th, axis=-1) < tol))
+
+
+def phase_parametric_main_path():
+    """``parametric_multistart`` at full width beside the plain main path:
+    counts set to 0 just before the parametric warm-up batch and read just
+    after (each of K1-K3 at least once a trip); then the plain runner's
+    warm-up, and one timed batch of each on new starts and centres."""
+    from morbit_tpu_torch import AlgorithmConfig, multistart_optimize, parametric_multistart
+    from morbit_tpu_torch.problems.synthetic import build_shifted, halton_starts
+
+    ac = AlgorithmConfig(max_iter=100, qp_iters=QP_ITERS)
+    starts = [torch.as_tensor(halton_starts(B_MAIN, LB, UB, 1 + k * B_MAIN),
+                              dtype=torch.float32, device="cuda") for k in range(2)]
+    thetas = [parametric_thetas(B_MAIN, k) for k in range(2)]
+    run = lambda k: parametric_multistart(build_shifted, starts[k], thetas[k], ac,
+                                          torch.float32)
+    plain = lambda k: multistart_optimize(rbf_mop(), starts[k], ac, dtype=torch.float32)
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with kernels_only():
+        warm = run(0)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        plain(0)
+        seconds = {}
+        for name, fn in (("parametric", run), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(1)
+            torch.cuda.synchronize()
+            seconds[name] = (time.perf_counter() - t0, out)
+    for name, count in launches.items():
+        check(count >= warm.trips, f"{name} launched {count} times in {warm.trips} trips")
+    _check_result(warm, B_MAIN)
+    (theta_leaf,) = warm.state.theta
+    check(theta_leaf.is_cuda and torch.equal(theta_leaf.cpu(), torch.as_tensor(
+        thetas[0], dtype=torch.float32)), "the state's theta is not the lanes' centres")
+    timed, timed_s = seconds["parametric"][1], seconds["parametric"][0]
+    ref, ref_s = seconds["plain"][1], seconds["plain"][0]
+    _check_result(timed, B_MAIN)
+    phase("parametric_main_path", B=B_MAIN, dtype="float32", max_iter=100, qp_iters=QP_ITERS,
+          problem="build_shifted, theta_i ~ U[0.5, 2.5]^2", launches=launches,
+          trips=warm.trips, warmup_s=warm_s, runs_per_s=B_MAIN / timed_s,
+          timed_trips=timed.trips, plain_runs_per_s=B_MAIN / ref_s, plain_trips=ref.trips,
+          segment_share_0_3=segment_share(timed.x.cpu(), thetas[1]),
+          mean_evals=float(timed.n_evals.double().mean()), stop_codes=_stop_codes(timed))
+    return launches
+
+
+def phase_parametric_card_vs_cpu():
+    """The parametric path at float64, 64 lanes, card against CPU trip by
+    trip from the same state, theta included (``lockstep``); no lane may
+    part (``PARAMETRIC_MAY_PART``)."""
+    from morbit_tpu_torch import AlgorithmConfig
+    from morbit_tpu_torch.core.parametric import flatten, parametric_mop
+    from morbit_tpu_torch.problems.synthetic import build_shifted, halton_starts
+
+    B = 64
+    theta = (torch.as_tensor(parametric_thetas(B, 2)),)
+    make = lambda: parametric_mop(build_shifted, theta, flatten(theta[0])[1], True)
+    ac = AlgorithmConfig(max_iter=FAMILY_LOCKSTEP_ITERS, qp_iters=QP_ITERS)
+    trips, seconds, diffs, parted, _ = lockstep(
+        make, halton_starts(B, LB, UB), ac, may_part=set(PARAMETRIC_MAY_PART),
+        eligible=lambda st: np.ones(st.x.shape[0], bool), describe=family_part_cause,
+        theta=theta)
+    for pair, cause in parted.items():
+        check(PARAMETRIC_MAY_PART.get(pair) == cause,
+              f"parametric lane {pair[1]} parted at trip {pair[0]} ({cause})")
+    phase("parametric_card_vs_cpu", B=B, dtype="float64", max_iter=FAMILY_LOCKSTEP_ITERS,
+          lockstep_trips=trips, lockstep_s=seconds,
+          lockstep_rho_max_rel_diff=diffs["rho"], lockstep_fit_max_rel_diff=diffs["fit"],
+          parted={f"{t},{i}": c for (t, i), c in parted.items()})
+
+
+def phase_mesh_main_path():
+    """The main path at float32, B=1024, the reference budget, sharded over
+    MESH against the unsharded run: integers, x and fx equal to the bit on
+    every lane. Then the probe-tuned ``StagedMultistart`` over MESH (its
+    widths compacting each shard's lanes) against the plain run in
+    integers, and ``dryrun_multichip(1)``. Counts set to 0 just before the
+    sharded run and read just after."""
+    from morbit_tpu_torch import AlgorithmConfig, StagedMultistart, multistart_optimize
+    from morbit_tpu_torch.entry import dryrun_multichip
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    ac = AlgorithmConfig(max_iter=100, qp_iters=QP_ITERS)
+    x0 = torch.as_tensor(halton_starts(B_MAIN, LB, UB, 1 + 2 * B_MAIN), dtype=torch.float32,
+                         device="cuda")
+    secs = {}
+    with kernels_only():
+        t0 = time.perf_counter()
+        plain = multistart_optimize(rbf_mop(), x0, ac, dtype=torch.float32)
+        torch.cuda.synchronize()
+        secs["plain"] = time.perf_counter() - t0
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        sharded = multistart_optimize(rbf_mop(), x0, ac, dtype=torch.float32, mesh=MESH)
+        torch.cuda.synchronize()
+        secs["mesh"] = time.perf_counter() - t0
+        launches = _launch_counts()
+        tuned = StagedMultistart(rbf_mop(), ac, torch.float32).tuned(plain.n_iterations)
+        runner = StagedMultistart(rbf_mop(), ac, torch.float32,
+                                  schedule=tuple(t for t, _ in tuned.schedule),
+                                  widths=tuned.widths, mesh=MESH)
+        t0 = time.perf_counter()
+        staged = runner(x0)
+        torch.cuda.synchronize()
+        secs["staged_mesh"] = time.perf_counter() - t0
+    for name, count in launches.items():
+        check(count >= sharded.trips, f"{name} launched {count} times in {sharded.trips} trips")
+    _check_result(sharded, B_MAIN)
+    ints = ("stop_code", "n_iterations", "n_evals")
+    apart = torch.zeros(B_MAIN, dtype=torch.bool, device="cuda")
+    for k in ints:
+        apart |= getattr(sharded, k) != getattr(plain, k)
+    for k in ("x", "fx"):
+        apart |= (getattr(sharded, k) != getattr(plain, k)).any(-1)
+    check(not bool(apart.any()), f"mesh lanes {lane_list(apart.cpu())} differ from "
+          "the unsharded run")
+    staged_apart = torch.zeros_like(apart)
+    for k in ints:
+        staged_apart |= getattr(staged, k) != getattr(plain, k)
+    check(not bool(staged_apart.any()), f"staged mesh lanes "
+          f"{lane_list(staged_apart.cpu())} differ from the plain run in integers")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1)
+    secs["dryrun_multichip_1"] = time.perf_counter() - t0
+    phase("mesh_main_path", B=B_MAIN, dtype="float32", max_iter=100, qp_iters=QP_ITERS,
+          mesh=list(MESH), launches=launches, trips=sharded.trips, plain_trips=plain.trips,
+          lanes_differing=0, staged_schedule=[t for t, _ in runner.schedule],
+          staged_widths=list(runner.widths),
+          staged_shard_widths=list(next(iter(runner._shard_runners.values())).widths),
+          staged_trips=staged.trips, staged_stage_trips=list(staged.stage_trips),
+          staged_lanes_differing_in_integers=0, dryrun_multichip=dry, seconds=secs)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3202,6 +3500,8 @@ def main():
     option_captured = {kind: v[1] for kind, v in option_runs.items()}
     compacted_launches = phase_compacted_main_path()
     grid_launches = phase_grid_main_path()
+    parametric_launches = phase_parametric_main_path()
+    mesh_launches = phase_mesh_main_path()
     wide_launches, wide_captured = phase_wide_main_path(B_WIDE)
     *admm_rows, con_rows, admm_opt = phase_kernel_admm(wide_captured["qp_admm"],
                                                        con_captured, option_captured)
@@ -3225,6 +3525,7 @@ def main():
     phase_staged_quality_f64()
     phase_compacted_card_exact()
     phase_grid_card_vs_cpu()
+    phase_parametric_card_vs_cpu()
     phase_card_vs_cpu()
     phase_main_path()
 
@@ -3286,6 +3587,9 @@ def main():
             entry["compacted_main_path"] = {
                 f"max_iter_{b['max_iter']}": {"launches": counts[name]}
                 for b, counts in zip(STAGED_BUDGETS, compacted_launches)}
+            # the parametric runner's warm-up batch and the sharded main path
+            entry["parametric_main_path"] = {"launches": parametric_launches[name]}
+            entry["mesh_main_path"] = {"launches": mesh_launches[name]}
         entry["grid_main_path"] = {"launches": grid_launches.get(name, 0)}
         if name == "qp_admm":              # K1 at the constrained LP shapes
             entry["exit_eps_main_path"]["exit_instance_nv3_m6"] = {

@@ -25,7 +25,10 @@ compaction and its probe tuning) with its bench
 (:class:`CompactedMultistart`: stages and a bucket ladder), the ZDT/DTLZ
 benchmark problems and the reference's benchmark grid
 (``parallel/benchmarks.py``: :func:`generate_all_settings`,
-:func:`perform_test`, :func:`run_benchmarks` with save and resume).
+:func:`perform_test`, :func:`run_benchmarks` with save and resume), the
+parametric runner (:func:`parametric_multistart`: one problem instance a
+lane), the ``mesh`` form of the runners (the lanes sharded over devices,
+:func:`default_mesh`) and the live in-loop log (``optimize(verbosity=3..5)``).
 """
 
 from morbit_tpu_torch.core.algorithm import (OptimizeResult, Solver, SolverState,
@@ -39,8 +42,9 @@ from morbit_tpu_torch.models.configs import (ExactConfig, LagrangeConfig, RbfCon
 from morbit_tpu_torch.parallel.benchmarks import (Setting, generate_all_settings,
                                                   perform_test, run_benchmarks)
 from morbit_tpu_torch.parallel.multistart import (CompactedMultistart, StagedMultistart,
-                                                  compacted_multistart,
+                                                  compacted_multistart, default_mesh,
                                                   multistart_optimize,
+                                                  parametric_multistart,
                                                   staged_multistart)
 
 __version__ = "0.1.0"
@@ -65,6 +69,8 @@ __all__ = [
     "staged_multistart",
     "CompactedMultistart",
     "compacted_multistart",
+    "parametric_multistart",
+    "default_mesh",
     "Setting",
     "generate_all_settings",
     "perform_test",

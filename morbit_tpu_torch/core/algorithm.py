@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -58,6 +57,7 @@ from morbit_tpu_torch.ops import prng
 from morbit_tpu_torch.ops.batched_linalg import lane_matmul, lane_matvec
 from morbit_tpu_torch.ops.boxopt import halton_grid, maximize_in_box
 from morbit_tpu_torch.ops.geometry import project_into_box
+from morbit_tpu_torch.utils.logging import LiveLog
 from morbit_tpu_torch.utils.tree import lane_where, tree_map, tree_where
 
 #: criticality micro-step modes (``SolverState.ints[:, 3]``): the
@@ -161,6 +161,9 @@ class SolverState:
     #: (B, 2) PRNG key words (int64 holding uint32) when a group draws
     #: random numbers (``RbfConfig(use_max_points=True)``), else None
     key: Optional[torch.Tensor] = None
+    #: the per-lane problem data of a parametric problem
+    #: (``parametric_multistart``): its leaves, (B, ...) each; else ()
+    theta: tuple = ()
 
     @property
     def delta(self):
@@ -258,10 +261,23 @@ def _full_precision_matmuls():
 
 class Solver:
     """Static solver object: ``initialize`` / ``iterate`` / ``solve`` on
-    batched state."""
+    batched state.
+
+    ``log_level`` (``live_log`` sets at least 3) prints the JAX package's
+    live lines for lane 0 while the run goes (algorithm.py:274-283): at 3
+    a banner an iteration, at 4 the normal step, restoration, criticality
+    test and pass and acceptance, at 5 each group's model build. The lines
+    are gathered on the device and printed once a trip
+    (``utils/logging.LiveLog``); below 3 nothing is gathered."""
 
     def __init__(self, mop: CompiledMOP, ac: Optional[AlgorithmConfig] = None,
-                 dtype=torch.float64, device="cuda", x0_hint=None):
+                 dtype=torch.float64, device="cuda", x0_hint=None, live_log: bool = False,
+                 log_level: int = 0):
+        self.log_level = max(int(log_level), 3 if live_log else 0)
+        self.live_log = self.log_level >= 3
+        self._log = LiveLog(self.log_level) if self.live_log else None
+        #: where a trip's restoration line goes in the live log
+        self._restoration_mark = None
         self.mop = mop
         self.ac = ac = ac or AlgorithmConfig()
         self.dtype = dtype
@@ -303,6 +319,7 @@ class Solver:
         self.db_capacity = ac.resolved_db_capacity(mop.n_vars, *self._cap_terms)
         self.container = SurrogateContainer(mop, dtype, ac, self.db_capacity,
                                             self.device)
+        self.container.log = self._log
         self.desc_cfg = resolve_descent_config(ac.descent_method)
         self.T = ac.resolved_trajectory_capacity()
         #: width of the per-iteration training-set stamp (save_model_meta)
@@ -543,10 +560,21 @@ class Solver:
             out.append(fresh._replace(db=db))
         return tuple(out)
 
+    def _bind(self, theta: tuple) -> None:
+        """Bind a parametric problem's per-lane ``theta`` for the
+        evaluations that follow (``core/parametric.py``)."""
+        if self.mop.lanes is not None:
+            if not theta:
+                raise ValueError("a parametric problem needs its theta: solve it "
+                                 "with parametric_multistart")
+            self.mop.lanes.bind(theta)
+
     @_full_precision_matmuls()
-    def initialize(self, x0, populated_db=None) -> SolverState:
+    def initialize(self, x0, populated_db=None, theta: tuple = ()) -> SolverState:
         """``initialize_data`` (``algorithm.jl:223-323``) for a (B, n) batch
         of starting points (a single (n,) start is the batch of one).
+        ``theta``: a parametric problem's per-lane data, its leaves with the
+        lane axis first, on the solver's device.
 
         ``populated_db`` recycles the evaluation databases of a previous
         run on the same problem, lane by lane (the reference's
@@ -558,6 +586,7 @@ class Solver:
         if x0.dim() == 1:
             x0 = x0[None]
         B, n = x0.shape
+        self._bind(theta)
         x = project_into_box(x0, self._lb, self._ub)
         scal = scaling.VarScaler(*(f.expand(B, n).contiguous() for f in self.scal))
         x_s = scaling.transform(scal, x)
@@ -587,11 +616,14 @@ class Solver:
         ints = torch.cat([head.expand(B, 5), x_indices.to(torch.int32)], dim=-1)
         # the dummy filter carries no buffers
         cap = 0 if self.filter_mode == "dummy" else self.ac.resolved_filter_capacity()
+        if self._log is not None:
+            self._log.flush()
         return SolverState(
             x=x, x_s=x_s, fx=fx, l_e=l_e, l_i=l_i, c_e=c_e, c_i=c_i,
             dlt=torch.stack([delta0, delta0], dim=-1), ints=ints, groups=groups,
             filter=flt.init_filter(B, cap, self.f_dim, dtype, dev), traj=traj,
-            scal=scal, key=self._initial_key(x_s) if self.container.draws else None)
+            scal=scal, key=self._initial_key(x_s) if self.container.draws else None,
+            theta=tuple(theta))
 
     @staticmethod
     def _initial_key(x_s):
@@ -666,6 +698,7 @@ class Solver:
         micro-step (``crit_mode > 0``); micro trips do not advance the
         iteration counter or stamp the trajectory."""
         self._check_device(state)
+        self._bind(state.theta)
         ac = self.ac
         SC = STOP_CODE
         stop = torch.where(
@@ -679,8 +712,11 @@ class Solver:
         # host groups: the lanes whose trip is kept (a lane that stopped may
         # pass the tests above again; the solve loops keep its state)
         keep = go & (state.stop_code == SC.CONTINUE) if self._any_host else None
-        return tree_where(go, self._iterate_inner(state, go, keep),
-                          state.replace(stop_code=stop))
+        out = tree_where(go, self._iterate_inner(state, go, keep),
+                         state.replace(stop_code=stop))
+        if self._log is not None:
+            self._log.flush(go)
+        return out
 
     def _keep(self, keep, drop):
         """The lanes of ``keep`` without those of ``drop`` (None without a
@@ -738,6 +774,11 @@ class Solver:
         ac = self.ac
         in_crit = state.crit_mode > _MODE_NORMAL
         looping = state.crit_mode == _MODE_CRIT_LOOP
+        if self._log is not None:
+            self._log.add(3, "| Iteration {i}: delta={d:.3e} evals={e} crit_mode={m} "
+                          "x={x} f={f}", i=state.iter_counter, d=state.delta,
+                          e=self._total_evals(state.groups), m=state.crit_mode,
+                          x=state.x, f=state.fx)
         # per-iteration scaler update, never mid-criticality (the routine
         # sees one fixed scaling)
         if ac.var_scaler_update == "model":
@@ -769,7 +810,7 @@ class Solver:
         upd = self.container.update_or_improve(
             state.groups, state.x_s, state.x_indices, state.delta,
             improve_flag, scal=state.scal, efl_flag=in_crit,
-            active=(go if keep is None else keep) & do_update, key=key)
+            active=(go if keep is None else keep) & do_update, key=key, log_when=do_update)
         state = state.replace(groups=tree_where(do_update, upd, state.groups))
 
         theta_k = self._theta(state)
@@ -791,6 +832,10 @@ class Solver:
         scal = state.scal
         need_normal = ~self._violation_zero(theta_k)
         if not bool(need_normal.any()):
+            if self._log is not None:
+                yes = torch.ones_like(need_normal)
+                self._log_normal_step(need_normal, torch.zeros_like(theta_k), yes, yes)
+                self._log_restoration_skipped(state, torch.zeros_like(state.x_s))
             return self._main_phase(state, state, theta_k, theta_k, crit_halt, pre_stats,
                                     keep)
 
@@ -814,6 +859,10 @@ class Solver:
             norm_n <= ac.filter_kappa_delta * delta_n
             * torch.clamp(ac.filter_kappa_mu * delta_n ** ac.filter_mu, max=1.0))
         take_n = need_normal & compatible
+        if self._log is not None:
+            self._log_normal_step(need_normal, norm_n, feasible, compatible)
+            # JAX's run prints the restoration line before the main phase's
+            self._restoration_mark = self._log.mark()
 
         # the bundle at x+n (``:461-514``), selected per lane against x's
         changed = take_n & ~torch.isclose(delta_n, state.delta)
@@ -839,11 +888,44 @@ class Solver:
 
         # incompatible lanes: restoration or INFEASIBLE (``:440-493``)
         if not bool(incompatible.any()):
+            if self._log is not None:
+                self._log_restoration_skipped(state, n_step, self._restoration_mark)
             return out_main
         out_other = self._incompatible_path(
             state, theta_k, n_step, feasible,
             incompatible if keep is None else incompatible & keep, keep)
         return tree_where(incompatible, out_other, out_main)
+
+    def _log_normal_step(self, needed, norm_n, feasible, compatible):
+        """The live log's normal-step line (JAX algorithm.py:912-919),
+        printed every trip of a constrained problem."""
+        self._log.add(4, "|  Normal step: needed={d} |n|={n:.3e} feasible={f} "
+                      "compatible={c}", d=needed, n=norm_n, f=feasible, c=compatible)
+
+    def _log_restoration_skipped(self, state, r_guess, at=None):
+        """The restoration line of a trip on which no lane restores: JAX's
+        run reaches its restoration on every trip that does not follow one
+        (algorithm.py:1244-1250), with no iteration and theta at the start
+        point (inf for host functions, whose pass is gated off)."""
+        if not self.mop.has_nl_constraints:
+            return
+        xi = self._restoration_start(state, r_guess)
+        if self._any_host:
+            theta = torch.full_like(state.delta, float("inf"))
+        else:
+            theta = flt.compute_constraint_val(*self._true_constraints(xi, False))
+        zero = torch.zeros_like(state.crit_mode)
+        self._log.add(4, "|  Restoration: active={a} iters={i} theta_r={t:.3e}",
+                      state.last_it_stat != ITER_TYPE.RESTORATION, at,
+                      a=zero > 0, i=zero, t=theta)
+
+    def _restoration_start(self, state, r_guess):
+        """Restoration's start point: x plus the normal step's guess (none
+        where it is NaN), in the box."""
+        bad = torch.isnan(r_guess).any(-1, keepdim=True)
+        r0 = torch.where(bad, torch.zeros_like(state.x), torch.nan_to_num(r_guess)
+                         / torch.clamp(state.scal.scale, min=1e-30))
+        return project_into_box(state.x + r0, self._lb, self._ub)
 
     def _gated_evaluate_true(self, groups, x_s, scal, active):
         """``container.evaluate_true`` at a candidate whose results a lane
@@ -956,10 +1038,7 @@ class Solver:
             return 2.0 * (tmv(J_e, c_e) + tmv(J_i, pos(c_i)) + tmv(A_eq, l_e)
                           + tmv(A_ineq, pos(l_i)))
 
-        bad = torch.isnan(r_guess).any(-1, keepdim=True)
-        r0 = torch.where(bad, torch.zeros_like(x), torch.nan_to_num(r_guess)
-                         / torch.clamp(state.scal.scale, min=1e-30))
-        xi = project_into_box(x + r0, lb, ub)
+        xi = self._restoration_start(state, r_guess)
         width = torch.where(torch.isfinite(ub - lb), ub - lb, torch.ones_like(lb))
         min_width = width.min()
 
@@ -1018,6 +1097,12 @@ class Solver:
             groups = tuple(st._replace(n_evals=st.n_evals + 2 * i_used)
                            if i in con_groups else st for i, st in enumerate(groups))
             state = state.replace(groups=groups)
+        if self._log is not None:
+            theta_r = t_best if not host else torch.where(
+                active, t_best, torch.full_like(t_best, float("inf")))
+            self._log.add(4, "|  Restoration: active={a} iters={i} theta_r={t:.3e}",
+                          state.last_it_stat != ITER_TYPE.RESTORATION,
+                          self._restoration_mark, a=active, i=i_used, t=theta_r)
 
         scal = state.scal
         x_r_s = scaling.transform(scal, x_best)
@@ -1070,17 +1155,18 @@ class Solver:
                                    STOP_CODE.CRITICAL)
         cont = self._crit_microstep(state, inter, theta_k, theta_k_zero,
                                     omega, d, crit_halt, pre_stats,
-                                    self._keep(keep, crit_exit))
+                                    self._keep(keep, crit_exit), ~crit_exit)
         return tree_where(crit_exit, early, cont)
 
     def _crit_microstep(self, state, inter, theta_k, theta_k_zero, omega, d,
-                        halt, pre_stats, keep=None):
+                        halt, pre_stats, keep=None, reached=None):
         """``criticality_routine`` (``algorithm.jl:523-613``) as micro-steps
         of the outer loop, as in the JAX package: each pass (the
         make-fully-linear pre-step ``:536-551`` and every shrink pass
         ``:553-596``) is one outer trip with ``crit_mode > 0``; this applies
         the routine's control flow. Stabilized lanes fast-forward the
-        remaining Delta bookkeeping and finish in the same trip."""
+        remaining Delta bookkeeping and finish in the same trip. ``reached``:
+        the lanes whose JAX run reaches this routine (the live log's)."""
         ac = self.ac
         mu = ac.mu
         beta = max(ac.beta, ac.mu)
@@ -1100,6 +1186,10 @@ class Solver:
                       & ((~fully_lin) | (delta0 > mu * omega)))
         enter_pre = enter_crit & (~fully_lin)
         enter_loop = enter_crit & fully_lin
+        if self._log is not None:
+            self._log.add(4, "|  Criticality test: mode={m} entered={e} omega={o:.3e} "
+                          "fully_linear={f}", reached, m=mode, e=enter_crit, o=omega,
+                          f=fully_lin)
 
         # CRIT_PRE trips: pre-step outcome (``:545-551``)
         do_loops_pre = first & fully_lin & (delta0 > mu * omega)
@@ -1111,6 +1201,11 @@ class Solver:
         tol_exit = passed & ((delta_eff <= ac.delta_tol_abs)
                              | self._omega_tests(omega, delta_eff)
                              | (~fully_lin))
+        if self._log is not None:
+            self._log.add(4, "|  (Criticality Test) pass {p}: active={a} "
+                          "delta_loc={dl:.3e} omega={o:.3e} fully_linear={f}", reached,
+                          p=n_loops_eff, a=passed | first, dl=delta_eff, o=omega,
+                          f=fully_lin)
 
         # fixpoint certificate: a pass that left every group database
         # untouched proves the next pass is an identity (see the JAX
@@ -1170,7 +1265,9 @@ class Solver:
         inter_f = inter.replace(delta=delta_new, crit_mode=0, crit_nloops=0)
         crit_exit = self._finish_early(inter_f, STOP_CODE.CRITICAL)
         trial = self._trial_point(state_f, inter_f, theta_k, omega, d,
-                                  self._keep(keep, freeze | exit_critical))
+                                  self._keep(keep, freeze | exit_critical),
+                                  None if reached is None
+                                  else reached & ~(freeze | exit_critical))
         return tree_where(freeze, frozen,
                           tree_where(exit_critical, crit_exit, trial))
 
@@ -1243,11 +1340,12 @@ class Solver:
         omega = torch.where(usable, omega, torch.zeros_like(omega))
         return x_trial_s, omega, groups
 
-    def _trial_point(self, state, inter, theta_k, omega, d, keep=None):
+    def _trial_point(self, state, inter, theta_k, omega, d, keep=None, reached=None):
         """Descent step, true evaluation, acceptance tests, radius update
         (``algorithm.jl:748-914``). Host groups evaluate the trial point at
         the lanes of ``keep`` only: the lanes that take this outcome,
-        whether they accept the point or not."""
+        whether they accept the point or not. ``reached``: the lanes whose
+        JAX run takes this outcome (the live log's)."""
         ac = self.ac
         x_s = state.x_s
         scal = state.scal
@@ -1334,6 +1432,10 @@ class Solver:
             l_i=take(l_i_t, inter.l_i), c_e=take(c_e_t, inter.c_e),
             c_i=take(c_i_t, inter.c_i), x_indices=take(idx_t, inter.x_indices),
             delta=delta_new, groups=groups, filter=filt)
+        if self._log is not None:
+            self._log.add(4, "|  Acceptance: it_stat={s} rho={r:.3e} omega={o:.3e} "
+                          "steplength={l:.3e} accept={a} delta->{d:.3e}", reached,
+                          s=it_stat, r=rho, o=omega, l=steplength, a=accept, d=delta_new)
 
         # stamp (``:899-903``), then the it_stat column of the stamped row
         traj = self._stamp(next_state.traj, next_state.x, next_state.fx,
@@ -1370,8 +1472,8 @@ class Solver:
             trips += 1
 
     @_full_precision_matmuls()
-    def solve(self, x0) -> OptimizeResult:
-        state, trips = self.solve_from_state(self.initialize(x0))
+    def solve(self, x0, theta: tuple = ()) -> OptimizeResult:
+        state, trips = self.solve_from_state(self.initialize(x0, theta=theta))
         return OptimizeResult(
             x=state.x, fx=state.fx, stop_code=state.stop_code,
             n_iterations=state.iter_counter - 1,
@@ -1412,24 +1514,20 @@ def optimize(mop, x0, algo_config: Optional[AlgorithmConfig] = None,
     ``populated_db`` recycles a previous run's databases
     (:meth:`Solver.initialize`); ``verbosity >= 1`` prints the final
     report, ``>= 2`` also a line per iteration replayed from the
-    trajectory (``utils/logging.print_report``); ``>= 3`` warns once that
-    the live in-loop log is not ported (ROADMAP queue 1 item 17) and
-    prints the level-2 report. With
+    trajectory (``utils/logging.print_report``), ``>= 3`` the live lines
+    while the run goes (the banner of each iteration; ``>= 4`` the normal
+    step, restoration, criticality and acceptance; ``>= 5`` each group's
+    model build; ``Solver(log_level=)``), as the JAX package prints them. With
     ``untransform_final_database`` the returned databases are in unscaled
     coordinates and the state's scaler is the identity."""
     if algo_config is None:
         algo_config = AlgorithmConfig(**kwargs)
     elif kwargs:
         algo_config = dataclasses.replace(algo_config, **kwargs)
-    if verbosity >= 3:
-        warnings.warn(
-            f"optimize(verbosity={verbosity}): the live in-loop log is not ported to "
-            "morbit_tpu_torch yet (ROADMAP queue 1 item 17); printing the level-2 "
-            "report after the run", stacklevel=2)
     device = resolve_device(device)
     cmop = mop if isinstance(mop, CompiledMOP) else compile_mop(
         mop, algo_config.combine_models)
-    solver = Solver(cmop, algo_config, dtype, device, x0_hint=x0)
+    solver = Solver(cmop, algo_config, dtype, device, x0_hint=x0, log_level=verbosity)
     state, trips = solver.solve_from_state(solver.initialize(x0, populated_db))
     if algo_config.untransform_final_database:
         state = untransform_databases(state, solver._lb, solver._ub)

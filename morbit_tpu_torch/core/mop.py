@@ -502,6 +502,10 @@ class CompiledMOP:
     m_ce: int
     m_ci: int
     composites: tuple = ()  # tuple[CompositeSpec]
+    #: a parametric problem's per-lane data (``core/parametric.LaneData``):
+    #: its functions evaluate each lane's sites with that lane's theta,
+    #: bound by the solver before every trip
+    lanes: Optional[object] = None
 
     @property
     def n_groups(self):

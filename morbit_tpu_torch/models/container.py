@@ -89,6 +89,8 @@ class SurrogateContainer:
                         src = j
                         break
             self.reuse_from.append(src)
+        #: the solver's live log (``utils/logging.LiveLog``), or None
+        self.log = None
 
     # ------------------------------------------------------------- state init
     def init_group_states(self, B: int):
@@ -171,7 +173,7 @@ class SurrogateContainer:
         for gi, (ops, st, ctx) in enumerate(zip(self.ops, states, ctxs)):
             model, db = self._prepare(gi, st, ctx, ensure_fully_linear, mid)
             mid.append(st._replace(model=model, db=db))
-        return self._finish_two_phase(mid, ctxs)
+        return self._finish_two_phase(mid, ctxs, None)
 
     def _prepare(self, gi, st, ctx, ensure_fully_linear, mid):
         """The update-path phase 1 of group ``gi``; ``mid`` holds the
@@ -183,14 +185,15 @@ class SurrogateContainer:
         return self.ops[gi].prepare(st.model, st.db, ctx, ensure_fully_linear)
 
     def update_or_improve(self, states, x_s, x_indices, delta, improve_flag,
-                          scal, efl_flag, active=None, key=None):
+                          scal, efl_flag, active=None, key=None, log_when=None):
         """Update or improve, selected per lane by ``improve_flag``
         (``algorithm.jl:682-688``): both phase-1 variants run and are
         selected (in one pass where the family offers
         ``prepare_or_improve``), then evaluation and fitting run once.
         ``efl_flag`` is the per-lane ensure-fully-linear flag of criticality
         rebuild passes; ``active`` marks the lanes whose update the caller
-        keeps; ``key`` (B, 2) the pass's PRNG key where a group draws."""
+        keeps; ``key`` (B, 2) the pass's PRNG key where a group draws;
+        ``log_when`` (B,) the lanes whose update the live log reports."""
         ctxs = self._contexts(states, x_s, x_indices, delta, scal, active, key)
         mid = []
         for gi, (ops, st, ctx) in enumerate(zip(self.ops, states, ctxs)):
@@ -203,12 +206,12 @@ class SurrogateContainer:
             upd = self._prepare(gi, st, ctx, efl_flag, mid)
             model, db = tree_where(improve_flag, imp, upd)
             mid.append(st._replace(model=model, db=db))
-        return self._finish_two_phase(mid, ctxs)
+        return self._finish_two_phase(mid, ctxs, log_when)
 
-    def _finish_two_phase(self, mid, ctxs):
+    def _finish_two_phase(self, mid, ctxs, log_when):
         scal, keep = ctxs[0].scal, ctxs[0].active
         out = []
-        for g, ops, st, ctx in zip(self.mop.groups, self.ops, mid, ctxs):
+        for gi, (g, ops, st, ctx) in enumerate(zip(self.mop.groups, self.ops, mid, ctxs)):
             unscaled = lambda X: scaling.untransform(broadcast_scaler(scal, X), X)
             fn = lambda X, g=g: g.eval_unscaled(unscaled(X))
             # a host group: the missing rows of the lanes the caller keeps
@@ -221,7 +224,14 @@ class SurrogateContainer:
                                       self.db_capacity >= 8 * ops.eval_window) else None
             db, n_new = dbm.eval_missing(st.db, fn, window=win, eval_batch_masked=batch_fn)
             st = st._replace(db=db, n_evals=st.n_evals + n_new)
-            out.append(st._replace(model=ops.fit(st.model, st.db, ctx)))
+            model = ops.fit(st.model, st.db, ctx)
+            if self.log is not None:
+                # model-build internals (JAX container.py:244-252)
+                self.log.add(5, "|   (Models) group {g}: n_train={n} fully_linear={f} "
+                             "db_count={c} delta={d:.3e}", log_when, g=gi,
+                             n=getattr(model, "n_train", -1), f=ops.fully_linear(model),
+                             c=st.db.count, d=ctx.delta)
+            out.append(st._replace(model=model))
         return tuple(out)
 
     # ------------------------------------------------------------- model evals

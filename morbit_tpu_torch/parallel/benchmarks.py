@@ -29,7 +29,7 @@ from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.descent import PascolettiSerafiniConfig
 from morbit_tpu_torch.core.mop import compile_mop
 from morbit_tpu_torch.models.configs import LagrangeConfig, RbfConfig, TaylorConfig
-from morbit_tpu_torch.parallel.multistart import (StagedMultistart, _no_mesh,
+from morbit_tpu_torch.parallel.multistart import (StagedMultistart, mesh_devices,
                                                   multistart_optimize)
 from morbit_tpu_torch.problems.synthetic import (halton_starts, make_dtlz,
                                                  make_two_parabolas, make_zdt)
@@ -112,9 +112,10 @@ def _default_config(setting: Setting, **overrides) -> AlgorithmConfig:
     return AlgorithmConfig(**kw)
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices):
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def perform_test(setting: Setting, dtype=torch.float32, device=None, mesh=None,
@@ -133,31 +134,33 @@ def perform_test(setting: Setting, dtype=torch.float32, device=None, mesh=None,
     call's warm-up and the two batches' different work, and may be
     negative. ``staged=True`` runs :class:`StagedMultistart` (equal to the
     plain runner lane by lane), otherwise :func:`multistart_optimize`.
-    ``mesh`` raises ``NotImplementedError`` (ROADMAP queue 1 item 18)."""
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    ``mesh`` shards the starts over its devices (``parallel/multistart.py``;
+    the result lies on its first device, the clock stops after every
+    device's sync)."""
+    device = resolve_device(device) if mesh is None else mesh_devices(mesh)[0]
     mop = make_problem(setting.problem, setting.n_vars, setting.model)
     ac = _default_config(setting, **cfg_overrides)
     n_s = setting.n_starts
     x0_all = halton_starts(n_s * (2 if steady_state else 1), mop.lb, mop.ub)
     x0_all = torch.as_tensor(x0_all, dtype=dtype, device=device)
     if staged:
-        run = StagedMultistart(mop, ac, dtype, device=device)
+        run = StagedMultistart(mop, ac, dtype, device=device, mesh=mesh)
     else:
         cmop = compile_mop(mop, ac.combine_models)
-        run = lambda xb: multistart_optimize(cmop, xb, ac, dtype, device)
+        run = lambda xb: multistart_optimize(cmop, xb, ac, dtype, device, mesh)
+    devices = (device,) if mesh is None else tuple(dict.fromkeys(mesh_devices(mesh)))
 
-    _sync(device)
+    _sync(devices)
     t0 = time.perf_counter()
     res = run(x0_all[:n_s])
-    _sync(device)
+    _sync(devices)
     wall = time.perf_counter() - t0
 
     steady = None
     if steady_state:
         t0 = time.perf_counter()
         run(x0_all[n_s:])
-        _sync(device)
+        _sync(devices)
         steady = time.perf_counter() - t0
 
     traj = res.state.traj
@@ -186,9 +189,8 @@ def run_benchmarks(settings, save_path: Optional[str] = None, resume: bool = Tru
     """Run every settings group with incremental JSON saving and resume: a
     setting whose key the save file holds is not run again. A setting that
     raises is recorded as ``{"error": repr(e)}`` and the next one runs,
-    like the reference's ``try/catch``. ``mesh`` raises
-    ``NotImplementedError`` (ROADMAP queue 1 item 18)."""
-    _no_mesh(mesh)
+    like the reference's ``try/catch``. ``mesh`` as for
+    :func:`perform_test`."""
     results = {}
     if save_path and resume and os.path.exists(save_path):
         with open(save_path) as f:
@@ -200,7 +202,7 @@ def run_benchmarks(settings, save_path: Optional[str] = None, resume: bool = Tru
         if s.key in results:
             continue
         try:
-            obs = perform_test(s, dtype=dtype, device=device,
+            obs = perform_test(s, dtype=dtype, device=device, mesh=mesh,
                                steady_state=steady_state, staged=staged, **cfg_overrides)
             results[s.key] = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
                               for k, v in obs.items()}

@@ -1,4 +1,5 @@
-"""Batched multistart optimization: the plain and the staged runner.
+"""Batched multistart optimization: the plain, staged, compacted and
+parametric runners, and their mesh form.
 
 Counterpart of ``morbit_tpu/parallel/multistart.py``: one optimize() per
 row of a (B, n) batch of starts, run as B lanes of one batched solve (the
@@ -16,19 +17,34 @@ reference's ``Threads.@threads`` benchmark loop,
 * :class:`CompactedMultistart` runs fixed-length stages and, between them,
   shrinks the batch to the smallest bucket of a ladder that holds every
   lane still running, with a growing database capacity.
+* :func:`parametric_multistart` solves a different problem instance per
+  lane: the problem's functions take per-lane data θ
+  (``core/parametric.py``).
 
 Each stage is a host loop of :meth:`Solver.iterate` trips with one host
-sync a trip, like ``Solver.solve_from_state`` with a trip bound. The JAX
-package's ``mesh`` (sharding over devices; the runners take the argument
-and raise, naming ROADMAP queue 1 item 18) is not ported yet. Host (NumPy)
-functions evaluate each lane's kept sites only, so compaction and the
-fleet loop send the same sites to the host as the plain runner.
+sync a trip, like ``Solver.solve_from_state`` with a trip bound. Host
+(NumPy) functions evaluate each lane's kept sites only, so compaction and
+the fleet loop send the same sites to the host as the plain runner.
+
+A ``mesh`` (the JAX package's 1-D device mesh over the batch axis) is a
+sequence of ``torch.device``s (:func:`default_mesh`: every CUDA device).
+The batch splits into as many contiguous shards as the mesh has entries
+(B must divide by that number, JAX's rule), and each shard runs on its
+device as a batch of its own: lanes are independent, so no collective is
+needed. Shards on distinct devices run in one host thread per device,
+shards on the same device one after another; the results are put back in
+lane order on the mesh's first device, and ``trips`` is the largest over
+the shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+import functools
+import itertools
+import threading
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,14 +55,95 @@ from morbit_tpu_torch.core.algorithm import (OptimizeResult, Solver,
 from morbit_tpu_torch.core.config import AlgorithmConfig
 from morbit_tpu_torch.core.enums import STOP_CODE
 from morbit_tpu_torch.core.mop import CompiledMOP, compile_mop
+from morbit_tpu_torch.core.parametric import cast_leaf, flatten, parametric_mop
 from morbit_tpu_torch.utils.tree import lane_where, tree_map
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh argument (sharding the lanes over devices) is not ported to "
-            "morbit_tpu_torch yet (ROADMAP queue 1 item 18)")
+# ------------------------------------------------------------------- the mesh
+
+def default_mesh() -> tuple:
+    """Every CUDA device, as a mesh over the batch axis (JAX's
+    ``default_mesh``: every device). Raises without one."""
+    resolve_device(None)
+    return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+
+
+def mesh_devices(mesh: Sequence) -> tuple:
+    """The mesh's entries as ``torch.device``s (a CUDA entry without a card
+    raises, as every entry point's default does)."""
+    devs = tuple(resolve_device(d) for d in mesh)
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    return devs
+
+
+def shard_bounds(B: int, n_shards: int) -> list:
+    """The ``(start, stop)`` lanes of each contiguous shard; B must divide
+    by the number of shards (JAX's sharding rule)."""
+    if B % n_shards:
+        raise ValueError(f"a batch of {B} lanes does not divide over a mesh of "
+                         f"{n_shards} devices")
+    w = B // n_shards
+    return [(i * w, (i + 1) * w) for i in range(n_shards)]
+
+
+def run_sharded(devices: tuple, jobs: Sequence[Callable]) -> list:
+    """``jobs[i]()`` for every shard ``i``, on ``devices[i]``: one host
+    thread per distinct device (each with that device current), the jobs
+    of one device one after another. Returns the results in shard order;
+    the first failure is raised."""
+    by_device = {}
+    for i, dev in enumerate(devices):
+        by_device.setdefault(dev, []).append(i)
+    results, errors = [None] * len(jobs), []
+
+    def run_device(dev, shards):
+        scope = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        try:
+            with scope:
+                for i in shards:
+                    results[i] = jobs[i]()
+        except Exception as e:  # re-raised in the caller's thread below
+            errors.append(e)
+
+    if len(by_device) == 1:
+        (dev, shards), = by_device.items()
+        run_device(dev, shards)
+    else:
+        threads = [threading.Thread(target=run_device, args=item)
+                   for item in by_device.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def gather_results(results: Sequence[OptimizeResult], device) -> OptimizeResult:
+    """The shards' results as one, lanes in shard order on ``device``;
+    ``trips`` the largest over the shards, ``stage_trips`` stage by
+    stage."""
+    if len(results) == 1:
+        return results[0]
+    cat = lambda *ts: torch.cat([t.to(device) for t in ts], dim=0)
+    state = tree_map(cat, results[0].state, *(r.state for r in results[1:]))
+    stage_trips = tuple(max(t) for t in itertools.zip_longest(
+        *(r.stage_trips for r in results), fillvalue=0))
+    return OptimizeResult(
+        x=state.x, fx=state.fx, stop_code=state.stop_code,
+        n_iterations=cat(*(r.n_iterations for r in results)),
+        n_evals=cat(*(r.n_evals for r in results)), state=state,
+        trips=max(r.trips for r in results), stage_trips=stage_trips)
+
+
+def on_mesh(devices: tuple, B: int, job: Callable) -> OptimizeResult:
+    """``job(device, lo, hi)`` for every contiguous shard ``lo:hi`` of B
+    lanes, on its device (``run_sharded``), gathered on ``devices[0]``."""
+    jobs = [functools.partial(job, d, lo, hi)
+            for d, (lo, hi) in zip(devices, shard_bounds(B, len(devices)))]
+    return gather_results(run_sharded(devices, jobs), devices[0])
 
 
 def build_solver(mop, algo_config: Optional[AlgorithmConfig] = None,
@@ -60,11 +157,46 @@ def multistart_optimize(mop, x0_batch,
                         algo_config: Optional[AlgorithmConfig] = None,
                         dtype=torch.float32, device=None, mesh=None) -> OptimizeResult:
     """Run one full optimize() per row of ``x0_batch`` (B, n), batched on
-    one device (CUDA unless ``device`` says otherwise). Every field of the
-    result carries the lane axis first. ``mesh`` raises
-    ``NotImplementedError`` (ROADMAP queue 1 item 18)."""
-    _no_mesh(mesh)
-    return build_solver(mop, algo_config, dtype, device).solve(x0_batch)
+    one device (CUDA unless ``device`` says otherwise), or with ``mesh``
+    sharded over its devices (the module docstring; ``device`` is then
+    unused). Every field of the result carries the lane axis first."""
+    if mesh is None:
+        return build_solver(mop, algo_config, dtype, device).solve(x0_batch)
+    devs = mesh_devices(mesh)
+    x0 = torch.as_tensor(x0_batch)
+    solvers = {d: build_solver(mop, algo_config, dtype, d) for d in dict.fromkeys(devs)}
+    return on_mesh(devs, x0.shape[0], lambda d, lo, hi: solvers[d].solve(x0[lo:hi]))
+
+
+def parametric_multistart(mop_builder: Callable, x0_batch, theta_batch,
+                          algo_config: Optional[AlgorithmConfig] = None,
+                          dtype=torch.float32, mesh=None, device=None) -> OptimizeResult:
+    """Batch over problem data, not only over starts: lane i solves the
+    problem ``mop_builder(theta_i)`` from ``x0_batch[i]``, all in one
+    batched solve by the plain runner (JAX: ``jax.vmap(solver.solve)``).
+
+    ``theta_batch`` is a tree (dicts, lists, tuples) of arrays whose leading
+    axis pairs with the rows of ``x0_batch`` (B, n). Float leaves follow
+    the solve dtype; integer and boolean leaves keep theirs. The builder's
+    function closures may capture theta; the static structure (n, bounds,
+    linear rows, groups, output widths, configs) may not depend on it: the
+    builds for the first and the last lane are compared, and a difference
+    raises a ``ValueError`` naming the field. Host (NumPy) functions raise.
+    The per-lane theta lives in ``SolverState.theta``. ``mesh`` as for
+    :func:`multistart_optimize`."""
+    ac = algo_config or AlgorithmConfig()
+    devs = mesh_devices(mesh) if mesh is not None else (resolve_device(device),)
+    leaves, rebuild = flatten(theta_batch)
+    theta = tuple(cast_leaf(a, dtype, devs[0]) for a in leaves)
+    x0 = torch.as_tensor(x0_batch).to(device=devs[0], dtype=dtype)
+    B = x0.shape[0]
+    if any(t.dim() == 0 or t.shape[0] != B for t in theta):
+        raise ValueError(f"every leaf of theta_batch needs a leading axis of {B} lanes "
+                         "(one per row of x0_batch)")
+    cmop = parametric_mop(mop_builder, theta, rebuild, ac.combine_models)
+    solvers = {d: Solver(cmop, ac, dtype, d) for d in dict.fromkeys(devs)}
+    return on_mesh(devs, B, lambda d, lo, hi: solvers[d].solve(
+        x0[lo:hi].to(d), tuple(t[lo:hi].to(d) for t in theta)))
 
 
 # ------------------------------------------------------------ capacity stages
@@ -260,8 +392,10 @@ class StagedMultistart:
                  dtype=torch.float32, schedule: Optional[tuple] = None,
                  fleet: Optional[bool] = None, widths: Optional[tuple] = None,
                  device=None, mesh=None):
-        _no_mesh(mesh)
         ac = algo_config or AlgorithmConfig()
+        self.mesh = None if mesh is None else mesh_devices(mesh)
+        if self.mesh is not None:
+            device = self.mesh[0]
         if fleet is None:
             fleet = fleet_eligible(ac)
         elif fleet and not fleet_eligible(ac):
@@ -294,14 +428,34 @@ class StagedMultistart:
             if any(w < 1 for w in widths):
                 raise ValueError("widths entries must be >= 1")
         self.widths = widths
+        self._shard_runners = None
+        if self.mesh is not None:
+            # one runner a device; with widths, each shard compacts its own
+            # lanes to ceil(width / shards) (JAX's shard_map branch)
+            n_sh = len(self.mesh)
+            local = (None if widths is None
+                     else tuple(max(1, -(-w // n_sh)) for w in widths))
+            sched = tuple(t for t, _ in self.schedule)
+            self._shard_runners = {
+                d: StagedMultistart(self.solver.mop, ac, dtype, sched, self.fleet, local,
+                                    device=d) for d in dict.fromkeys(self.mesh)}
 
     def __call__(self, x0_batch) -> OptimizeResult:
-        return self.solve_from_state(self.solver.initialize(x0_batch))
+        if self.mesh is None:
+            return self.solve_from_state(self.solver.initialize(x0_batch))
+        x0 = torch.as_tensor(x0_batch)
+        return on_mesh(self.mesh, x0.shape[0],
+                       lambda d, lo, hi: self._shard_runners[d](x0[lo:hi]))
 
     @_full_precision_matmuls()
     def solve_from_state(self, states) -> OptimizeResult:
         """The stages from an initial batched state (``Solver.initialize``,
-        or one carried over with ``utils/carry.state_from_numpy``)."""
+        or one carried over with ``utils/carry.state_from_numpy``); with a
+        mesh, each shard of its lanes on its device."""
+        if self.mesh is not None:
+            return on_mesh(self.mesh, states.x.shape[0],
+                           lambda d, lo, hi: self._shard_runners[d].solve_from_state(
+                               tree_map(lambda t: t[lo:hi].to(d), states)))
         solver = self.solver
         B = states.x.shape[0]
         widths = self.widths
@@ -358,7 +512,7 @@ class StagedMultistart:
         tmp = StagedMultistart(cmop, ac, self.dtype, schedule=sched, device=dev)
         ws = suggest_widths(tmp, n_iterations, slack=slack, quantum=quantum)
         return StagedMultistart(cmop, ac, self.dtype, schedule=sched, widths=ws,
-                                device=dev)
+                                device=dev, mesh=self.mesh)
 
 
 # ---------------------------------------------------------- compacted runner
@@ -532,6 +686,6 @@ def staged_multistart(mop, x0_batch, algo_config: Optional[AlgorithmConfig] = No
                       widths: Optional[tuple] = None, device=None,
                       mesh=None) -> OptimizeResult:
     """One-shot :class:`StagedMultistart` (build the runner once to run
-    several batches)."""
+    several batches); ``mesh`` as for the runner."""
     return StagedMultistart(mop, algo_config, dtype, schedule, widths=widths,
                             device=device, mesh=mesh)(x0_batch)

@@ -2,7 +2,8 @@
 
 Counterpart of ``morbit_tpu/problems/synthetic.py``: the ZDT suite (ZDT1-4
 and 6; ZDT5 is binary-coded and has no box domain), DTLZ1, 2 and 6, the two
-parabolas (also under the constrained configuration), the composite
+parabolas (also under the constrained configuration, and with per-lane
+centers for ``parametric_multistart``), the composite
 problem of ``examples/composites.py``, the analytic ZDT
 fronts and the Halton starts. The objectives
 are torch functions of one site ``x (n,)``; the port's ``MOP`` batches and
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from morbit_tpu_torch.core.mop import MOP
-from morbit_tpu_torch.models.configs import ExactConfig
+from morbit_tpu_torch.models.configs import ExactConfig, RbfConfig
 
 
 # --------------------------------------------------------------------- ZDT
@@ -185,6 +186,19 @@ def make_two_parabolas(model_cfg=None, lb=None, ub=None) -> MOP:
 
 def _ball(x):
     return torch.sum(x ** 2) - 2.25
+
+
+def build_shifted(theta, model_cfg=None) -> MOP:
+    """The two parabolas centred at +theta and -theta on [-4, 4]^2, both
+    objectives in one multiquadric RBF group unless ``model_cfg`` says
+    otherwise (``build_shifted`` of ``tests/test_parametric.py``): the
+    builder of ``parametric_multistart``, whose closures capture theta. The
+    Pareto set is the segment x = s theta, s in [-1, 1]."""
+    cfg = RbfConfig(kernel="multiquadric") if model_cfg is None else model_cfg
+    mop = MOP([-4.0, -4.0], [4.0, 4.0])
+    mop.add_objective(lambda x: torch.sum((x - theta) ** 2)[None], model_cfg=cfg)
+    mop.add_objective(lambda x: torch.sum((x + theta) ** 2)[None], model_cfg=cfg)
+    return mop
 
 
 def make_constrained_two_parabolas(model_cfg=None, lb=(-4.0, -4.0),

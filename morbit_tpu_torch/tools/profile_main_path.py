@@ -47,9 +47,13 @@ time and the operators with the most host time. The models:
 * ``compacted``: the ``rbf`` model run by ``CompactedMultistart`` with its
   default ladder (B >> s for s < 5) and ``stage_iters=10`` (``chip_smoke.py``
   ``compacted_main_path``); the line adds the lanes and trips of each
-  stage.
+  stage;
+* ``parametric``: ``parametric_multistart`` on ``build_shifted`` (the two
+  parabolas centred at +-theta, one multiquadric RBF group), each lane's
+  theta drawn from ``numpy.random.default_rng(0)`` in [0.5, 2.5]^2
+  (``chip_smoke.py`` ``parametric_main_path``).
 
-    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps|composite|scaler_model|no_db|host|exit_eps|max_points|compacted]
+    python3 -m morbit_tpu_torch.tools.profile_main_path [--model rbf|exact|zdt20|staged|constrained|taylor|lagrange|ps|composite|scaler_model|no_db|host|exit_eps|max_points|compacted|parametric]
 
 Needs a CUDA card.
 """
@@ -112,7 +116,8 @@ def main(argv=None) -> int:
     args.add_argument("--model", choices=("rbf", "exact", "zdt20", "staged", "constrained",
                                           "taylor", "lagrange", "ps", "composite",
                                           "scaler_model", "no_db", "host", "exit_eps",
-                                          "max_points", "compacted"), default="rbf")
+                                          "max_points", "compacted", "parametric"),
+                      default="rbf")
     model = args.parse_args(argv).model
     B, window = 1024, 5
     #: the trips a windowed profile skips before its window
@@ -194,6 +199,14 @@ def main(argv=None) -> int:
             from morbit_tpu_torch import CompactedMultistart
 
             run = CompactedMultistart(mop, ac, torch.float32, stage_iters=10)
+        elif model == "parametric":
+            import numpy as np
+
+            from morbit_tpu_torch import parametric_multistart
+            from morbit_tpu_torch.problems.synthetic import build_shifted
+
+            theta = np.random.default_rng(0).uniform(0.5, 2.5, (B, 2))
+            run = lambda x: parametric_multistart(build_shifted, x, theta, ac, torch.float32)
         elif model in ("constrained", "composite"):
             from morbit_tpu_torch.parallel.multistart import build_solver
 

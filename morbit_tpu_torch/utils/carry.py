@@ -22,7 +22,9 @@ The port imports nothing of the JAX package, so both cross as plain data:
   crosses with its entries (a dummy filter has capacity 0). The PRNG key
   ``key`` (uint32 words) crosses when the dict has it, and the port's
   state has one only when a group draws random numbers
-  (``RbfConfig(use_max_points=True)``). States of runs with composites (an inner
+  (``RbfConfig(use_max_points=True)``). A parametric problem's per-lane data
+crosses as ``theta.<i>``, its leaves in order, each in its own dtype.
+States of runs with composites (an inner
   function's group is an ordinary group) and with the ``'model'`` scaler
   update (each lane's scaler is a leaf) cross as they are.
 
@@ -112,7 +114,9 @@ def state_from_numpy(leaves: dict, device=None, dtype=None) -> SolverState:
         traj=TrajectoryState(data=traj, count=t("traj.count", torch.int32),
                              n=n, m=m, G=G, MW=traj.shape[-1] - (n + m + 5 + G)),
         scal=scaling.VarScaler(*(t(f"scal.{f}") for f in scaling.VarScaler._fields)),
-        key=t("key", torch.int64) if "key" in leaves else None)
+        key=t("key", torch.int64) if "key" in leaves else None,
+        theta=tuple(torch.as_tensor(np.array(leaves[f"theta.{i}"]), device=device)
+                    for i in range(sum(k.startswith("theta.") for k in leaves))))
 
 
 def state_to_numpy(state: SolverState) -> dict:
@@ -128,6 +132,8 @@ def state_to_numpy(state: SolverState) -> dict:
         out[f"filter.{f}"] = host(getattr(state.filter, f))
     if state.key is not None:
         out["key"] = host(state.key).astype(np.uint32)
+    for i, leaf in enumerate(state.theta):
+        out[f"theta.{i}"] = host(leaf)
     for i, g in enumerate(state.groups):
         for f in ("data", "count", "overflow"):
             out[f"groups.{i}.db.{f}"] = host(getattr(g.db, f))

@@ -1,5 +1,5 @@
-"""Host-side views of a finished run: the trajectory arrays, the final
-report and the per-function evaluation counts.
+"""Host-side views of a run: the live in-loop log, the trajectory arrays,
+the final report and the per-function evaluation counts.
 
 Counterpart of ``morbit_tpu/utils/logging.py``. The reference prints
 per-iteration banners and a final report through its custom log levels
@@ -7,14 +7,85 @@ per-iteration banners and a final report through its custom log levels
 ``_fin_info_str`` ``:114-129``); here every iteration stamps its record
 into the trajectory buffer and :func:`print_report` renders it after the
 run, with the JAX package's text. Each function takes an ``optimize``
-result, or one lane of a batched result with ``lane``.
+result, or one lane of a batched result with ``lane``. :class:`LiveLog`
+prints the JAX package's live lines of ``verbosity >= 3`` while the run
+goes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from morbit_tpu_torch.core.enums import ITER_TYPE, STOP_CODE
+
+
+class LiveLog:
+    """The live in-loop log of lane 0 (``Solver(log_level=)``, the JAX
+    package's ``jax.debug.print`` sites, ``morbit_tpu/core/algorithm.py``
+    and ``models/container.py:244-252``).
+
+    Each site adds a line: its level, JAX's format string, the lanes on
+    which JAX's single run would reach the site (``when``, a (B,) bool
+    tensor or None for always), and the values it prints (tensors with the
+    lane axis first, or Python values). Nothing leaves the device until
+    :meth:`flush`, which brings the trip's lane-0 values to the host in one
+    transfer and prints the lines whose conditions hold, in order, with
+    JAX's text: the values as numpy arrays of their own dtype, formatted by
+    ``str.format`` as ``jax.debug.print`` does."""
+
+    def __init__(self, level: int, out=print):
+        self.level = int(level)
+        self.out = out
+        self._lines = []
+
+    def add(self, level: int, fmt: str, when=None, at=None, **values) -> None:
+        """Add a line if the log's level reaches ``level``; ``at`` inserts it
+        before the line of that index (:meth:`mark`) instead of last."""
+        if self.level >= level:
+            line = (fmt, when, values)
+            self._lines.insert(len(self._lines) if at is None else at, line)
+
+    def mark(self) -> int:
+        """The index the next line will take."""
+        return len(self._lines)
+
+    def flush(self, when=None) -> None:
+        """Print the lines added since the last flush whose conditions (and
+        ``when``, the trip's own) hold at lane 0."""
+        lines, self._lines = self._lines, []
+        if not lines:
+            return
+        parts, specs = [], []
+
+        def put(v):
+            if not isinstance(v, torch.Tensor):
+                return ("py", v)
+            v = v[0] if v.dim() else v
+            parts.append(v.detach().reshape(-1).to(torch.float64))
+            return ("t", v.dtype, tuple(v.shape), len(parts) - 1)
+
+        gate = None if when is None else put(when)
+        staged = [(fmt, None if w is None else put(w), {k: put(v) for k, v in vals.items()})
+                  for fmt, w, vals in lines]
+        if not parts:
+            host = []
+        else:
+            flat = torch.cat(parts).cpu().numpy()   # the trip's one transfer
+            sizes = np.cumsum([0] + [p.numel() for p in parts])
+            host = [flat[a:b] for a, b in zip(sizes[:-1], sizes[1:])]
+
+        def get(spec):
+            if spec[0] == "py":
+                return spec[1]
+            _, dtype, shape, i = spec
+            return host[i].astype(str(dtype).removeprefix("torch.")).reshape(shape)
+
+        if gate is not None and not bool(get(gate)):
+            return
+        for fmt, w, vals in staged:
+            if w is None or bool(get(w)):
+                self.out(fmt.format(**{k: get(v) for k, v in vals.items()}))
 
 
 def _host(t):

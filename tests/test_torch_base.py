@@ -8,6 +8,7 @@ at float64 on the same seeded numpy inputs. Runs on the CPU.
 import dataclasses
 import subprocess
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,7 @@ from morbit_tpu.models.configs import RbfConfig as JaxRbfConfig
 from morbit_tpu.models.configs import TaylorConfig as JaxTaylorConfig
 from morbit_tpu_torch.models.configs import LagrangeConfig, RbfConfig, TaylorConfig
 from morbit_tpu_torch.parallel.multistart import build_solver
-from morbit_tpu_torch.utils.carry import config_from_dict
+from morbit_tpu_torch.utils.carry import config_from_dict, state_to_numpy
 
 TOL = 1e-12
 
@@ -354,23 +355,33 @@ def test_unported_models_raise(cfg):
 @pytest.mark.parametrize("runner", ["multistart_optimize", "StagedMultistart",
                                     "staged_multistart"])
 def test_mesh_argument_raises_naming_its_item(runner):
-    """The runners take the JAX package's ``mesh`` argument and raise,
-    naming ROADMAP queue 1 item 18 (sharding over devices is not ported)."""
+    """(The name is kept from when the argument raised.) The runners take
+    the JAX package's ``mesh``: with a mesh of two CPU devices the batch
+    runs as two shards, and the result equals the run without a mesh leaf
+    by leaf (``tests/test_torch_mesh.py`` holds the JAX package's mesh
+    tests)."""
     mop = tsyn.make_two_parabolas()
-    x0 = np.array([[0.5, -0.5]])
-    call = {"multistart_optimize": lambda: mt.multistart_optimize(
-                mop, x0, device="cpu", mesh=object()),
-            "StagedMultistart": lambda: mt.StagedMultistart(mop, device="cpu", mesh=object()),
-            "staged_multistart": lambda: mt.staged_multistart(mop, x0, device="cpu",
-                                                              mesh=object())}[runner]
-    with pytest.raises(NotImplementedError, match=r"mesh[\s\S]*queue 1 item 18"):
-        call()
+    x0 = tsyn.halton_starts(4, [-4.0, -4.0], [4.0, 4.0])
+    ac = mt.AlgorithmConfig(max_iter=4, qp_iters=100)
+    mesh = ["cpu", "cpu"]
+    call = {"multistart_optimize": lambda m: mt.multistart_optimize(
+                mop, x0, ac, torch.float64, device="cpu", mesh=m),
+            "StagedMultistart": lambda m: mt.StagedMultistart(
+                mop, ac, torch.float64, schedule=(2,), device="cpu", mesh=m)(x0),
+            "staged_multistart": lambda m: mt.staged_multistart(
+                mop, x0, ac, torch.float64, schedule=(2,), device="cpu", mesh=m)}[runner]
+    res, ref = call(mesh), call(None)
+    a, b = state_to_numpy(res.state), state_to_numpy(ref.state)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert res.trips == ref.trips
 
 
 def test_verbosity_three_warns_once_and_prints_the_report(capsys):
-    """``optimize(verbosity=3)`` warns once that the live log is ROADMAP
-    queue 1 item 17 and prints the level-2 report; the adders take
-    ``host``/``can_batch``."""
+    """(The name is kept from when level 3 warned.) ``optimize(verbosity=3)``
+    prints the live per-iteration banner and no warning, then the report;
+    the adders take ``host``/``can_batch``."""
     mop = mt.MOP([-2.0, -2.0], [2.0, 2.0])
     mop.add_objective(lambda x: np.sum((x - 1.0) ** 2), host=True,
                       model_cfg=RbfConfig(kernel="multiquadric"))
@@ -380,10 +391,13 @@ def test_verbosity_three_warns_once_and_prints_the_report(capsys):
                                model_cfg=RbfConfig(kernel="cubic"))
     mop.add_nl_eq_constraint(lambda x: torch.sum(x * 0.0), host=False)
     mop.add_function(lambda x: np.sum(x), host=True, can_batch=False)
-    with pytest.warns(UserWarning, match=r"live[\s\S]*queue 1 item 17") as rec:
-        mt.optimize(mop, [0.5, -0.5], max_iter=2, verbosity=3, device="cpu")
-    assert len([w for w in rec if "item 17" in str(w.message)]) == 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        res = mt.optimize(mop, [0.5, -0.5], max_iter=2, verbosity=3, device="cpu")
     out = capsys.readouterr().out
+    banners = [ln for ln in out.splitlines() if ln.startswith("| Iteration ")]
+    assert len(banners) == int(res.n_iterations) >= 1
+    assert banners[0].startswith("| Iteration 1: delta=")
     assert "| iter   0" in out and "FINISHED" in out
 
 

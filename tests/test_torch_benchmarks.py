@@ -11,7 +11,8 @@ on the CPU:
   against a plain run on the second half of its starts;
 * ``run_benchmarks``: a save file that JAX's ``run_benchmarks`` wrote is
   resumed without running a setting; a setting that raises is recorded as
-  an ``error`` entry and the next one runs; ``mesh=`` raises;
+  an ``error`` entry and the next one runs; ``mesh=`` equals the run
+  without one;
 * the synthetic problems' derivatives below x0 = 0, where ``sqrt`` meets
   ``maximum(., 0)``, against JAX's (NaN in both).
 """
@@ -267,10 +268,15 @@ def test_run_benchmarks_records_an_error_and_goes_on(tmp_path):
 
 
 def test_mesh_raises_naming_its_item():
-    """``mesh=`` on ``perform_test`` and ``run_benchmarks`` raises (ROADMAP
-    queue 1 item 18), before any setting runs or is recorded."""
-    s = tb.Setting(*TWO_PARABOLAS)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tb.perform_test(s, dtype=F64, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tb.run_benchmarks([s], dtype=F64, device="cpu", mesh=object(), verbose=False)
+    """(The name is kept from when the argument raised.) ``mesh=`` on
+    ``perform_test`` and ``run_benchmarks``: with a mesh of two CPU devices
+    the observations equal those without one."""
+    s = tb.Setting("two_parabolas", 2, "exact", "steepest_descent", 4)
+    kw = dict(max_iter=4, qp_iters=50)
+    ours = tb.perform_test(s, dtype=F64, device="cpu", mesh=["cpu", "cpu"], **kw)
+    ref = tb.perform_test(s, dtype=F64, device="cpu", **kw)
+    _assert_obs_equal(ours, ref, 0.0)
+    res = tb.run_benchmarks([s], dtype=F64, device="cpu", mesh=["cpu", "cpu"], verbose=False,
+                            **kw)
+    assert res[s.key]["n_evals"] == ref["n_evals"].tolist()
+    assert res[s.key]["x"] == ref["x"].tolist()

@@ -451,3 +451,79 @@ def test_perform_test_on_card_matches_cpu(cuda):
         for lane, (tol, _) in GRID_MAY_PART[s.key].items():
             lim[lane] = tol
         assert np.all(np.abs(card[k] - cpu[k]) <= lim), (k, np.abs(card[k] - cpu[k]))
+
+
+@pytest.mark.cuda
+def test_parametric_on_card_matches_cpu(cuda):
+    """``parametric_multistart`` on ``build_shifted`` at float64, 4 lanes
+    with their own centres, max_iter=8, qp_iters=100: the card's run
+    against the CPU's, integers exact and floats within 1e-10, theta kept
+    on the card as a leaf of the state."""
+    from morbit_tpu_torch import AlgorithmConfig, parametric_multistart
+    from morbit_tpu_torch.problems.synthetic import build_shifted, halton_starts
+
+    thetas = np.random.default_rng(3).uniform(0.5, 2.5, (4, 2))
+    x0 = halton_starts(4, [-4.0, -4.0], [4.0, 4.0])
+    ac = AlgorithmConfig(max_iter=8, qp_iters=100)
+    card = parametric_multistart(build_shifted, x0, thetas, ac, torch.float64)
+    cpu = parametric_multistart(build_shifted, x0, thetas, ac, torch.float64, device="cpu")
+    assert card.state.theta[0].is_cuda
+    for k in ("stop_code", "n_iterations", "n_evals"):
+        np.testing.assert_array_equal(getattr(card, k).cpu().numpy(),
+                                      getattr(cpu, k).numpy(), err_msg=k)
+    for k in ("x", "fx"):
+        np.testing.assert_allclose(getattr(card, k).cpu().numpy(), getattr(cpu, k).numpy(),
+                                   rtol=0, atol=1e-10, err_msg=k)
+
+
+#: the float leaves of the staged runner over the mesh on the card that part
+#: from the plain runner's beyond 1e-12, each bounded just above its largest
+#: absolute gap as ``morbit_tpu_torch/tools/width_gaps.py`` measured it on an
+#: NVIDIA H100 80GB HBM3 (700 W): each shard runs stages 4 and 2 lanes wide,
+#: and below 3 lanes the card's float64 LU solves (``torch.linalg.solve_ex``,
+#: ``lu_factor_ex``) take another algorithm and round otherwise (ROADMAP 3.15)
+STAGED_MESH_GAPS = {"traj.rho": 3e-5, "traj.omega": 5e-11, "groups.0.db.data": 5e-11,
+                    "groups.0.model.fit.fdata": 2e-5, "groups.0.model.fit.flam": 4e-9}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runner", ["plain", "staged_widths", "parametric"])
+def test_mesh_on_card_matches_unsharded(cuda, runner):
+    """The mesh form on the card at float64, 16 Halton starts of the main
+    path, max_iter=12, qp_iters=100, a mesh of the card four times: the
+    plain runner, ``StagedMultistart`` with widths (per shard) and
+    ``parametric_multistart``, each equal to its unsharded run leaf by
+    leaf: integers exact, every float leaf within 1e-12 (the trajectory
+    column by column), but for the staged runner the leaves of
+    STAGED_MESH_GAPS within their bounds."""
+    from chip_smoke import LB, UB, rbf_mop
+    from morbit_tpu_torch import (AlgorithmConfig, StagedMultistart, multistart_optimize,
+                                  parametric_multistart)
+    from morbit_tpu_torch.parallel.multistart import canonicalize_buffer_tails
+    from morbit_tpu_torch.problems.synthetic import build_shifted, halton_starts
+    from morbit_tpu_torch.tools.width_gaps import leaf_gaps
+    from morbit_tpu_torch.utils.carry import state_to_numpy
+
+    ac = AlgorithmConfig(max_iter=12, qp_iters=100)
+    x0 = torch.as_tensor(halton_starts(16, LB, UB), dtype=torch.float64, device=cuda)
+    thetas = np.random.default_rng(4).uniform(0.5, 2.5, (16, 2))
+    run = {"plain": lambda mesh: multistart_optimize(rbf_mop(), x0, ac, torch.float64,
+                                                     mesh=mesh),
+           "staged_widths": lambda mesh: StagedMultistart(
+               rbf_mop(), ac, torch.float64, schedule=(3, 6), widths=(16, 8, 8),
+               mesh=mesh)(x0),
+           "parametric": lambda mesh: parametric_multistart(
+               build_shifted, x0, thetas, ac, torch.float64, mesh=mesh)}[runner]
+    res, ref = run(["cuda:0"] * 4), run(None)
+    if runner == "staged_widths":
+        ref = multistart_optimize(rbf_mop(), x0, ac, torch.float64)
+    a = state_to_numpy(canonicalize_buffer_tails(res.state))
+    b = state_to_numpy(canonicalize_buffer_tails(ref.state))
+    assert a.keys() == b.keys()
+    for name in a:
+        assert a[name].dtype == b[name].dtype and a[name].shape == b[name].shape, name
+    ints_equal, gaps = leaf_gaps(a, b, 2, 2)
+    assert ints_equal
+    bounds = STAGED_MESH_GAPS if runner == "staged_widths" else {}
+    for name, gap in gaps.items():
+        assert gap <= bounds.get(name, 1e-12), (name, gap)
