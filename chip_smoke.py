@@ -30,9 +30,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. ``wide_main_path``   — the wide-n path: ZDT1 at n=20, both objectives in
    one cubic RBF group, the reference grid budget, float32, B_WIDE Halton
    starts; launches of K1-K4 per batch, trips, the front error, evaluations,
-   stop codes, database rows, peak memory, the sustained rate. Its first
+   stop codes, database rows, peak memory, the rate. Its first
    batch records the K1-K4 inputs of some calls, and no plain twin may run
-   on the card in it.
+   on the card in it. ``wide50_main_path`` — the same at n=50
+   (``WIDE50_BUDGET``: max_iter=10, max_evals=1000 n; one sustained batch),
+   every kernel past the limits it had before it took every shape: K1's
+   strided instance at (51, 102), K2's wide instance, K3's slot instance at
+   max_points 1326, K4's tiled instance at P=1326; each at least once a
+   trip.
 4. ``kernel_admm``, ``kernel_selection``, ``kernel_round4`` — K1, K2, K3
    against their twins on the card, on random cases (the wide shapes
    included: nv=21/m=42, the constrained LPs (3, 8) and (4, 11) with and
@@ -47,6 +52,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    outputs equal to the twins' on every lane, K2's floats to the bit. K3's
    rows give its bound under the live-size count (``round4_work``) and the
    padded kernel's count, and the tested and accepted candidates per lane.
+   Each also holds the n=50 path's recorded call (K2, K3 and K4 against
+   the twin's run on its first ``WIDE50_TWIN_LANES`` lanes).
 5. ``kernel_gram``      — K4 against its twin: (P, n) = (134, 14) and
    (251, 20), all five RBF kernels, the edges of its tiling (P in 128,
    129, 251, 512 and n in 1, 20, 32), and the wide path's inputs; max|diff|
@@ -61,7 +68,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 7. ``wide_quality_f64`` — the wide path's problem at float64, B=4,
    max_iter=25, under the asserts of tests/test_zdt_quality.py:97-101.
 8. ``wide_card_vs_cpu`` — ZDT1 at n=10 at float64 on the card and on the
-   CPU, trip by trip from the same state.
+   CPU, trip by trip from the same state. ``wide50_card_vs_cpu`` — ZDT1 at
+   n=50, float64, B=4, two trips, the same lockstep; integer leaves equal
+   on every lane and trip, and a lane whose floats part is reported with
+   its first parting leaf (fault 3.15), not held looser.
 9. ``rbf_card_vs_cpu``  — the RBF main path at float64, 64 Halton starts,
    max_iter=100, on the card and on the CPU, trip by trip from the same
    state (integer leaves equal, floats within 1e-9 + 1e-6 |x|), and run
@@ -151,8 +161,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``steady_state=True`` at float32 over the default grid
     (``generate_all_settings()``: zdt1-3 x n in {2, 5, 10} x {rbf_cubic,
     taylor1, lagrange1, lagrange2}, 8 starts) less ``GRID_CUTS``, and the
-    ``GRID_EXTRA`` settings (K4 at n=15, DTLZ1, staged PS; one
-    ``perform_test`` each); no ``error``
+    ``GRID_EXTRA`` settings (K4 at n=15 with ``max_iter=20``, DTLZ1,
+    staged PS; one ``perform_test`` each); no ``error``
     entry, final stop codes, finite fx and omega; one ``grid_setting`` line
     per setting with its K1-K4 launches; a second call on the save file
     runs nothing. ``compacted_card_exact`` — the compacted runner at
@@ -189,8 +199,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     CPU: the same lines, integers and booleans equal, floats within 1e-10
     relative.
 
+Each phase line carries ``t_s``, the seconds since the script started.
 Then the card's name and power limit, one JSON line with the kernel table
-(K1-K3 also with the staged main path's launches at each budget, the
+(K1-K4 also with the n=50 path's launches and rows, K1-K3 with the
+staged main path's launches at each budget, the
 ``routing`` times, the launches of the paths of phases 12-16, the rows of
 the inputs the paths of phases 13-14 recorded and K1's exit instance), the
 script's total seconds, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
@@ -203,6 +215,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -213,7 +226,14 @@ from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
-import torch
+
+# one process runs every path, the n=50 path's ~57 GB of fits among them: the
+# caching allocator's expandable segments let freed memory serve any later
+# size, where fixed segments, split among tensors that still live, left the
+# n=50 path's 7.8-15.5 GB temporaries no room (set before torch starts CUDA)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -240,11 +260,39 @@ N_WIDE = 20
 WIDE_MAX_POINTS = (N_WIDE + 1) * (N_WIDE + 2) // 2
 WIDE_BUDGET = dict(max_iter=100, max_evals=1000 * N_WIDE, delta_0=0.1, delta_max=0.5,
                    f_tol_rel=1e-3, x_tol_rel=1e-3, qp_iters=QP_ITERS)
-#: sustained batches of the wide path after its first (one keeps the whole
-#: script within half of its time limit)
-WIDE_SUSTAINED = 1
+#: sustained batches of the wide path after its first (none: its first
+#: batch gives the rate, which keeps the whole script within its time limit
+#: beside the n=50 path)
+WIDE_SUSTAINED = 0
+#: the wide path's budget in this script: the reference grid budget at
+#: max_iter=20 (its first 20 iterations), which keeps the script within
+#: its time limit beside the n=50 path
+WIDE_SMOKE_BUDGET = dict(WIDE_BUDGET, max_iter=20)
 #: calls of each kernel whose inputs the wide path's first batch records
 WIDE_CAPTURE_CALLS = (2, 10)
+#: the n=50 path: ZDT1 at n=50 in one cubic RBF group (max_points 1326, the
+#: fit's k = 1326 + 51), float32, the wide path's budget at max_iter=10 and
+#: max_evals=1000 n; K1 at (51, 102), K2 at n=50, K3 at (1326, 51, C), K4
+#: at P=1326, each past the limits the kernels had before they took every
+#: shape
+N_WIDE50 = 50
+WIDE50_BUDGET = dict(WIDE_BUDGET, max_iter=10, max_evals=1000 * N_WIDE50)
+WIDE50_SUSTAINED = 1
+WIDE50_CAPTURE_CALLS = (6,)
+#: lanes of a recorded n=50 call the K2, K3 and K4 twins run (K3's and K4's
+#: (B, 1326, 1326) state does not fit the card at B=1024, and K3's twin
+#: took 16.5 s on 32 lanes); the kernel runs all B and is held on these
+WIDE50_TWIN_LANES = 8
+#: lanes the K2 and K3 twins run on a larger set at n >= N_WIDE (the
+#: B=1024 sets at n = 20 and 32; their (B, cap, n, n) and (B, max_points,
+#: max_points) temporaries took 3-30 s a set on all 1,024 lanes); the
+#: kernel runs all B and is held on these
+WIDE_TWIN_LANES = 64
+#: K2 and K3 hold the n=50 path's recorded call at its dtype, float32 (their
+#: twins took ~40-50 s a dtype there on 32 lanes); both instances are held at float64
+#: at n = 50 by tests/test_torch_cuda.py (selection_wide, slots)
+#: the script's start, for each phase line's t_s
+STARTED = time.perf_counter()
 
 
 def check(cond, msg):
@@ -253,7 +301,8 @@ def check(cond, msg):
 
 
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    print(json.dumps({"phase": name, **fields,
+                      "t_s": round(time.perf_counter() - STARTED, 1)}), flush=True)
 
 
 def event_ms(fn, reps, inner=1):
@@ -700,11 +749,12 @@ def ptxas_summary(log):
     instance from ``-Xptxas=-v`` output, keyed like ``qp_admm_f32_3_6`` (the
     kernel, its type and its template sizes; none for runtime sizes). The
     dynamic shared memory of the runtime-size instances is the wrappers'
-    (``admm_smem_bytes``, ``selection_smem_bytes``)."""
+    (``qp_lane.admm_plan``, ``prepare_fused.selection_plan``)."""
     out, key = {}, None
     for line in log.splitlines():
-        hit = re.search(r"(qp_admm_wide|qp_admm|rbf_selection_block|rbf_selection|"
-                        r"rbf_round4_wide|rbf_round4|rbf_gram|admm_iterations)"
+        hit = re.search(r"(qp_admm_wide|qp_admm_strided|qp_admm|rbf_selection_block|"
+                        r"rbf_selection_wide|rbf_selection|rbf_round4_wide|"
+                        r"rbf_round4_slots|rbf_round4|rbf_gram_tiled|rbf_gram|admm_iterations)"
                         r"_kernelI([fd])((?:Li\d+E)*)", line)
         if "Compiling entry function" in line and hit:
             sizes = "".join("_" + v for v in re.findall(r"Li(\d+)E", hit[3]))
@@ -727,6 +777,7 @@ def phase_build():
 
     builds = {"qp_admm": qp_lane.build, "rbf_selection": prepare_fused.build_selection,
               "rbf_round4": prepare_fused.build_round4,
+              "rbf_round4_f64": lambda: prepare_fused.build_round4(torch.float64),
               "rbf_gram": dense_kernels.build_gram,
               "admm_iterations": dense_kernels.build_admm_iterations}
     t0 = time.perf_counter()
@@ -738,22 +789,25 @@ def phase_build():
           ptxas={k: ptxas_summary(log) for k, (_, log) in results.items()})
 
 
-#: lanes of K1's recorded float64 constrained sets whose polish jumps
-#: between kernel and twin although their stage loops agree to 1e-16 and
-#: no one-ulp probe moves them (the polish's discontinuity on an LP whose
-#: minimizers are not unique, ROADMAP 3.5): each must give two minimizers,
+#: lanes of K1's recorded float64 sets whose polish jumps between kernel
+#: and twin although their stage loops agree within their limits (the
+#: constrained lane to 1e-16, no one-ulp probe moving it; the n=50 path's
+#: lane within its batch's limit): the polish's discontinuity on an LP whose
+#: minimizers are not unique, ROADMAP 3.5. Each must give two minimizers,
 #: equal objectives and both feasible and stationary to the fixed tolerance
-POLISH_JUMPS = {"constrained_path_4_11": (172,)}
+POLISH_JUMPS = {"constrained_path_4_11": (172,), "wide50_path_call6": (34,)}
 
 
-def phase_kernel_admm(wide_captured, constrained_captured, option_captured):
+def phase_kernel_admm(wide_captured, constrained_captured, option_captured,
+                      wide50_captured=()):
     """Kernel vs twin through ``solve_qp`` on random QPs, descent LPs, the
     constrained path's LP shapes (``constrained_lps``) and the LPs the wide,
     the constrained and the composite paths gave the kernel (recorded after
     equilibration, so ``solve_qp`` passes them on unchanged); returns the
     rows of the RBF main path's shape (nv=3 descent LPs, float32), of the
     wide path (its last recorded call, float32), of the constrained
-    path's two shapes and of the option paths' recorded shapes (float32).
+    path's two shapes, of the option paths' recorded shapes (float32) and
+    of the n=50 path's recorded call (the strided instance, float32).
 
     On the recorded wide LPs and on every constrained LP (P = 0, sigma =
     1e-6 or 1e-4 in M = sigma I + A' diag(rho) A, with equality rows at
@@ -798,6 +852,8 @@ def phase_kernel_admm(wide_captured, constrained_captured, option_captured):
              for nv, m in ((21, 42), (32, 64), (5, 10), (1, 2))]
     sets += [(f"wide_path_call{c}", a[:5]) for c, (a, _) in zip(WIDE_CAPTURE_CALLS,
                                                                  wide_captured)]
+    sets += [(f"wide50_path_call{c}", a[:5]) for c, (a, _) in zip(WIDE50_CAPTURE_CALLS,
+                                                                   wide50_captured)]
     sets += [(kind, constrained_lps(B_MAIN, kind, 40 + i))
              for i, kind in enumerate(CONSTRAINED_LP_KINDS)]
     sets += [(f"constrained_path_{a[2].shape[-1]}_{a[2].shape[-2]}", a[:5])
@@ -831,7 +887,7 @@ def phase_kernel_admm(wide_captured, constrained_captured, option_captured):
             extra = {}
             constrained = kind in CONSTRAINED_LP_KINDS or kind.startswith(
                 ("constrained_path", "composite_path"))
-            if kind.startswith("wide_path"):
+            if kind.startswith(("wide_path", "wide50_path")):
                 # one limit for the batch, as since the wide path's port:
                 # ten times the largest sensitivity under the first probe
                 a = t["args"]
@@ -891,7 +947,10 @@ def phase_kernel_admm(wide_captured, constrained_captured, option_captured):
     options = {kind: {f"nv{v['nv']}_m{v['m']}": v for (name, _, dt), v in rows.items()
                       if name.startswith(kind + "_path") and dt == torch.float32}
                for kind in option_captured}
-    return rows[("descent", 3, torch.float32)], wide[-1], constrained, options
+    wide50 = [v for (kind, _, dt), v in rows.items()
+              if kind.startswith("wide50_path") and dt == torch.float32]
+    return (rows[("descent", 3, torch.float32)], wide[-1], constrained, options,
+            wide50[-1] if wide50 else None)
 
 
 def ten_ulps(A, seed):
@@ -1204,9 +1263,9 @@ def phase_rbf_main_path():
 #: reference-default point
 STAGED_BUDGETS = (dict(max_iter=10, qp_iters=100), dict(max_iter=100, qp_iters=QP_ITERS))
 #: sustained batches of the bench protocol per budget in ``staged_main_path``
-STAGED_REPS = (4, 2)
+STAGED_REPS = (2, 1)
 #: interleaved rounds of the plain, default staged and tuned runners
-STAGED_ROUNDS = 3
+STAGED_ROUNDS = 1
 #: the port's plain runner on the CPU at float64, fraction of 1024 Halton
 #: starts within 1e-2 of the Pareto set, by budget
 #: (``python3 -m morbit_tpu_torch.tools.check_convergence 10 100 --device cpu
@@ -1571,11 +1630,11 @@ def kernels_only():
         yield
 
 
-def wide_mop():
+def wide_mop(n=N_WIDE):
     from morbit_tpu_torch.models.configs import RbfConfig
     from morbit_tpu_torch.problems.synthetic import make_zdt
 
-    return make_zdt("zdt1", N_WIDE, model_cfg=RbfConfig(kernel="cubic"))
+    return make_zdt("zdt1", n, model_cfg=RbfConfig(kernel="cubic"))
 
 
 def front_error(fx):
@@ -1590,37 +1649,44 @@ def _quantiles(t):
     return {"min": float(t.min()), "median": float(t.median()), "max": float(t.max())}
 
 
-def phase_wide_main_path(B):
-    """The wide-n path at float32: ZDT1, n=20, both objectives in one cubic
-    RBF group, the reference grid budget, B Halton starts. The counts are
-    set to 0 just before each batch and read just after it; the first batch
-    records the K1-K4 inputs of the calls in WIDE_CAPTURE_CALLS, and no
-    plain twin may run on the card in it."""
+def phase_wide_main_path(B, n=N_WIDE, budget=WIDE_BUDGET, sustained=WIDE_SUSTAINED,
+                         capture=WIDE_CAPTURE_CALLS, name="wide_main_path"):
+    """A wide-n path at float32: ZDT1 at n variables, both objectives in one
+    cubic RBF group, ``budget``, B Halton starts, the plain runner. The
+    counts are set to 0 just before each batch and read just after it; each
+    kernel K1-K4 must launch at least once a trip. The first batch records
+    the K1-K4 inputs of the calls in ``capture``, and no plain twin may run
+    on the card in it; ``sustained`` batches follow on other starts."""
     from morbit_tpu_torch import STOP_CODE, AlgorithmConfig, multistart_optimize
     from morbit_tpu_torch.problems.synthetic import halton_starts
 
-    mop = wide_mop()
-    ac = AlgorithmConfig(**WIDE_BUDGET)
+    mop = wide_mop(n)
+    ac = AlgorithmConfig(**budget)
     starts = [torch.as_tensor(halton_starts(B, mop.lb, mop.ub, 1 + k * B),
                               dtype=torch.float32, device="cuda")
-              for k in range(1 + WIDE_SUSTAINED)]
+              for k in range(1 + sustained)]
     captured = {"qp_admm": [], "selection": [], "round4": [], "gram": []}
 
     def batch(x0, record):
+        # each batch starts from a released cache: blocks cached by the paths
+        # before, split among tensors that still live, leave no room for the
+        # n=50 path's 7.8 GB fit matrices (on a failed allocation PyTorch
+        # frees only wholly unused blocks)
+        torch.cuda.empty_cache()
         _zero_all_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
             if record:
                 stack.enter_context(kernels_only())
-                stack.enter_context(recording(captured, WIDE_CAPTURE_CALLS))
+                stack.enter_context(recording(captured, capture))
             res = multistart_optimize(mop, x0, ac, dtype=torch.float32)
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _all_launch_counts()
-        for name, count in launches.items():
+        for kernel, count in launches.items():
             check(count >= res.trips,
-                  f"{name} launched {count} times in {res.trips} trips of the wide path")
+                  f"{kernel} launched {count} times in {res.trips} trips of {name}")
         return res, seconds, launches
 
     torch.cuda.reset_peak_memory_stats()
@@ -1630,23 +1696,41 @@ def phase_wide_main_path(B):
                 & (res.stop_code <= STOP_CODE.INFEASIBLE)).all()), "invalid stop code")
     check(bool(torch.isfinite(res.x).all() and torch.isfinite(res.fx).all()),
           "non-finite x or fx")
-    check(tuple(res.x.shape) == (B, N_WIDE), f"x has shape {tuple(res.x.shape)}")
-    sustained = [batch(x0, False) for x0 in starts[1:]]
-    dt = sum(s for _, s, _ in sustained)
-    codes = {STOP_CODE(c).name: int((res.stop_code == c).sum()) for c in range(2, 7)}
-    phase("wide_main_path", B=B, dtype="float32", n=N_WIDE, problem="zdt1",
-          model="RbfConfig(kernel='cubic')", budget=WIDE_BUDGET,
-          launches_per_batch=[launches] + [l for _, _, l in sustained],
-          trips_per_batch=[res.trips] + [r.trips for r, _, _ in sustained],
-          first_batch_s=first_s, sustained_s=[s for _, s, _ in sustained],
-          runs_per_s=len(sustained) * B / dt,
-          front_error=_quantiles(front_error(res.fx)),
-          mean_iterations=float(res.n_iterations.double().mean()),
-          mean_evals=float(res.n_evals.double().mean()), stop_codes=codes,
-          db_rows=int(res.state.groups[0].db.data.shape[1]),
+    check(tuple(res.x.shape) == (B, n), f"x has shape {tuple(res.x.shape)}")
+    first = dict(
+        front_error=_quantiles(front_error(res.fx)),
+        mean_iterations=float(res.n_iterations.double().mean()),
+        mean_evals=float(res.n_evals.double().mean()),
+        stop_codes={STOP_CODE(c).name: int((res.stop_code == c).sum()) for c in range(2, 7)},
+        db_rows=int(res.state.groups[0].db.data.shape[1]))
+    trips = res.trips
+    del res   # the sustained batches run without the first batch's state
+    runs = []
+    for x0 in starts[1:]:
+        r_, s_, l_ = batch(x0, False)
+        runs.append((r_.trips, s_, l_))
+        del r_
+    torch.cuda.empty_cache()   # and the phases after start from one too
+    dt = sum(s for _, s, _ in runs)
+    phase(name, B=B, dtype="float32", n=n, problem="zdt1",
+          model="RbfConfig(kernel='cubic')", budget=budget,
+          launches_per_batch=[launches] + [l for _, _, l in runs],
+          trips_per_batch=[trips] + [t for t, _, _ in runs],
+          first_batch_s=first_s, sustained_s=[s for _, s, _ in runs],
+          runs_per_s=len(runs) * B / dt if runs else B / first_s, **first,
           max_memory_allocated_bytes=peak,
           recorded_calls={k: len(v) for k, v in captured.items()})
     return launches, captured
+
+
+def twin_lanes(name, X):
+    """Lanes of a K2 or K3 set (sites ``X``, (B, rows, n)) that the twin
+    runs and the kernel is held on: ``WIDE50_TWIN_LANES`` on the n=50
+    path's call, at most ``WIDE_TWIN_LANES`` on other sets at n >=
+    ``N_WIDE``, else all."""
+    if name.startswith("wide50"):
+        return WIDE50_TWIN_LANES
+    return min(X.shape[0], WIDE_TWIN_LANES) if X.shape[-1] >= N_WIDE else X.shape[0]
 
 
 def _selection_tensors(case, dtype):
@@ -1657,14 +1741,17 @@ def _selection_tensors(case, dtype):
             torch.as_tensor(efl, device="cuda"))
 
 
-def phase_kernel_selection(captured, wide_captured, staged_captured, option_captured):
+def phase_kernel_selection(captured, wide_captured, staged_captured, option_captured,
+                           wide50_captured=()):
     """K2 against its twin on the card, the inputs recorded on the staged
     main path (a stage capacity, a compacted width) and on the option paths
     (the composite path's cubic group, the rescaled sites of the 'model'
     scaler, the fixed capacity of ``use_db=False``) included; returns the
     rows of the last recorded call of the RBF main path (cap 1507) and of
-    the wide path (n=20, cap 5332), both float32, and the option paths'
-    float32 rows by path."""
+    the wide path (n=20, cap 5332), both float32, the option paths'
+    float32 rows by path and the n=50 path's float32 row (the wide
+    instance; the kernel runs all lanes, the twin the first
+    ``WIDE50_TWIN_LANES``, on which the kernel is held)."""
     from morbit_tpu_torch.ops import prepare_fused
     from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
 
@@ -1682,6 +1769,8 @@ def phase_kernel_selection(captured, wide_captured, staged_captured, option_capt
              for t, (a, kw) in zip(CAPTURE_TRIPS, captured)]
     sets += [(f"wide_path_call{t}", recorded(a), kw)
              for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
+    sets += [(f"wide50_path_call{t}", recorded(a), kw)
+             for t, (a, kw) in zip(WIDE50_CAPTURE_CALLS, wide50_captured)]
     sets += [(f"staged_B{a[0].shape[0]}_cap{a[0].shape[1]}", recorded(a), kw)
              for a, kw in staged_captured]
     sets += [(f"{kind}_path_B{a[0].shape[0]}_cap{a[0].shape[1]}", recorded(a), kw)
@@ -1689,14 +1778,19 @@ def phase_kernel_selection(captured, wide_captured, staged_captured, option_capt
     rows = {}
     for dtype in (torch.float64, torch.float32):
         for name, make, kw in sets:
+            if name.startswith("wide50") and dtype == torch.float64:
+                continue   # the path's dtype only (see WIDE50_TWIN_LANES)
             args = make(dtype)
             before = prepare_fused.selection_launches
-            k = prepare_fused.selection_cuda(*args, **kw)
-            t, plain_ms = timed(lambda: rbf_selection_core(*args, **kw))
+            k_all = prepare_fused.selection_cuda(*args, **kw)
+            L = twin_lanes(name, args[0])
+            k = tuple(o[:L] for o in k_all)
+            t_args = tuple(a[:L] for a in args)
+            t, plain_ms = timed(lambda: rbf_selection_core(*t_args, **kw))
             check(prepare_fused.selection_launches == before + 1, "K2 launch not counted")
             # every output equal to the twin's, floats to the bit (NaN where
             # the twin has NaN)
-            err, lanes = 0.0, torch.zeros(args[0].shape[0], dtype=torch.bool, device="cuda")
+            err, lanes = 0.0, torch.zeros(L, dtype=torch.bool, device="cuda")
             for out, a, b in zip(SEL_NAMES, k, t):
                 if a.is_floating_point():
                     d = (a - b).abs().reshape(a.shape[0], -1)
@@ -1712,10 +1806,10 @@ def phase_kernel_selection(captured, wide_captured, staged_captured, option_capt
                                   "twin": [o[b_].tolist() for o in t]}), flush=True)
             check(not bad, f"K2 {name} {dtype}: {len(bad)} lanes differ from the twin")
             ms = event_ms(lambda: prepare_fused.selection_cuda(*args, **kw), 5)
-            ops, nbytes = selection_work(args, k)
+            ops, nbytes = selection_work(args, k_all)
             bound_ms, bound_by = bound(ops, nbytes, dtype)
             row = dict(set=name, dtype=str(dtype), B=int(args[0].shape[0]),
-                       cap=int(args[0].shape[1]), n=int(args[0].shape[2]),
+                       cap=int(args[0].shape[1]), n=int(args[0].shape[2]), twin_lanes=L,
                        max_valid_rows=int(args[1].max()), max_abs_err=err, tol=0.0,
                        lanes_differing=len(bad), ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes)
@@ -1723,16 +1817,22 @@ def phase_kernel_selection(captured, wide_captured, staged_captured, option_capt
             rows[(name.split("_trip")[0].split("_call")[0], dtype)] = row
     options = {kind: row for (name, dt), row in rows.items() for kind in option_captured
                if name.startswith(kind + "_path") and dt == torch.float32}
-    return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)], options
+    return (rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)], options,
+            rows.get(("wide50_path", torch.float32)))
 
 
-def phase_kernel_round4(captured, wide_captured, staged_captured, option_captured):
+def phase_kernel_round4(captured, wide_captured, staged_captured, option_captured,
+                        wide50_captured=()):
     """K3 against its twin on the card, the inputs recorded on the staged
     main path and on the option paths included; returns the rows of the
     last recorded call of the RBF main path and of the wide path, float32,
-    and the option paths' float32 rows by path."""
+    the option paths' float32 rows by path and the n=50 path's float32 row.
+    On the n=50 path's call (the slot instance) the kernel runs all lanes
+    and the twin the first ``WIDE50_TWIN_LANES``, against which the
+    kernel's lanes are held; the counts of the bound are the kernel's."""
     from morbit_tpu_torch.models.rbf_round4 import run_round4
     from morbit_tpu_torch.ops import prepare_fused
+    from morbit_tpu_torch.ops.rbf import poly_dim
 
     def random_set(kernel, deg, B, C, n, maxN, chol_pivot, width=None, rows=None):
         def make(dt):
@@ -1783,6 +1883,8 @@ def phase_kernel_round4(captured, wide_captured, staged_captured, option_capture
              for t, (a, kw) in zip(CAPTURE_TRIPS, captured)]
     sets += [(f"wide_path_call{t}", recorded(a, kw), False)
              for t, (a, kw) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
+    sets += [(f"wide50_path_call{t}", recorded(a, kw), False)
+             for t, (a, kw) in zip(WIDE50_CAPTURE_CALLS, wide50_captured)]
     sets += [(f"staged_B{a[0].shape[0]}_C{a[0].shape[1]}", recorded(a, kw), False)
              for a, kw in staged_captured]
     sets += [(f"{kind}_path_B{a[0].shape[0]}_C{a[0].shape[1]}", recorded(a, kw), False)
@@ -1790,12 +1892,19 @@ def phase_kernel_round4(captured, wide_captured, staged_captured, option_capture
     rows = {}
     for dtype in (torch.float64, torch.float32):
         for name, make, must_reject in sets:
+            if name.startswith("wide50") and dtype == torch.float64:
+                continue   # the path's dtype only (see WIDE50_TWIN_LANES)
             args, kw = make(dtype)
             before = prepare_fused.round4_launches
             acc_k, N_k = prepare_fused.round4_cuda(*args, **kw)
-            (acc_t, N_t), plain_ms = timed(lambda: run_round4(*args, **kw))
+            L = twin_lanes(name, args[0])
+            t_args = tuple(a[:L] for a in args)
+            t_kw = {k: v[:L] if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+            (acc_t, N_t), plain_ms = timed(lambda: run_round4(*t_args, **t_kw))
             check(prepare_fused.round4_launches == before + 1, "K3 launch not counted")
-            lanes = (acc_k != acc_t).any(-1) | (N_k != N_t)
+            lanes = (acc_k[:L] != acc_t).any(-1) | (N_k[:L] != N_t)
+            if L < args[0].shape[0]:   # held on the twin's lanes, counted on all
+                acc_t, N_t = acc_k, N_k
             bad = lanes.nonzero().flatten().tolist()
             for b_ in bad[:5]:
                 print(json.dumps({"round4_lane_differs": name, "dtype": str(dtype),
@@ -1814,7 +1923,11 @@ def phase_kernel_round4(captured, wide_captured, staged_captured, option_capture
             ops_padded, _ = round4_work_padded(args, kw, acc_t, N_t)
             tested = round4_tested(args[1], acc_t, args[3], kw["max_points"])[0].sum(-1)
             row = dict(set=name, dtype=str(dtype), B=int(args[0].shape[0]),
-                       C=int(args[0].shape[1]), n=int(args[0].shape[2]),
+                       C=int(args[0].shape[1]), n=int(args[0].shape[2]), twin_lanes=L,
+                       instance=prepare_fused.round4_plan(
+                           kw["max_points"], int(args[0].shape[2]),
+                           poly_dim(int(args[0].shape[2]), kw["poly_deg"]),
+                           args[0].element_size()).instance,
                        max_points=kw["max_points"], kernel=kw["kernel"],
                        poly_deg=kw["poly_deg"], accepted=int(acc_t.sum()),
                        rejected=rejected, min_N=int(N_t.min()), max_N=int(N_t.max()),
@@ -1830,7 +1943,8 @@ def phase_kernel_round4(captured, wide_captured, staged_captured, option_capture
             rows[(name.split("_trip")[0].split("_call")[0], dtype)] = row
     options = {kind: row for (name, dt), row in rows.items() for kind in option_captured
                if name.startswith(kind + "_path") and dt == torch.float32}
-    return rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)], options
+    return (rows[("main_path", torch.float32)], rows[("wide_path", torch.float32)], options,
+            rows.get(("wide50_path", torch.float32)))
 
 
 def _compare_states(card, cpu, allowed=None):
@@ -1842,8 +1956,10 @@ def _compare_states(card, cpu, allowed=None):
     the Gram matrix and seen only through the model values. The lanes
     ``allowed`` (B,) marks may part; any other lane that parts fails.
     Returns the largest relative differences of the two reported floats
-    over the lanes that did not part, and the (B,) mask of the lanes that
-    parted."""
+    over the lanes that did not part, the (B,) mask of the lanes that
+    parted, and for each of those lanes where it parts: its first parting
+    leaf (in the state's order) with the largest difference there, and
+    every integer leaf that differs."""
     from morbit_tpu_torch.utils.carry import state_to_numpy
 
     a, b = state_to_numpy(card), state_to_numpy(cpu)
@@ -1852,6 +1968,7 @@ def _compare_states(card, cpu, allowed=None):
     rho_col = cpu.traj.n + cpu.traj.m + 1
     reported = {"rho": [], "fit": []}
     apart = np.zeros(B, bool)
+    parts = {}
     for name, va in a.items():
         vb = b[name]
         if ".model.fit." in name:
@@ -1867,7 +1984,14 @@ def _compare_states(card, cpu, allowed=None):
             va_f, vb_f = np.where(fin, va, 0.0), np.where(fin, vb, 0.0)
             bad = ((np.isfinite(va) != fin) | (~fin & (va != vb))
                    | ~(np.abs(va_f - vb_f) <= 1e-9 + 1e-6 * np.abs(vb_f)))
-        bad = bad.reshape(B, -1).any(-1)
+        bad = bad.reshape(B, -1)
+        for i in np.nonzero(bad.any(-1))[0].tolist():
+            part = parts.setdefault(i, {"leaf": name, "max_abs_diff": float(np.nanmax(
+                np.abs(va[i].astype(float) - vb[i].astype(float)), initial=0.0)),
+                "integer_leaves": []})
+            if va.dtype.kind in "biu":
+                part["integer_leaves"].append(name)
+        bad = bad.any(-1)
         lanes = np.nonzero(bad & ~allowed)[0]
         if lanes.size:
             err = np.abs(va[lanes].astype(float) - vb[lanes].astype(float))
@@ -1880,7 +2004,7 @@ def _compare_states(card, cpu, allowed=None):
             return float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1.0),
                                 initial=0.0, where=np.isfinite(y)))
     return ({k: max((rel(x[~apart], y[~apart]) for x, y in pairs), default=0.0)
-             for k, pairs in reported.items()}, apart)
+             for k, pairs in reported.items()}, apart, parts)
 
 
 def duplicate_site_lanes(state):
@@ -1907,9 +2031,10 @@ def lockstep(make_mop, starts, ac, may_part=None, eligible=None, describe=None, 
     ``eligible(state)`` (default ``duplicate_site_lanes``: its database then
     holds one site twice) marks it; any other parting lane fails. Returns
     the trips, the seconds, the largest relative differences of the
-    reported floats, the (trip, lane) pairs that parted (with ``describe``,
-    a dict of them to ``describe(card, cpu, lane)``) and, with
-    ``may_part``, the eligible lanes at each trip that has some."""
+    reported floats, the (trip, lane) pairs that parted (trip -1: the
+    initialization; with ``describe``, a dict of them to
+    ``describe(card, cpu, lane)``) and, with ``may_part``, the eligible
+    lanes at each trip that has some."""
     eligible = eligible or duplicate_site_lanes
     from morbit_tpu_torch import STOP_CODE
     from morbit_tpu_torch.parallel.multistart import build_solver
@@ -1919,8 +2044,15 @@ def lockstep(make_mop, starts, ac, may_part=None, eligible=None, describe=None, 
     t0 = time.perf_counter()
     lanes = lambda d: tuple(t.to(d) for t in theta)
     state = on["cpu"].initialize(starts, theta=lanes("cpu"))
-    diffs, _ = _compare_states(on["cuda"].initialize(starts, theta=lanes("cuda")), state)
-    trips, parted, seen, cards, states = 0, [], {}, {}, {}
+    card = on["cuda"].initialize(starts, theta=lanes("cuda"))
+    allowed = None
+    if may_part is not None:   # the initialization is trip -1
+        allowed = eligible(state) & np.isin(np.arange(state.x.shape[0]),
+                                            [lane for trip, lane in may_part if trip == -1])
+    diffs, apart, _ = _compare_states(card, state, allowed)
+    trips, parted, seen, cards, states = 0, [(-1, int(i)) for i in np.nonzero(apart)[0]], {}, {}, {}
+    if describe is not None and apart.any():
+        cards[-1], states[-1] = card, state
     while bool((state.stop_code == STOP_CODE.CONTINUE).any()):
         card_in = tree_map(lambda t: t.to("cuda"), state)
         run_card = card_in.stop_code == STOP_CODE.CONTINUE
@@ -1934,7 +2066,7 @@ def lockstep(make_mop, starts, ac, may_part=None, eligible=None, describe=None, 
             allowed = dup & np.isin(np.arange(dup.size),
                                     [lane for trip, lane in may_part if trip == trips])
         state = tree_where(running, on["cpu"].iterate(state), state)
-        d, apart = _compare_states(card, state, allowed)
+        d, apart, _ = _compare_states(card, state, allowed)
         if describe is not None and apart.any():
             cards[trips], states[trips] = card, state
         diffs = {k: max(v, d[k]) for k, v in diffs.items()}
@@ -1992,7 +2124,7 @@ def phase_rbf_card_vs_cpu():
 
 #: interleaved rounds of the plain and the tuned runner on the constrained
 #: path, after the probe's batch
-CONSTRAINED_ROUNDS = 2
+CONSTRAINED_ROUNDS = 1
 #: the call of each K1 LP shape whose inputs the constrained path records
 CONSTRAINED_CAPTURE_CALL = 8
 
@@ -2199,9 +2331,12 @@ OPTION_KINDS = ("composite", "scaler_model", "no_db", "host", "exit_eps", "max_p
 #: the QP's exit tolerance on the exit_eps path
 EXIT_EPS = 1e-5
 #: interleaved rounds of the plain and the tuned runner after the probe
-FAMILY_ROUNDS = 1
-#: max_iter of the float64 card-vs-CPU lockstep of each family
-FAMILY_LOCKSTEP_ITERS = 25
+#: (none: the pair on the probe's starts gives the rates, which keeps the
+#: script within its time limit beside the n=50 path)
+FAMILY_ROUNDS = 0
+#: max_iter of the float64 card-vs-CPU lockstep of each family (25 before
+#: the n=50 path joined the script; cut for its time limit)
+FAMILY_LOCKSTEP_ITERS = 10
 #: the (trip, lane) pairs of each family's lockstep recorded parting, with
 #: the cause ``family_part_cause`` names
 FAMILY_MAY_PART = {"taylor": {}, "lagrange": {}, "ps": {}, "composite": {},
@@ -2758,20 +2893,58 @@ def phase_wide_card_vs_cpu():
           lockstep_rho_max_rel_diff=diffs["rho"], lockstep_fit_max_rel_diff=diffs["fit"])
 
 
+def phase_wide50_card_vs_cpu():
+    """ZDT1 at n=50 (cubic RBF, float64, B=4, max_iter=2) on the card and on
+    the CPU, trip by trip from the same state (``lockstep``): K1's strided
+    instance at (51, 102), K2's wide instance, K3's slot instance at
+    max_points 1326 and the fit's k = 1377 solve at float64. Integer leaves
+    must be equal on every lane and trip, or the phase fails; a lane whose
+    floats part beyond ``_compare_states``' bounds is reported with its
+    first parting leaf (``_compare_states``' report), as evidence of fault
+    3.15 (the card's float64 library solves are not the CPU's), and is not
+    held to a looser bound."""
+    from morbit_tpu_torch import AlgorithmConfig
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    make = lambda: wide_mop(N_WIDE50)
+    mop = make()
+    ac = AlgorithmConfig(**dict(WIDE50_BUDGET, max_iter=2))
+    B = 4
+    every = {(t, i) for t in range(-1, ac.max_iter + 1) for i in range(B)}
+    trips, seconds, diffs, parted, _ = lockstep(
+        make, halton_starts(B, mop.lb, mop.ub), ac, may_part=every,
+        eligible=lambda state: np.ones(B, bool),
+        describe=lambda card, cpu, lane: _compare_states(card, cpu, np.ones(B, bool))[2][lane])
+    ints = {f"{t},{i}": d["integer_leaves"] for (t, i), d in parted.items()
+            if d["integer_leaves"]}
+    phase("wide50_card_vs_cpu", B=B, n=N_WIDE50, dtype="float64", max_iter=ac.max_iter,
+          lockstep_trips=trips, lockstep_s=seconds,
+          lockstep_rho_max_rel_diff=diffs["rho"], lockstep_fit_max_rel_diff=diffs["fit"],
+          parted=[{"trip": t, "lane": i, **d} for (t, i), d in sorted(parted.items())],
+          integers_equal=not ints)
+    check(not ints, f"wide50_card_vs_cpu: integer leaves differ (trip,lane: leaves) {ints}")
+
+
 def gram_work(B, P, n, itemsize):
-    """(operations, bytes) of one K4 call: per entry 2n for the cross term
-    and ~8 for r^2, phi and the select; the sites and mask read once, the
-    (B, P, P) Gram written once."""
-    return B * P * P * (2 * n + 8), B * P * n * itemsize + B * P + B * itemsize + B * P * P * itemsize
+    """(operations, bytes) of one K4 call: per entry of the symmetric Gram's
+    upper triangle (P (P + 1) / 2 of them; the rest are copies) 2n for the
+    cross term and ~8 for r^2, phi and the select; the sites and mask read
+    once, the (B, P, P) Gram written once."""
+    return (B * P * (P + 1) // 2 * (2 * n + 8),
+            B * P * n * itemsize + B * P + B * itemsize + B * P * P * itemsize)
 
 
-def phase_kernel_gram(wide_captured):
+def phase_kernel_gram(wide_captured, wide50_captured=()):
     """K4 against its twin on the card: B=1024 random cases at (P, n) =
     (134, 14) and (251, 20), all five kernels, B=128 cases at the edges of
     its tiling (P in 128, 129, 251, 512 and n in 1, 20, 32), ~70 % valid
-    rows, and the inputs the wide path gave it; max|diff| / max|Phi| within
-    1e-12 (float64) or 1e-5 (float32), and the output exactly symmetric.
-    Returns the row of the last recorded call."""
+    rows, and the inputs the wide path and the n=50 path (the tiled
+    instance) gave it; max|diff| / max|Phi| within 1e-12 (float64) or 1e-5
+    (float32), and the output exactly symmetric. On the n=50 call the twin
+    runs the first ``WIDE50_TWIN_LANES`` lanes (its (B, 1326, 1326)
+    temporaries do not fit the card at B=1024), the kernel all of them.
+    Returns the rows of the wide path's last recorded call and of the n=50
+    path's (float32)."""
     from morbit_tpu_torch.ops import dense_kernels
     from morbit_tpu_torch.ops.rbf import EXPONENT_KERNELS, RBF_KERNELS, kernel_default_param
 
@@ -2797,15 +2970,21 @@ def phase_kernel_gram(wide_captured):
              for e, (P, n) in enumerate(edges) for k in [RBF_KERNELS[e % len(RBF_KERNELS)]]]
     sets += [(f"wide_path_call{t}", recorded(a))
              for t, (a, _) in zip(WIDE_CAPTURE_CALLS, wide_captured)]
-    row = None
+    sets += [(f"wide50_path_call{t}", recorded(a))
+             for t, (a, _) in zip(WIDE50_CAPTURE_CALLS, wide50_captured)]
+    rows = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         for name, make in sets:
             args = make(dtype)
             before = dense_kernels.gram_launches
             k = dense_kernels.rbf_gram_cuda(*args)
-            t, plain_ms = timed(lambda: dense_kernels.rbf_gram_matrix_plain(*args))
+            L = WIDE50_TWIN_LANES if name.startswith("wide50") else args[0].shape[0]
+            t_args = tuple(a[:L] if isinstance(a, torch.Tensor) and a.dim() else a
+                           for a in args)
+            t, plain_ms = timed(lambda: dense_kernels.rbf_gram_matrix_plain(*t_args))
             check(dense_kernels.gram_launches == before + 1, "K4 launch not counted")
-            err = float((k - t).abs().max()) / float(t.abs().max())
+            err = float((k[:L] - t).abs().max()) / float(t.abs().max())
+            del t
             check(err <= tol, f"K4 {name} {dtype}: max|diff| / max|Phi| = {err} > {tol}")
             # only the tiles with I <= J are computed: the mirror is exact
             check(torch.equal(k, k.transpose(1, 2)), f"K4 {name} {dtype}: not symmetric")
@@ -2814,12 +2993,16 @@ def phase_kernel_gram(wide_captured):
             ops, nbytes = gram_work(B, P, n, args[0].element_size())
             bound_ms, bound_by = bound(ops, nbytes, dtype)
             row = dict(set=name, dtype=str(dtype), B=B, P=P, n=n, kernel=args[2],
-                       valid_rows=int(args[1].sum()), max_abs_err=err, tol=tol,
-                       symmetric=True, ms=ms,
+                       instance=dense_kernels.gram_plan(P, n, args[0].element_size()).instance,
+                       twin_lanes=L, valid_rows=int(args[1].sum()), max_abs_err=err,
+                       tol=tol, symmetric=True, ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        ops=ops, bytes=nbytes)
             phase("kernel_gram", **row)
-    return row
+            del k
+            rows[name.split("_call")[0], dtype] = row
+    return (rows[("wide_path", torch.float32)],
+            rows.get(("wide50_path", torch.float32)))
 
 
 def admm_iterations_work(B, n, m, iters, itemsize):
@@ -3060,6 +3243,9 @@ def phase_compacted_card_exact():
 GRID_EXTRA = ((("zdt1", 15, "rbf_cubic", "steepest_descent", 8), False),
               (("dtlz1", 5, "rbf_cubic", "steepest_descent", 8), False),
               (("zdt1", 10, "rbf_cubic", "ps", 8), True))
+#: budget overrides of GRID_EXTRA's settings: the n = 15 row at max_iter=20
+#: (K4 runs from its first fit; the whole budget took ~35 s)
+GRID_EXTRA_OVERRIDES = {"zdt1-n15-rbf_cubic-steepest_descent-s8": dict(max_iter=20)}
 #: settings of the default grid left out of grid_main_path to keep the
 #: script within its time, each named in its output and in PERF.md: the
 #: n=10 Lagrange-2 rows (~130 s each with the steady-state call), the n=10
@@ -3170,7 +3356,8 @@ def phase_grid_main_path():
     with kernels_only(), per_setting_launches(launches):
         results = benchmarks.run_benchmarks(grid, save_path=str(GRID_SAVE),
                                             steady_state=True, verbose=False)
-        extra_obs = {s.key: benchmarks.perform_test(s, staged=staged)
+        extra_obs = {s.key: benchmarks.perform_test(
+            s, staged=staged, **GRID_EXTRA_OVERRIDES.get(s.key, {}))
                      for s, staged in extra}
     seconds = time.perf_counter() - t0
     observed = {**results, **extra_obs}
@@ -3502,20 +3689,26 @@ def main():
     grid_launches = phase_grid_main_path()
     parametric_launches = phase_parametric_main_path()
     mesh_launches = phase_mesh_main_path()
-    wide_launches, wide_captured = phase_wide_main_path(B_WIDE)
-    *admm_rows, con_rows, admm_opt = phase_kernel_admm(wide_captured["qp_admm"],
-                                                       con_captured, option_captured)
+    wide_launches, wide_captured = phase_wide_main_path(B_WIDE, budget=WIDE_SMOKE_BUDGET)
+    wide50_launches, wide50 = phase_wide_main_path(
+        B_WIDE, N_WIDE50, WIDE50_BUDGET, WIDE50_SUSTAINED, WIDE50_CAPTURE_CALLS,
+        "wide50_main_path")
+    *admm_rows, con_rows, admm_opt, admm50 = phase_kernel_admm(
+        wide_captured["qp_admm"], con_captured, option_captured, wide50["qp_admm"])
     exit_row = phase_kernel_admm_exit(option_captured["exit_eps"]["qp_admm_exit"])
-    *sel_rows, sel_opt = phase_kernel_selection(
+    *sel_rows, sel_opt, sel50 = phase_kernel_selection(
         captured["selection"], wide_captured["selection"], staged_captured["selection"],
-        option_captured)
-    *r4_rows, r4_opt = phase_kernel_round4(captured["round4"], wide_captured["round4"],
-                                           staged_captured["round4"], option_captured)
-    gram_row = phase_kernel_gram(wide_captured["gram"])
+        option_captured, wide50["selection"])
+    *r4_rows, r4_opt, r450 = phase_kernel_round4(
+        captured["round4"], wide_captured["round4"], staged_captured["round4"],
+        option_captured, wide50["round4"])
+    gram_row, gram50 = phase_kernel_gram(wide_captured["gram"], wide50["gram"])
+    del wide50
     k5_rows = phase_kernel_admm_iterations()
     routing = phase_routing()
     phase_wide_quality_f64()
     phase_wide_card_vs_cpu()
+    phase_wide50_card_vs_cpu()
     phase_rbf_card_vs_cpu()
     phase_constrained_card_vs_cpu()
     for kind in FAMILY_KINDS + OPTION_KINDS:
@@ -3548,6 +3741,8 @@ def main():
             ("admm_iterations", (None, k5_rows[1]), "morbit_tpu_torch/csrc/admm_iterations.cu",
              "morbit_tpu/ops/pallas_kernels.py:127")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    rows50 = {"qp_admm": admm50, "rbf_selection": sel50, "rbf_round4": r450,
+              "rbf_gram": gram50}
     table = []
     for name, (main_row, row), source, replaces in rows:
         check(row is not None and math.isfinite(row["ms"]), f"no row for {name}")
@@ -3555,6 +3750,11 @@ def main():
                  "path": "wide_main_path" if name in wide_launches else None,
                  "launches": wide_launches.get(name, 0),
                  **{k: row[k] for k in keys}, "library_ms": None}
+        if name in rows50:                 # K1-K4 on the n=50 path
+            check(rows50[name] is not None, f"no n=50 row for {name}")
+            entry["wide50_main_path"] = {"launches": wide50_launches[name],
+                                         **{k: rows50[name][k] for k in keys},
+                                         "library_ms": None}
         if main_row is not None:
             entry["rbf_main_path"] = {"launches": rbf_launches[name],
                                       **{k: main_row[k] for k in keys}}

@@ -12,15 +12,16 @@
 // clipped to [0.1, 10] and to [rho_lo, rho_hi]. Infinite bounds arrive as
 // +-1e30 from the wrapper (morbit_tpu_torch/ops/qp_lane.py).
 //
-// Two designs, one launch for all stages and steps in both:
+// Three designs, one launch for all stages and steps in each; the wrapper
+// plans which at every (nv, m) and the launcher takes every shape:
 //
 // * Register instances, one thread per lane in 128-thread blocks, for the
 //   shapes of the main paths (nv=3/m=6: the steepest-descent LP of a
 //   2-variable problem; nv=4/m=8: of a 3-variable problem). P, q, A, l, u,
 //   rho, M^-1 and the z/zz/y state live in registers.
-// * The wide instance, one warp per lane and kLanesPerBlock lanes per
-//   block, for every other shape up to 32 x 64 (nv=21/m=42: the LP of the
-//   20-variable ZDT path). The lane's A, P, the stage's two nv x nv
+// * The warp instance ("wide" below), one warp per lane and kLanesPerBlock
+//   lanes per block, for every other shape up to 32 x 64 (nv=21/m=42: the
+//   LP of the 20-variable ZDT path). The lane's A, P, the stage's two nv x nv
 //   matrices (M and L, then L^-1 and M^-1) and the vectors the threads
 //   exchange live in dynamic shared memory, sized from the runtime (nv, m)
 //   (wide_layout; the wrapper computes the same size). Thread i owns
@@ -41,6 +42,13 @@
 //   column (one column per thread: a column's forward substitution needs
 //   only its own earlier entries), and M^-1 entry by entry. The residual
 //   maxima are warp shuffles with the NaN-propagating nan_max.
+//
+// * The strided instance, for every shape past the warp instance's (nv=51,
+//   m=102: the LP of the 50-variable ZDT path): the warp instance's phases
+//   and sums with each thread's variables and rows strided over the warp
+//   and their state in vectors, 1, 2 or 4 lanes a block, and the lane's
+//   matrices in shared memory or, where a lane does not fit, in a
+//   workspace (qp_admm_strided_kernel below).
 //
 // The exit instances (kExit = true) add the JAX package's residual early
 // exit (solve_qp(exit_eps=), morbit_tpu/ops/qp.py:216-238) per lane: after
@@ -63,7 +71,10 @@
 // tolerance, and FP64 has no wgmma. TMA is not needed either: a lane's
 // operands are a few KB loaded once per launch by a coalesced cooperative
 // load. What matters is shared-memory capacity, occupancy and warp-level
-// parallelism.
+// parallelism. The strided instance at nv=51/m=102 is ~10 Mflop a lane for
+// a 400-step solve, ~10 Gflop a launch at B=1024 (~0.15 ms at the fp32
+// peak); each thread's chain there is ~4x the warp instance's (two
+// variables and four rows a thread), and 2-4 lanes fit an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -548,30 +559,282 @@ qp_admm_wide_kernel(const T* __restrict__ P, const T* __restrict__ q,
   }
 }
 
-// kExit selects the exit instances; exit_eps and stages are read only there
+// ========================================================= strided instance
+
+// Every shape the warp instance does not take (nv > 32 or m > 64): one warp
+// per lane, `lanes` (1, 2 or 4) lanes a block as the wrapper plans them
+// (ops/qp_lane.py: admm_plan). Thread t owns the variables i = t (mod 32)
+// and the rows r = t (mod 32); the per-row and per-variable state (l, u,
+// rho, 1/rho, zz, y, t1, q, z, rhs, xt) lives in vectors, each thread
+// touching only its own entries between the warp's barriers. The lane's
+// matrices sit where the plan puts them (`place`):
+//   0: A, P and the stage matrices W1, W2 in shared memory (rows padded to
+//      an odd stride), then the vectors;
+//   1: A and P read from the inputs (L2 holds them), W1 and W2 in the
+//      workspace, the vectors in shared memory;
+//   2: the vectors in the workspace too (no shared memory), for lanes whose
+//      vectors alone pass a block's shared memory.
+// The phases and every sum are those of the warp instance (one thread's sum
+// in index order, the same fma forms), over strided loops.
+struct StridedLayout {
+  int ld, lda;                 // stride of W1/W2; of A/P where they are read
+  long long mat, vec, work;    // a lane's matrix and vector elements; workspace
+};
+
+__host__ __device__ inline StridedLayout strided_layout(int nv, int m, int place) {
+  StridedLayout w;
+  w.ld = nv | 1;
+  w.lda = place == 0 ? w.ld : nv;
+  w.vec = 7LL * m + 4LL * nv;
+  w.mat = place == 0 ? (long long)(m + 3 * nv) * w.ld : 2LL * nv * w.ld;
+  w.work = place == 0 ? 0 : w.mat + (place == 2 ? w.vec : 0);
+  return w;
+}
+
+// shared memory of one block of the strided instance
+__host__ __device__ inline long long strided_smem_elems(int nv, int m, int place, int lanes) {
+  const StridedLayout w = strided_layout(nv, m, place);
+  return place == 0 ? lanes * (w.mat + w.vec) : place == 1 ? lanes * w.vec : 0;
+}
+
+// chol_warp with the rows below the diagonal strided over the lane's threads
+template <typename T>
+__device__ bool chol_strided(const T* M, T* L, int ld, int nv, int t) {
+  bool ok = true;
+  for (int j = 0; j < nv; ++j) {
+    T s = M[j * ld + j];
+    for (int k = 0; k < j; ++k) s = s - L[j * ld + k] * L[j * ld + k];
+    const T d = dsqrt(s);
+    ok = ok && finite(d);
+    for (int i = t; i < nv; i += 32) {
+      if (i == j) {
+        L[j * ld + j] = d;
+      } else if (i > j) {
+        T s2 = M[i * ld + j];
+        for (int k = 0; k < j; ++k) s2 = s2 - L[i * ld + k] * L[j * ld + k];
+        const T v = s2 / d;
+        L[i * ld + j] = v;
+        ok = ok && finite(v);
+      }
+    }
+    __syncwarp();
+  }
+  return ok;
+}
+
+template <typename T, bool kExit>
+__global__ void __launch_bounds__(kLanesPerBlock * 32)
+qp_admm_strided_kernel(const T* __restrict__ P, const T* __restrict__ q,
+                       const T* __restrict__ A, const T* __restrict__ l,
+                       const T* __restrict__ u, const T* __restrict__ rho0,
+                       T* __restrict__ z_out, T* __restrict__ zz_out,
+                       T* __restrict__ y_out, int B, int nv, int m,
+                       int n_stages, int n_steps, T sigma, T alpha, T rho_lo,
+                       T rho_hi, T exit_eps, int* __restrict__ stages_out,
+                       int lanes, int place, T* __restrict__ work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int b = blockIdx.x * lanes + warp;
+  if (b >= B) return;  // a whole warp leaves; the lane's sync is __syncwarp
+  const StridedLayout w = strided_layout(nv, m, place);
+  const int ld = w.ld, lda = w.lda;
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* wl = work + (size_t)b * w.work;   // this lane's workspace (place > 0)
+  const T *sA, *sP;
+  T *W1, *W2, *v;
+  if (place == 0) {
+    T* base = smem + (size_t)warp * (w.mat + w.vec);
+    T* aw = base;
+    T* pw = aw + (size_t)m * ld;
+    W1 = pw + (size_t)nv * ld;
+    W2 = W1 + (size_t)nv * ld;
+    v = W2 + (size_t)nv * ld;
+    const T* Ab = A + (size_t)b * m * nv;
+    for (int e = t; e < m * nv; e += 32) {
+      const int r = e / nv;
+      aw[r * ld + (e - r * nv)] = Ab[e];
+    }
+    const T* Pb = P + (size_t)b * nv * nv;
+    for (int e = t; e < nv * nv; e += 32) {
+      const int i = e / nv;
+      pw[i * ld + (e - i * nv)] = Pb[e];
+    }
+    sA = aw;
+    sP = pw;
+  } else {
+    sA = A + (size_t)b * m * nv;
+    sP = P + (size_t)b * nv * nv;
+    W1 = wl;
+    W2 = W1 + (size_t)nv * ld;
+    v = place == 2 ? W2 + (size_t)nv * ld : smem + (size_t)warp * w.vec;
+  }
+  T *vl = v, *vu = vl + m, *vrho = vu + m, *vrinv = vrho + m, *vzz = vrinv + m;
+  T *vy = vzz + m, *t1 = vy + m;
+  T *vq = t1 + m, *vz = vq + nv, *rhs = vz + nv, *xt = rhs + nv;
+  for (int r = t; r < m; r += 32) {
+    vl[r] = l[(size_t)b * m + r];
+    vu[r] = u[(size_t)b * m + r];
+    vrho[r] = rho0[(size_t)b * m + r];
+    vzz[r] = clip(T(0), vl[r], vu[r]);
+    vy[r] = T(0);
+  }
+  for (int i = t; i < nv; i += 32) {
+    vq[i] = q[(size_t)b * nv + i];
+    vz[i] = T(0);
+  }
+  __syncwarp();
+
+  const T one_m_alpha = T(1) - alpha;
+  const int tri = nv * (nv + 1) / 2;
+  int ran = n_stages;
+  for (int stage = 0; stage < n_stages; ++stage) {
+    // ---- M = P + sigma I + A' diag(rho) A (lower triangle, mirrored) in W1
+    for (int e = t; e < tri; e += 32) {
+      int i, j;
+      tri_index(e, i, j);
+      T acc = sP[i * lda + j] + (i == j ? sigma : T(0));
+      for (int r = 0; r < m; ++r)
+        acc = acc + sA[r * lda + i] * vrho[r] * sA[r * lda + j];
+      W1[i * ld + j] = acc;
+      W1[j * ld + i] = acc;
+    }
+    __syncwarp();
+    // ---- L in W2, refactored with jitter where not finite
+    if (!__all_sync(kFull, chol_strided(W1, W2, ld, nv, t))) {
+      T tr = W1[0];
+      for (int i = 1; i < nv; ++i) tr = tr + W1[i * ld + i];
+      const T jit = T(1e-3) * (tr / T(nv) + T(1));
+      __syncwarp();
+      for (int i = t; i < nv; i += 32) W1[i * ld + i] = W1[i * ld + i] + jit;
+      __syncwarp();
+      chol_strided(W1, W2, ld, nv, t);
+    }
+    // ---- L^-1 in W1, one column per thread (M is no longer read)
+    for (int j = t; j < nv; j += 32) {
+      const T ljj = T(1) / W2[j * ld + j];
+      W1[j * ld + j] = ljj;
+      for (int i = j + 1; i < nv; ++i) {
+        T sum = W2[i * ld + j] * ljj;
+        for (int k = j + 1; k < i; ++k) sum = sum + W2[i * ld + k] * W1[k * ld + j];
+        W1[i * ld + j] = -sum / W2[i * ld + i];
+      }
+    }
+    __syncwarp();
+    // ---- M^-1 = L^-T L^-1 in W2 (L is no longer read)
+    for (int e = t; e < tri; e += 32) {
+      int i, j;
+      tri_index(e, i, j);
+      T acc = W1[i * ld + i] * W1[i * ld + j];
+      for (int k = i + 1; k < nv; ++k) acc = acc + W1[k * ld + i] * W1[k * ld + j];
+      W2[i * ld + j] = acc;
+      W2[j * ld + i] = acc;
+    }
+    for (int r = t; r < m; r += 32) {
+      vrinv[r] = T(1) / vrho[r];
+      t1[r] = vrho[r] * vzz[r] - vy[r];
+    }
+    __syncwarp();
+
+    // ---- n_steps splitting iterations
+    for (int step = 0; step < n_steps; ++step) {
+      for (int i = t; i < nv; i += 32) {
+        T acc = sigma * vz[i] - vq[i];
+        for (int r = 0; r < m; ++r) acc = acc + sA[r * lda + i] * t1[r];
+        rhs[i] = acc;
+      }
+      __syncwarp();
+      for (int i = t; i < nv; i += 32) {
+        T acc = W2[i] * rhs[0];
+        for (int j = 1; j < nv; ++j) acc = acc + W2[j * ld + i] * rhs[j];
+        xt[i] = acc;
+        vz[i] = dfma(alpha, acc, one_m_alpha * vz[i]);
+      }
+      __syncwarp();
+      for (int r = t; r < m; r += 32) {
+        const T* Ar = sA + r * lda;
+        T zt = Ar[0] * xt[0];
+        for (int i = 1; i < nv; ++i) zt = zt + Ar[i] * xt[i];
+        const T relaxed = dfma(alpha, zt, one_m_alpha * vzz[r]);
+        const T zzr = clip(relaxed + vy[r] * vrinv[r], vl[r], vu[r]);
+        const T yr = vy[r] + vrho[r] * (relaxed - zzr);
+        vy[r] = yr;
+        vzz[r] = zzr;
+        t1[r] = vrho[r] * zzr - yr;
+      }
+      __syncwarp();
+    }
+
+    // ---- residuals -> rho rescale (next stage's factorization)
+    if (stage + 1 < n_stages) {
+      T pr = T(0);
+      for (int r = t; r < m; r += 32) {
+        const T* Ar = sA + r * lda;
+        T Az = Ar[0] * vz[0];
+        for (int i = 1; i < nv; ++i) Az = Az + Ar[i] * vz[i];
+        pr = nan_max(pr, dabs(Az - vzz[r]));
+      }
+      T dr = T(0);
+      for (int i = t; i < nv; i += 32) {
+        T g = vq[i];
+        for (int j = 0; j < nv; ++j) g = g + sP[i * lda + j] * vz[j];
+        for (int r = 0; r < m; ++r) g = g + sA[r * lda + i] * vy[r];
+        dr = nan_max(dr, dabs(g));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        pr = nan_max(pr, __shfl_xor_sync(kFull, pr, off));
+        dr = nan_max(dr, __shfl_xor_sync(kFull, dr, off));
+      }
+      if (kExit && !(nan_max(pr, dr) > exit_eps)) {  // the same on every thread
+        ran = stage + 1;
+        break;
+      }
+      T scale = dsqrt(nan_max(pr, T(1e-30)) / nan_max(dr, T(1e-30)));
+      scale = clip(scale, T(0.1), T(10));
+      for (int r = t; r < m; r += 32) vrho[r] = clip(vrho[r] * scale, rho_lo, rho_hi);
+      __syncwarp();
+    }
+  }
+
+  if (kExit && t == 0) stages_out[b] = ran;
+  for (int i = t; i < nv; i += 32) z_out[(size_t)b * nv + i] = vz[i];
+  for (int r = t; r < m; r += 32) {
+    zz_out[(size_t)b * m + r] = vzz[r];
+    y_out[(size_t)b * m + r] = vy[r];
+  }
+}
+
+// kExit selects the exit instances; exit_eps and stages are read only there.
+// `instance` is the wrapper's plan (ops/qp_lane.py: admm_plan): 0 the
+// register instances, 1 the warp instance, 2 the strided instance with
+// `lanes` lanes a block and its matrices at `place`; the launcher refuses a
+// plan that does not fit the shape or whose sizes do not cover its layout.
 template <typename T, bool kExit>
 int launch(const T* P, const T* q, const T* A, const T* l, const T* u,
            const T* rho0, T* z, T* zz, T* y, int B, int nv, int m,
            int n_stages, int n_steps, double sigma, double alpha,
-           double rho_lo, double rho_hi, long long smem_bytes,
-           cudaStream_t stream, double exit_eps = 0.0, int* stages = nullptr) {
+           double rho_lo, double rho_hi, int instance, int lanes, int place,
+           long long smem_bytes, T* work, cudaStream_t stream,
+           double exit_eps = 0.0, int* stages = nullptr) {
   if (B <= 0) return 0;
-  if (nv < 1 || m < 1 || nv > kMaxNV || m > kMaxM) return cudaErrorInvalidValue;
+  if (nv < 1 || m < 0) return cudaErrorInvalidValue;
   if (kExit && (stages == nullptr || !(exit_eps > 0.0))) return cudaErrorInvalidValue;
+  if (smem_bytes < 0 || smem_bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
   const T s = T(sigma), a = T(alpha), lo = T(rho_lo), hi = T(rho_hi);
   const T ee = T(exit_eps);
   const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
-  if (nv == 3 && m == 6) {
+  if (instance == 0 && nv == 3 && m == 6) {
     qp_admm_kernel<T, 3, 6, kExit><<<grid, block, 0, stream>>>(
         P, q, A, l, u, rho0, z, zz, y, B, n_stages, n_steps, s, a, lo, hi, ee, stages);
-  } else if (nv == 4 && m == 8) {
+  } else if (instance == 0 && nv == 4 && m == 8) {
     qp_admm_kernel<T, 4, 8, kExit><<<grid, block, 0, stream>>>(
         P, q, A, l, u, rho0, z, zz, y, B, n_stages, n_steps, s, a, lo, hi, ee, stages);
-  } else {
+  } else if (instance == 1) {
     // the wrapper's size must cover this layout
     const long long need =
         (long long)kLanesPerBlock * wide_layout(nv, m).total * (long long)sizeof(T);
-    if (smem_bytes < need || smem_bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+    if (nv > kMaxNV || m < 1 || m > kMaxM || smem_bytes < need)
+      return cudaErrorInvalidValue;
     if (smem_bytes > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           qp_admm_wide_kernel<T, kExit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -582,56 +845,58 @@ int launch(const T* P, const T* q, const T* A, const T* l, const T* u,
     qp_admm_wide_kernel<T, kExit><<<grid_w, block_w, (size_t)smem_bytes, stream>>>(
         P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi, ee,
         stages);
+  } else if (instance == 2) {
+    if ((lanes != 1 && lanes != 2 && lanes != 4) || place < 0 || place > 2 ||
+        (place > 0 && work == nullptr) ||
+        smem_bytes < strided_smem_elems(nv, m, place, lanes) * (long long)sizeof(T))
+      return cudaErrorInvalidValue;
+    if (smem_bytes > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          qp_admm_strided_kernel<T, kExit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid_s((B + lanes - 1) / lanes), block_s(lanes * 32);
+    qp_admm_strided_kernel<T, kExit><<<grid_s, block_s, (size_t)smem_bytes, stream>>>(
+        P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages, n_steps, s, a, lo, hi, ee,
+        stages, lanes, place, work);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" {
-
-int qp_admm_f32(const float* P, const float* q, const float* A,
-                const float* l, const float* u, const float* rho0, float* z,
-                float* zz, float* y, int B, int nv, int m, int n_stages,
-                int n_steps, double sigma, double alpha, double rho_lo,
-                double rho_hi, long long smem_bytes, void* stream) {
-  return launch<float, false>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
-                              n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
-                              (cudaStream_t)stream);
-}
-
-int qp_admm_f64(const double* P, const double* q, const double* A,
-                const double* l, const double* u, const double* rho0,
-                double* z, double* zz, double* y, int B, int nv, int m,
-                int n_stages, int n_steps, double sigma, double alpha,
-                double rho_lo, double rho_hi, long long smem_bytes,
-                void* stream) {
-  return launch<double, false>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
-                               n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
-                               (cudaStream_t)stream);
-}
+// The plan (instance, lanes, place, smem_bytes) and the workspace (B lanes
+// of the strided layout's `work` elements where place > 0) come from the
+// wrapper.
+#define MORBIT_QP_EXPORT(NAME, T)                                                     \
+  extern "C" int NAME(const T* P, const T* q, const T* A, const T* l, const T* u,     \
+                      const T* rho0, T* z, T* zz, T* y, int B, int nv, int m,         \
+                      int n_stages, int n_steps, double sigma, double alpha,          \
+                      double rho_lo, double rho_hi, int instance, int lanes,          \
+                      int place, long long smem_bytes, T* work, void* stream) {       \
+    return launch<T, false>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,        \
+                            n_steps, sigma, alpha, rho_lo, rho_hi, instance, lanes,   \
+                            place, smem_bytes, work, (cudaStream_t)stream);           \
+  }
 
 // the exit instances: exit_eps > 0, and the stages each lane ran in `stages`
-int qp_admm_exit_f32(const float* P, const float* q, const float* A,
-                     const float* l, const float* u, const float* rho0, float* z,
-                     float* zz, float* y, int* stages, int B, int nv, int m,
-                     int n_stages, int n_steps, double sigma, double alpha,
-                     double rho_lo, double rho_hi, double exit_eps,
-                     long long smem_bytes, void* stream) {
-  return launch<float, true>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
-                             n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
-                             (cudaStream_t)stream, exit_eps, stages);
-}
+#define MORBIT_QP_EXIT_EXPORT(NAME, T)                                                \
+  extern "C" int NAME(const T* P, const T* q, const T* A, const T* l, const T* u,     \
+                      const T* rho0, T* z, T* zz, T* y, int* stages, int B, int nv,   \
+                      int m, int n_stages, int n_steps, double sigma, double alpha,   \
+                      double rho_lo, double rho_hi, double exit_eps, int instance,    \
+                      int lanes, int place, long long smem_bytes, T* work,            \
+                      void* stream) {                                                 \
+    return launch<T, true>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,         \
+                           n_steps, sigma, alpha, rho_lo, rho_hi, instance, lanes,    \
+                           place, smem_bytes, work, (cudaStream_t)stream, exit_eps,   \
+                           stages);                                                   \
+  }
 
-int qp_admm_exit_f64(const double* P, const double* q, const double* A,
-                     const double* l, const double* u, const double* rho0,
-                     double* z, double* zz, double* y, int* stages, int B, int nv,
-                     int m, int n_stages, int n_steps, double sigma, double alpha,
-                     double rho_lo, double rho_hi, double exit_eps,
-                     long long smem_bytes, void* stream) {
-  return launch<double, true>(P, q, A, l, u, rho0, z, zz, y, B, nv, m, n_stages,
-                              n_steps, sigma, alpha, rho_lo, rho_hi, smem_bytes,
-                              (cudaStream_t)stream, exit_eps, stages);
-}
-
-}  // extern "C"
+MORBIT_QP_EXPORT(qp_admm_f32, float)
+MORBIT_QP_EXPORT(qp_admm_f64, double)
+MORBIT_QP_EXIT_EXPORT(qp_admm_exit_f32, float)
+MORBIT_QP_EXIT_EXPORT(qp_admm_exit_f64, double)

@@ -39,11 +39,23 @@ __device__ __forceinline__ T ipow(T x, int k) {
 }
 
 // apply_kernel (ops/rbf.py) in r^2; p is the lane's shape parameter
+#ifdef MORBIT_LINKED_POW
+// K3's float64 build: defined in csrc/rbf_pow.cu, built with multiply-add
+// contraction as PyTorch's pow is (see there); float32 keeps the inline pow
+}  // namespace morbit
+extern __device__ double morbit_pow_f64(double x, double e);
+namespace morbit {
+__device__ __forceinline__ double phi_pow(double x, double e) { return morbit_pow_f64(x, e); }
+#else
+__device__ __forceinline__ double phi_pow(double x, double e) { return pow(x, e); }
+#endif
+__device__ __forceinline__ float phi_pow(float x, float e) { return pow(x, e); }
+
 template <typename T>
 __device__ __forceinline__ T phi(const Phi& f, T r2, T p) {
   switch (f.id) {
     case CUBIC:
-      return T(f.coef) * pow(r2, T(f.exponent));
+      return T(f.coef) * phi_pow(r2, T(f.exponent));
     case MULTIQUADRIC:
       return -sqrt(T(1) + (p * p) * r2);
     case INV_MULTIQUADRIC:

@@ -24,7 +24,8 @@
 //   path, (3, 10, 4) the three-variable default, and a generic instance with
 //   runtime sizes covers the rest;
 // * one block per lane (maxN <= 512, n <= 32: the wide-n path, maxN = 231 at
-//   n = 20), 128 threads. It does only the work the live state needs. Outside
+//   n = 20), 128 threads, and its slot form for every other shape (below).
+//   It does only the work the live state needs. Outside
 //   an active block the state is identity or zero: Phi is the identity past
 //   the N sites, Q differs from the identity only in its leading max(N, pd)
 //   rows and columns (a Householder reflection j of the set-up is supported
@@ -45,6 +46,16 @@
 //   against the sites; a tested candidate costs six block barriers, an
 //   accepted one a seventh. All 1024 lanes of a wide batch are resident at
 //   once (8 blocks an SM at float32).
+//
+// The block-per-lane instance's limits came from two places: its workspace
+// is B lanes of ~5 maxN^2 values (5.4 GB at maxN = 512, B = 1024, float32;
+// 36 GB at maxN = 1326), and warp 0's Givens steps keep two columns a lane
+// in registers (pd <= 64). The slot instance (rbf_round4_slots_kernel)
+// runs the same lane code on as many blocks as the card keeps resident
+// (rbf_round4_slots_resident_*), each with a workspace slot of its own and
+// looping over lanes, with the
+// Givens columns strided over warp 0 in shared memory; so every shape
+// launches (maxN = 1326, pd = 51 on the 50-variable ZDT path).
 //
 // Both instances sum each dot product in one thread, in the twin's index
 // order, with a rounding per multiply and per add (the kernels are built
@@ -69,6 +80,8 @@
 #include <float.h>
 #include <math.h>
 
+// the float64 build defines MORBIT_LINKED_POW: its cubic phi calls the pow
+// linked from csrc/rbf_pow.cu (ops/prepare_fused.py: build_round4)
 #include "rbf_phi.cuh"
 
 namespace {
@@ -434,28 +447,29 @@ __host__ __device__ inline int wide_smem_elems(int maxN, int pd) {
   return 8 * maxN + 2 * pd * pd + 5 * pd;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(WIDE_THREADS, sizeof(T) == 4 ? 8 : 4)
-rbf_round4_wide_kernel(const T* __restrict__ X, long long lane_stride,
-                       long long row_stride, const unsigned char* __restrict__ cand,
-                       const T* __restrict__ sites0, long long s0_lane_stride,
-                       const int* __restrict__ count, const T* __restrict__ param,
-                       unsigned char* __restrict__ accepted, int* __restrict__ N_out,
-                       T* __restrict__ work, int* __restrict__ list, int C, int n,
-                       int maxN, int pd, Phi f, double pivot2_in) {
-  extern __shared__ unsigned char smem_raw[];
+// One lane's round 4 on one block: `sm` holds the shared vectors (shared
+// memory, or the slot's workspace in the slot instance), `W` the lane's state
+// with row stride `ld` (maxN; max(maxN, pd) in the slot instance). kSlots
+// selects the Givens steps over any pd (the columns strided over warp 0,
+// the rotated row and g in `row` and `g`) instead of two columns a lane in
+// registers (pd <= 64).
+template <typename T, bool kSlots>
+__device__ __forceinline__ void round4_wide_lane(
+    int b, T* sm, T* W, int ld, const T* __restrict__ X, long long lane_stride,
+    long long row_stride, const unsigned char* __restrict__ cand,
+    const T* __restrict__ sites0, long long s0_lane_stride, const int* __restrict__ count,
+    const T* __restrict__ param, unsigned char* __restrict__ accepted,
+    int* __restrict__ N_out, int* __restrict__ list, int C, int n, int maxN, int pd,
+    Phi f, double pivot2_in) {
   __shared__ T s_beta, s_gh, s_qpq, s_pq, s_tau2;
   __shared__ int s_flag, s_rank, s_wcount[2][WIDE_WARPS];
   constexpr int nt = WIDE_THREADS;
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ld = maxN;
-  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   T *ph = sm, *Qg = ph + maxN, *tmp = Qg + maxN, *qq = tmp + maxN, *pp = qq + maxN;
   T *vv = pp + maxN, *Lv = vv + maxN, *lsq = Lv + maxN, *Ra = lsq + maxN;
   T *Rb = Ra + pd * pd, *g = Rb + pd * pd, *row = g + pd, *cs = row + pd;
   T *sn = cs + pd, *w = sn + pd;
 
-  T* W = work + (long long)b * wide_lane_elems(maxN, n, pd);
   T *S = W, *Qc = S + (long long)maxN * n, *Pm = Qc + (long long)pd * ld;
   T *Zm = Pm + (long long)ld * ld, *LiT = Zm + (long long)ld * ld;
   T *Lr = LiT + (long long)ld * ld, *R0 = Lr + (long long)ld * ld;
@@ -558,7 +572,49 @@ rbf_round4_wide_kernel(const T* __restrict__ X, long long lane_stride,
     const int c = cl[k];
     const T* xi = Xl + (long long)c * row_stride;
     // ---- tau^2 against the current state (candidate_quantities)
-    if (warp == 0) {
+    if (kSlots && warp == 0) {
+      // the Givens rotations as below, lane m rotating columns m (mod 32)
+      // of `row` and `g` in place
+      for (int m = lane; m < pd; m += 32) {
+        row[m] = m == 0 ? T(1) : xi[m - 1];
+        g[m] = T(0);
+      }
+      T gh = T(1);
+      const int act = N < pd ? N : pd;
+      __syncwarp();
+      for (int j = 0; j < pd; ++j) {
+        const T a = Rc[j * pd + j];
+        const T bb = row[j];
+        __syncwarp();   // every lane has read row[j] before it rotates
+        T r = sqrt(a * a + bb * bb);
+        bool has = r > T(0) && j < act;
+        T safe = r > T(0) ? r : T(1);
+        T cth = has ? a / safe : T(1);
+        T sth = has ? bb / safe : T(0);
+        for (int m = lane; m < pd; m += 32) {
+          T Rj = Rc[j * pd + m];
+          Rn[j * pd + m] = cth * Rj + sth * row[m];
+          row[m] = -sth * Rj + cth * row[m];
+          g[m] = cth * g[m] - sth * (m == j ? T(1) : T(0));
+        }
+        if (lane == 0) {
+          cs[j] = cth;
+          sn[j] = sth;
+        }
+        gh = cth * gh;
+        __syncwarp();
+      }
+      if (lane == 0) {
+        bool rank_ok = true;
+        if (N < pd) {
+          T nr = T(0);
+          for (int m = 0; m < pd; ++m) nr += row[m] * row[m];
+          rank_ok = sqrt(nr) > T(10) * eps_v<T>();
+        }
+        s_gh = gh;
+        s_rank = rank_ok;
+      }
+    } else if (warp == 0) {
       // the Givens rotations folding the candidate's polynomial row into R;
       // lane m rotates columns m and m + 32, every lane computes (c, s)
       T rw[2], gg[2];
@@ -755,6 +811,56 @@ rbf_round4_wide_kernel(const T* __restrict__ X, long long lane_stride,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS, sizeof(T) == 4 ? 8 : 4)
+rbf_round4_wide_kernel(const T* __restrict__ X, long long lane_stride,
+                       long long row_stride, const unsigned char* __restrict__ cand,
+                       const T* __restrict__ sites0, long long s0_lane_stride,
+                       const int* __restrict__ count, const T* __restrict__ param,
+                       unsigned char* __restrict__ accepted, int* __restrict__ N_out,
+                       T* __restrict__ work, int* __restrict__ list, int C, int n,
+                       int maxN, int pd, Phi f, double pivot2_in) {
+  extern __shared__ unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  round4_wide_lane<T, false>(b, reinterpret_cast<T*>(smem_raw),
+                             work + (long long)b * wide_lane_elems(maxN, n, pd), maxN, X,
+                             lane_stride, row_stride, cand, sites0, s0_lane_stride, count,
+                             param, accepted, N_out, list, C, n, maxN, pd, f, pivot2_in);
+}
+
+// ---- the slot instance: every shape the block-per-lane instance does not take
+
+// The block-per-lane design on `gridDim.x` resident blocks, each with its own
+// slot of the workspace, looping over the lanes b = blockIdx.x (mod
+// gridDim.x): the workspace is slots x lane instead of B x lane (a lane's
+// state grows as max_points^2). The state's row stride is max(maxN, pd).
+// At place 1 the shared vectors live in the slot too (no shared memory).
+__host__ __device__ inline long long slot_lane_elems(int maxN, int n, int pd, int place) {
+  const int ld = maxN > pd ? maxN : pd;
+  return wide_lane_elems(ld, n, pd) + (place ? wide_smem_elems(maxN, pd) : 0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS, sizeof(T) == 4 ? 8 : 4)
+rbf_round4_slots_kernel(const T* __restrict__ X, long long lane_stride,
+                        long long row_stride, const unsigned char* __restrict__ cand,
+                        const T* __restrict__ sites0, long long s0_lane_stride,
+                        const int* __restrict__ count, const T* __restrict__ param,
+                        unsigned char* __restrict__ accepted, int* __restrict__ N_out,
+                        T* __restrict__ work, int* __restrict__ list, int B, int C,
+                        int n, int maxN, int pd, int place, Phi f, double pivot2_in) {
+  extern __shared__ unsigned char smem_raw[];
+  const int ld = maxN > pd ? maxN : pd;
+  T* W = work + (long long)blockIdx.x * slot_lane_elems(maxN, n, pd, place);
+  T* sm = place ? W + wide_lane_elems(ld, n, pd) : reinterpret_cast<T*>(smem_raw);
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    round4_wide_lane<T, true>(b, sm, W, ld, X, lane_stride, row_stride, cand, sites0,
+                              s0_lane_stride, count, param, accepted, N_out, list, C, n,
+                              maxN, pd, f, pivot2_in);
+    __syncthreads();   // the slot is free for the next lane
+  }
+}
+
+template <typename T>
 int launch_wide(const T* X, long long lane_stride, long long row_stride,
                 const unsigned char* cand, const T* sites0, long long s0_lane_stride,
                 const int* count, const T* param, unsigned char* accepted, int* N_out,
@@ -769,6 +875,25 @@ int launch_wide(const T* X, long long lane_stride, long long row_stride,
   rbf_round4_wide_kernel<T><<<B, WIDE_THREADS, smem, s>>>(
       X, lane_stride, row_stride, cand, sites0, s0_lane_stride, count, param, accepted,
       N_out, work, list, C, n, max_points, pd, f, pivot2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_slots(const T* X, long long lane_stride, long long row_stride,
+                 const unsigned char* cand, const T* sites0, long long s0_lane_stride,
+                 const int* count, const T* param, unsigned char* accepted, int* N_out,
+                 T* work, int* list, int B, int C, int n, int max_points, int pd,
+                 int place, int slots, Phi f, double pivot2, cudaStream_t s) {
+  const size_t smem = place ? 0 : sizeof(T) * wide_smem_elems(max_points, pd);
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rbf_round4_slots_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  rbf_round4_slots_kernel<T><<<slots, WIDE_THREADS, smem, s>>>(
+      X, lane_stride, row_stride, cand, sites0, s0_lane_stride, count, param, accepted,
+      N_out, work, list, B, C, n, max_points, pd, place, f, pivot2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -816,7 +941,7 @@ int launch(const T* X, long long lane_stride, long long row_stride,
 MORBIT_R4_EXPORT(rbf_round4_f32, float)
 MORBIT_R4_EXPORT(rbf_round4_f64, double)
 
-// The wide instance: `work` holds B * rbf_round4_wide_lane_elems(...) values
+// The wide instance: `work` holds B * wide_lane_elems(max_points, n, pd) values
 // and `list` B * C ints.
 #define MORBIT_R4_WIDE_EXPORT(NAME, T)                                               \
   extern "C" int NAME(const T* X, long long lane_stride, long long row_stride,       \
@@ -838,6 +963,59 @@ MORBIT_R4_EXPORT(rbf_round4_f64, double)
 MORBIT_R4_WIDE_EXPORT(rbf_round4_wide_f32, float)
 MORBIT_R4_WIDE_EXPORT(rbf_round4_wide_f64, double)
 
-extern "C" long long rbf_round4_wide_lane_elems(int max_points, int n, int pd) {
-  return wide_lane_elems(max_points, n, pd);
+// The slot instance: `work` holds slots * rbf_round4_slot_lane_elems(...)
+// values (1 <= slots <= B, the grid) and `list` B * C ints; at place 1 the
+// shared vectors live in the workspace (the wrapper's plan,
+// ops/prepare_fused.py: round4_plan).
+#define MORBIT_R4_SLOTS_EXPORT(NAME, T)                                              \
+  extern "C" int NAME(const T* X, long long lane_stride, long long row_stride,       \
+                      const unsigned char* cand, const T* sites0,                    \
+                      long long s0_lane_stride, const int* count, const T* param,    \
+                      unsigned char* accepted, int* N_out, T* work, int* list, int B,\
+                      int C, int n, int max_points, int pd, int kernel_id,           \
+                      double exponent, double coef, double pivot2, int place,        \
+                      int slots, void* stream) {                                     \
+    if (B <= 0) return 0;                                                            \
+    if (n < 1 || max_points < 1 || pd < 0 || pd > n + 1 || place < 0 || place > 1 || \
+        slots < 1 || slots > B)                                                      \
+      return static_cast<int>(cudaErrorInvalidValue);                                \
+    return launch_slots<T>(X, lane_stride, row_stride, cand, sites0, s0_lane_stride, \
+                           count, param, accepted, N_out, work, list, B, C, n,       \
+                           max_points, pd, place, slots,                             \
+                           Phi{kernel_id, exponent, coef}, pivot2,                   \
+                           static_cast<cudaStream_t>(stream));                       \
+  }
+
+MORBIT_R4_SLOTS_EXPORT(rbf_round4_slots_f32, float)
+MORBIT_R4_SLOTS_EXPORT(rbf_round4_slots_f64, double)
+
+extern "C" long long rbf_round4_slot_lane_elems(int max_points, int n, int pd, int place) {
+  return slot_lane_elems(max_points, n, pd, place);
+}
+
+// Blocks of the slot instance the current device keeps resident at once at
+// this shape's shared memory (SMs x blocks an SM): the wrapper's grid, one
+// workspace slot each. A negative value is a failed query's -cudaError_t.
+template <typename T>
+int slots_resident(int max_points, int pd, int place) {
+  const size_t smem = place ? 0 : sizeof(T) * wide_smem_elems(max_points, pd);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(rbf_round4_slots_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rbf_round4_slots_kernel<T>,
+                                                      WIDE_THREADS, smem);
+  return e == cudaSuccess ? sms * per_sm : -static_cast<int>(e);
+}
+
+extern "C" int rbf_round4_slots_resident_f32(int max_points, int pd, int place) {
+  return slots_resident<float>(max_points, pd, place);
+}
+
+extern "C" int rbf_round4_slots_resident_f64(int max_points, int pd, int place) {
+  return slots_resident<double>(max_points, pd, place);
 }

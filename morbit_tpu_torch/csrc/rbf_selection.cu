@@ -46,6 +46,11 @@
 //   the same bits. Round 3 runs one direction per thread. The build has no
 //   multiply-add contraction (prepare_fused.NO_FMA), so every operation
 //   rounds as in the twin and the outputs equal the twin's to the bit.
+// * The wide instance (every n > 32; n = 50 on the 50-variable ZDT path):
+//   the block instance's design and arithmetic without its per-thread
+//   arrays of MAX_N and its warp-wide complement update (see
+//   rbf_selection_wide_kernel below); its matrices in shared memory or, past
+//   a block's, in a workspace. The wrapper plans the instance at every n.
 //
 // Bound on the H100: per lane the work is a few scans of its candidate rows,
 // each O(n^2) operations per row, and the bytes are the valid rows read once;
@@ -839,35 +844,418 @@ rbf_selection_block_kernel(
   }
 }
 
+// ============================================ wide instance (n > MAX_N)
+
+// One block of kBlockThreads threads per lane, as the block instance, for
+// every n the block instance's per-thread arrays and warp-wide complement
+// update do not take. The phases and every sum are the block instance's:
+// a candidate's score reads its offsets from the stage or the database
+// (s_i = row_i - x_i, rounded as the stage rounds it) and keeps proj in a
+// per-thread column of the `proj` array (proj[m] at m * kBlockThreads +
+// thread); the complement update runs over the whole block, thread i on
+// rows i (mod kBlockThreads), the picked column in `acol`; round 3 takes
+// one direction per thread the same way. The matrices (Z, ZT, D, Q, V and
+// proj) sit in shared memory behind the vectors (place 0) or, where they do
+// not fit, in a workspace of `mat` elements a lane (place 1); at place 2 the
+// vectors and ints follow them there (no shared memory).
+struct WideSelLayout {
+  int ldq, ldz;
+  long long Z, ZT, D, Q, V, proj, mat;  // matrix offsets, and a lane's matrix elements
+  int stage, x, lb1, ub1, lb2, ub2, safe, beta, acol, red_v, mat_at, t_total;
+  int order1, order2, act, red_p, wcount, i_total;
+  long long bytes;  // the vectors' and ints' bytes, with the matrices' at place 0
+  long long work;   // a lane's workspace elements
+};
+
+__host__ __device__ inline WideSelLayout wide_sel_layout(int n, int stage_rows, int item,
+                                                         int place) {
+  WideSelLayout L;
+  const int vec = 16 / item;
+  L.ldq = n | 1;
+  L.ldz = (n + vec - 1) / vec * vec;
+  long long m = 0;
+  L.Z = m;    m += (long long)n * L.ldz;
+  L.ZT = m;   m += (long long)n * L.ldz;
+  L.D = m;    m += (long long)n * L.ldz;
+  L.Q = m;    m += (long long)n * L.ldq;
+  L.V = m;    m += (long long)n * L.ldq;
+  L.proj = m; m += (long long)n * kBlockThreads;
+  L.mat = (m + vec - 1) / vec * vec;
+  int o = 0;
+  L.stage = o; o += stage_rows * L.ldz;
+  L.x = o;     o += L.ldz;
+  L.lb1 = o;   o += L.ldz;
+  L.ub1 = o;   o += L.ldz;
+  L.lb2 = o;   o += L.ldz;
+  L.ub2 = o;   o += L.ldz;
+  L.safe = o;  o += L.ldz;
+  L.beta = o;  o += L.ldz;
+  L.acol = o;  o += L.ldz;
+  L.red_v = o; o += (kBlockWarps + vec - 1) / vec * vec;
+  L.mat_at = o;
+  if (place == 0) o += (int)L.mat;
+  L.t_total = o;
+  int p = 0;
+  L.order1 = p; p += n;
+  L.order2 = p; p += n;
+  L.act = p;    p += n;
+  L.red_p = p;  p += kBlockWarps;
+  L.wcount = p; p += kBlockWarps;
+  L.i_total = p;
+  L.bytes = (long long)o * item + (long long)p * 4;
+  L.work = place == 0 ? 0 : L.mat + (place == 2 ? (L.bytes + item - 1) / item : 0);
+  return L;
+}
+
+template <typename T>
+struct WideLane : BlockLane<T> {
+  T* acol;   // the picked column during a complement update
+  T* proj;   // proj[m * kBlockThreads + thread]
+};
+
+// block_score's arithmetic for any n (see there)
+template <typename T>
+__device__ T wide_score(const WideLane<T>& c, int p, int r, int k, bool first) {
+  constexpr int VN = Vec<T>::N;
+  const int n = c.n, ldz = c.ldz;
+  const T* st = p < c.stage_rows ? c.stage + (long long)p * ldz : nullptr;
+  const T* row = c.X + (long long)r * c.row_stride;
+  if (first) {
+    T sc = T(fabs(st ? st[0] : row[0] - c.x[0]));
+    for (int i = 1; i < n; ++i) sc = pmax(sc, T(fabs(st ? st[i] : row[i] - c.x[i])));
+    return sc;
+  }
+  T* pj = c.proj + threadIdx.x;
+  for (int m = k; m < n; ++m) {
+    const T* zt = c.ZT + (long long)m * ldz;
+    T acc = T(0);
+    if (st) {
+      for (int cc = 0; cc < n; ++cc) acc = acc + st[cc] * zt[cc];
+    } else {
+      for (int cc = 0; cc < n; ++cc) acc = acc + (row[cc] - c.x[cc]) * zt[cc];
+    }
+    pj[(long long)m * kBlockThreads] = acc;
+  }
+  // pb_i from the 16-byte block that holds m = k, proj = +0 below k
+  const int m0 = k / VN * VN;
+  T sc = T(0);
+  for (int i = 0; i < n; ++i) {
+    const T* Zi = c.Z + (long long)i * ldz;
+    T pb = T(0);
+    for (int m = m0; m < n; ++m)
+      pb = pb + (m >= k ? pj[(long long)m * kBlockThreads] : T(0)) * Zi[m];
+    sc = i == 0 ? T(fabs(pb)) : pmax(sc, T(fabs(pb)));
+  }
+  return sc;
+}
+
+// complement_add's arithmetic over the whole block (see there)
+template <typename T>
+__device__ void wide_complement_add(const WideLane<T>& c, int row, int k_old) {
+  const int tid = threadIdx.x, n = c.n, ldq = c.ldq;
+  const T* xr = c.X + (long long)row * c.row_stride;
+  T* a = c.acol;
+  for (int i = tid; i < n; i += kBlockThreads) a[i] = xr[i] - c.x[i];
+  __syncthreads();
+  for (int j = 0; j < k_old; ++j) {
+    if (!c.act[j]) continue;
+    const T* v = c.V + (long long)j * ldq;
+    T w = T(0);
+    for (int ii = 0; ii < n; ++ii) w = w + v[ii] * a[ii];
+    __syncthreads();  // every thread has its w before a changes
+    for (int i = tid; i < n; i += kBlockThreads) a[i] = a[i] - c.beta[j] * (v[i] * w);
+    __syncthreads();
+  }
+  const int j = k_old;
+  T norm2 = T(0);
+  for (int ii = 0; ii < n; ++ii) {
+    const T xv = ii >= j ? a[ii] : T(0);
+    norm2 = norm2 + xv * xv;
+  }
+  const T normx = sqrt(norm2);
+  const T sgn = a[j] >= T(0) ? T(1) : T(-1);
+  const T alpha = -sgn * normx;
+  T vnorm2 = T(0);
+  for (int ii = 0; ii < n; ++ii) {
+    const T xv = ii >= j ? a[ii] : T(0);
+    const T vv = ii == j ? xv - alpha : xv;
+    vnorm2 = vnorm2 + vv * vv;
+  }
+  const bool active = vnorm2 > T(0) && normx > T(0);
+  T* Vj = c.V + (long long)j * ldq;
+  for (int i = tid; i < n; i += kBlockThreads) {
+    const T xi = i >= j ? a[i] : T(0);
+    Vj[i] = i == j ? xi - alpha : xi;
+  }
+  const T beta = T(2) / vnorm2;
+  if (tid == 0) {
+    c.act[j] = active ? 1 : 0;
+    if (active) c.beta[j] = beta;
+  }
+  __syncthreads();  // the reflection is written
+  if (active) {
+    for (int i = tid; i < n; i += kBlockThreads) {
+      T* Qi = c.Q + (long long)i * ldq;
+      T qv = T(0);
+      for (int m = 0; m < n; ++m) qv = qv + Qi[m] * Vj[m];
+      for (int m = 0; m < n; ++m) Qi[m] = Qi[m] - beta * (qv * Vj[m]);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += kBlockThreads) {
+    T nrm = T(0);
+    for (int ii = 0; ii < n; ++ii) nrm = pmax(nrm, T(fabs(c.Q[(long long)ii * ldq + i])));
+    c.safe[i] = nrm > T(0) ? nrm : T(1);
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += kBlockThreads) {
+    for (int m = 0; m < n; ++m) {
+      const T zim = c.Q[(long long)i * ldq + m] / c.safe[m];
+      c.Z[(long long)i * c.ldz + m] = zim;
+      c.ZT[(long long)m * c.ldz + i] = zim;
+    }
+  }
+}
+
+// block_picks for the wide instance
+template <typename T>
+__device__ int wide_picks(const WideLane<T>& c, int round, T piv, int n_pick, int& k,
+                          int* order) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n = c.n;
+  if (n_pick <= 0 || k >= n) return 0;   // no accept possible: no scan
+  const int ncand = compact(c, round);
+  int picked = 0;
+  for (int it = 0; it < n; ++it) {
+    if (picked >= n_pick || k >= n) break;
+    const bool first = picked == 0;
+    T bv = -inf_v<T>();
+    int bp = kNoPos;
+    for (int p = tid; p < ncand; p += kBlockThreads) {
+      const int r = c.list[p];
+      if (r < 0) continue;  // taken
+      const T sc = wide_score<T>(c, p, r, k, first);
+      if (beats(sc, p, bv, bp)) {
+        bv = sc;
+        bp = p;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const T ov = __shfl_xor_sync(kFull, bv, off);
+      const int op = __shfl_xor_sync(kFull, bp, off);
+      if (beats(ov, op, bv, bp)) {
+        bv = ov;
+        bp = op;
+      }
+    }
+    if (lane == 0) {
+      c.red_v[warp] = bv;
+      c.red_p[warp] = bp;
+    }
+    __syncthreads();
+    bv = c.red_v[0];
+    bp = c.red_p[0];
+    for (int w = 1; w < kBlockWarps; ++w) {
+      if (beats(c.red_v[w], c.red_p[w], bv, bp)) {
+        bv = c.red_v[w];
+        bp = c.red_p[w];
+      }
+    }
+    const bool accept = bp != kNoPos && (first || bv > piv);
+    if (!accept) break;
+    const int row = c.list[bp];
+    __syncthreads();  // every thread has read the winner's row
+    if (tid == 0) {
+      order[picked] = row;
+      c.list[bp] = -1;
+    }
+    wide_complement_add<T>(c, row, k);
+    ++k;
+    ++picked;
+    __syncthreads();  // the new complement and the mark before the next scan
+  }
+  return picked;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+rbf_selection_wide_kernel(
+    const T* __restrict__ X, long long lane_stride, long long row_stride,
+    const int* __restrict__ count, const T* __restrict__ x_s,
+    const int* __restrict__ x_index, const T* __restrict__ delta,
+    const T* __restrict__ lb_s, const T* __restrict__ ub_s,
+    const int* __restrict__ max_new, const unsigned char* __restrict__ efl_in,
+    int* __restrict__ r1_idx, int* __restrict__ r1_cnt_out,
+    int* __restrict__ r2_idx, int* __restrict__ r2_cnt_out,
+    T* __restrict__ sites3, unsigned char* __restrict__ active3,
+    int* __restrict__ n_new_out, T* __restrict__ dirs_out,
+    int* __restrict__ dirs_count_out, unsigned char* __restrict__ fl_out,
+    int* work, int cap, int n, int stage_rows, int place, T* mat_work,
+    double theta_e1, double theta_e2_dmax, double theta_pivot, double delta_max,
+    int skip2_same_theta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const WideSelLayout Ly = wide_sel_layout(n, stage_rows, (int)sizeof(T), place);
+  T* lw = mat_work + (long long)b * Ly.work;   // this lane's workspace (place > 0)
+  T* sm = place == 2 ? lw + Ly.mat : reinterpret_cast<T*>(smem_raw);
+  int* si = reinterpret_cast<int*>(sm + Ly.t_total);
+  T* mat = place == 0 ? sm + Ly.mat_at : lw;
+  const int cnt = count[b];
+  WideLane<T> c;
+  c.X = X + b * lane_stride;
+  c.row_stride = row_stride;
+  c.rows = cnt < cap ? (cnt > 0 ? cnt : 0) : cap;
+  c.x_index = x_index[b];
+  c.n = n;
+  c.stage_rows = stage_rows;
+  c.ldq = Ly.ldq;
+  c.ldz = Ly.ldz;
+  c.list = work + (long long)b * cap;
+  c.Z = mat + Ly.Z; c.ZT = mat + Ly.ZT; c.D = mat + Ly.D; c.Q = mat + Ly.Q; c.V = mat + Ly.V;
+  c.proj = mat + Ly.proj;
+  c.stage = sm + Ly.stage; c.x = sm + Ly.x;
+  c.lb1 = sm + Ly.lb1; c.ub1 = sm + Ly.ub1; c.lb2 = sm + Ly.lb2; c.ub2 = sm + Ly.ub2;
+  c.safe = sm + Ly.safe; c.beta = sm + Ly.beta; c.acol = sm + Ly.acol;
+  c.red_v = sm + Ly.red_v;
+  c.act = si + Ly.act; c.red_p = si + Ly.red_p; c.wcount = si + Ly.wcount;
+  int* order1 = si + Ly.order1;
+  int* order2 = si + Ly.order2;
+
+  const bool efl = efl_in[b] != 0;
+  const T dl = delta[b];
+  const T delta_1 = T(theta_e1) * dl;
+  const T piv1 = T(theta_pivot) * delta_1;
+  const T delta_2 = T(theta_e2_dmax);
+  for (int i = tid; i < n; i += kBlockThreads) {
+    const T xi = x_s[(long long)b * n + i];
+    const T lo = lb_s[(long long)b * n + i], hi = ub_s[(long long)b * n + i];
+    c.x[i] = xi;
+    c.lb1[i] = pmax(lo, xi - delta_1);
+    c.ub1[i] = pmin(hi, xi + delta_1);
+    c.lb2[i] = pmax(lo, xi - delta_2);
+    c.ub2[i] = pmin(hi, xi + delta_2);
+    order1[i] = -1;
+    order2[i] = -1;
+  }
+  for (long long e = tid; e < (long long)n * n; e += kBlockThreads) {
+    const int i = (int)(e / n), m = (int)(e - (e / n) * n);
+    c.Q[(long long)i * c.ldq + m] = i == m ? T(1) : T(0);
+    c.Z[(long long)i * c.ldz + m] = i == m ? T(1) : T(0);
+    c.ZT[(long long)i * c.ldz + m] = i == m ? T(1) : T(0);
+  }
+  __syncthreads();
+
+  // ---- round 1
+  int k = 0;
+  const int r1_cnt = wide_picks<T>(c, 1, piv1, n, k, order1);
+  const int k1 = k;
+  // directions: the reversed complement columns, row i = column n-1-i of Z
+  for (int i = tid; i < n; i += kBlockThreads)
+    for (int j = 0; j < n; ++j)
+      c.D[(long long)i * c.ldz + j] = c.ZT[(long long)(n - 1 - i) * c.ldz + j];
+  const int n_missing1 = n - r1_cnt;
+
+  // ---- round 2 (its picks are reported even where the skip test zeroes the count)
+  int r2_cnt = 0;
+  bool fl_after2 = true;
+  if (!efl) {
+    const int r2_picked = wide_picks<T>(c, 2, piv1, n_missing1, k, order2);
+    bool skip2 = n_missing1 == 0;
+    if (skip2_same_theta) {
+      const T dm = T(delta_max);
+      const T close_tol = T(1e-8) + T(1e-5) * T(fabs(dm));
+      skip2 = skip2 || dl == dm || (isfinite(dm) && T(fabs(dl - dm)) <= close_tol);
+    }
+    r2_cnt = skip2 ? 0 : r2_picked;
+    fl_after2 = skip2;
+  }
+  __syncthreads();
+
+  // ---- round 3, one direction per thread (strided)
+  const int n_missing2 = n_missing1 - r2_cnt;
+  const int mn = max_new[b] > 0 ? max_new[b] : 0;
+  int n_new = n_missing2 > 0 ? n_missing2 : 0;
+  n_new = n_new < mn ? n_new : mn;
+  Lane<T> L{c.X, row_stride, c.rows, c.x_index, n, c.x, c.lb1, c.ub1, c.lb2, c.ub2};
+  bool fail_l = false, ok_l = true;
+  for (int i = tid; i < n; i += kBlockThreads) {
+    const bool ok3 = r3_slot<T, MAX_N>(L, c.D + (long long)i * c.ldz, piv1,
+                                       sites3 + ((long long)b * n + i) * n);
+    fail_l = fail_l || (i < n_new && !ok3);
+    ok_l = ok_l && (ok3 || !(i < n_new));
+  }
+  const bool fail3 = __syncthreads_or(fail_l) != 0;
+  bool covers = n_new >= n_missing2;
+  int r1c = r1_cnt, dirs_count = n - k1;
+  const bool rebuild = efl && fail3;
+  if (rebuild) {
+    // coordinate-axis rebuild (RbfModel.jl:564-570, :633)
+    r1c = 0;
+    r2_cnt = 0;
+    n_new = n < mn ? n : mn;
+    covers = n_new >= n;
+    dirs_count = n;
+    ok_l = true;
+    for (int i = tid; i < n; i += kBlockThreads) {
+      T* Di = c.D + (long long)i * c.ldz;
+      for (int j = 0; j < n; ++j) Di[j] = i == j ? T(1) : T(0);
+      const bool ok3 = r3_slot<T, MAX_N>(L, Di, piv1, sites3 + ((long long)b * n + i) * n);
+      ok_l = ok_l && (ok3 || !(i < n_new));
+    }
+  }
+  const bool all_ok = __syncthreads_and(ok_l) != 0;
+  const bool round3_ran = rebuild || n_missing2 > 0;
+  const bool fl = (round3_ran && covers && all_ok && r2_cnt == 0) || (!round3_ran && fl_after2);
+
+  for (int i = tid; i < n; i += kBlockThreads) {
+    const long long o = (long long)b * n + i;
+    r1_idx[o] = order1[i];
+    r2_idx[o] = efl ? -1 : order2[i];
+    active3[o] = i < n_new ? 1 : 0;
+    for (int j = 0; j < n; ++j) dirs_out[o * n + j] = c.D[(long long)i * c.ldz + j];
+  }
+  if (tid == 0) {
+    r1_cnt_out[b] = r1c;
+    r2_cnt_out[b] = r2_cnt;
+    n_new_out[b] = n_new;
+    dirs_count_out[b] = dirs_count;
+    fl_out[b] = fl ? 1 : 0;
+  }
+}
+
 // ---- launch
 
+// `instance` is the wrapper's plan (ops/prepare_fused.py: selection_plan):
+// 0 the register instances (n = 2, 3), 1 the block instance (n <= MAX_N),
+// 2 the wide instance with its matrices at `place`; the launcher refuses a
+// plan that does not fit n or whose sizes do not cover its layout.
 template <typename T>
 int launch(const T* X, long long lane_stride, long long row_stride, const int* count,
            const T* x_s, const int* x_index, const T* delta, const T* lb, const T* ub,
            const int* max_new, const unsigned char* efl, int* r1_idx, int* r1_cnt,
            int* r2_idx, int* r2_cnt, T* sites3, unsigned char* active3, int* n_new,
            T* dirs, int* dirs_count, unsigned char* fl, int* work, int B, int cap,
-           int n, int stage_rows, long long smem_bytes, double theta_e1,
-           double theta_e2_dmax, double theta_pivot, double delta_max,
-           int skip2_same_theta, void* stream) {
+           int n, int stage_rows, int instance, int place, T* mat_work,
+           long long smem_bytes, double theta_e1, double theta_e2_dmax,
+           double theta_pivot, double delta_max, int skip2_same_theta, void* stream) {
   if (B <= 0) return 0;
-  if (n < 1 || n > MAX_N) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MORBIT_SEL_ARGS                                                              \
   X, lane_stride, row_stride, count, x_s, x_index, delta, lb, ub, max_new, efl,      \
       r1_idx, r1_cnt, r2_idx, r2_cnt, sites3, active3, n_new, dirs, dirs_count, fl
   const int threads = 128, blocks = (B + threads - 1) / threads;
-  if (n == 2) {
+  if (instance == 0 && n == 2) {
     rbf_selection_kernel<T, 2><<<blocks, threads, 0, s>>>(
         MORBIT_SEL_ARGS, B, cap, theta_e1, theta_e2_dmax, theta_pivot, delta_max,
         skip2_same_theta);
-  } else if (n == 3) {
+  } else if (instance == 0 && n == 3) {
     rbf_selection_kernel<T, 3><<<blocks, threads, 0, s>>>(
         MORBIT_SEL_ARGS, B, cap, theta_e1, theta_e2_dmax, theta_pivot, delta_max,
         skip2_same_theta);
-  } else {
+  } else if (instance == 1) {
     // the wrapper's size must cover this layout, and its workspace B x cap
-    if (work == nullptr || stage_rows < 0 ||
+    if (n > MAX_N || work == nullptr || stage_rows < 0 ||
         smem_bytes < block_layout(n, stage_rows, (int)sizeof(T)).bytes ||
         smem_bytes > kMaxSmemBytes)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -880,6 +1268,23 @@ int launch(const T* X, long long lane_stride, long long row_stride, const int* c
     rbf_selection_block_kernel<T><<<B, kBlockThreads, (size_t)smem_bytes, s>>>(
         MORBIT_SEL_ARGS, work, cap, n, stage_rows, theta_e1, theta_e2_dmax,
         theta_pivot, delta_max, skip2_same_theta);
+  } else if (instance == 2) {
+    if (work == nullptr || stage_rows < 0 || place < 0 || place > 2 ||
+        (place > 0 && mat_work == nullptr) ||
+        (place < 2 && smem_bytes < wide_sel_layout(n, stage_rows, (int)sizeof(T), place).bytes) ||
+        smem_bytes > kMaxSmemBytes)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (smem_bytes > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          rbf_selection_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem_bytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    rbf_selection_wide_kernel<T><<<B, kBlockThreads, (size_t)smem_bytes, s>>>(
+        MORBIT_SEL_ARGS, work, cap, n, stage_rows, place, mat_work, theta_e1,
+        theta_e2_dmax, theta_pivot, delta_max, skip2_same_theta);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MORBIT_SEL_ARGS
   return static_cast<int>(cudaGetLastError());
@@ -887,6 +1292,10 @@ int launch(const T* X, long long lane_stride, long long row_stride, const int* c
 
 }  // namespace
 
+// The plan (instance, place, stage_rows, smem_bytes) and the workspaces
+// (`work`: B x cap ints for the block and wide instances; `mat_work`: B
+// lanes of the wide layout's `work` elements at place 1 or 2) come from the
+// wrapper.
 #define MORBIT_SEL_EXPORT(NAME, T)                                                    \
   extern "C" int NAME(const T* X, long long lane_stride, long long row_stride,        \
                       const int* count, const T* x_s, const int* x_index,             \
@@ -894,15 +1303,15 @@ int launch(const T* X, long long lane_stride, long long row_stride, const int* c
                       const unsigned char* efl, int* r1_idx, int* r1_cnt,             \
                       int* r2_idx, int* r2_cnt, T* sites3, unsigned char* active3,    \
                       int* n_new, T* dirs, int* dirs_count, unsigned char* fl,        \
-                      int* work, int B, int cap, int n, int stage_rows,               \
-                      long long smem_bytes, double theta_e1, double theta_e2_dmax,    \
-                      double theta_pivot, double delta_max, int skip2_same_theta,     \
-                      void* stream) {                                                 \
+                      int* work, int B, int cap, int n, int stage_rows, int instance, \
+                      int place, T* mat_work, long long smem_bytes, double theta_e1,  \
+                      double theta_e2_dmax, double theta_pivot, double delta_max,     \
+                      int skip2_same_theta, void* stream) {                           \
     return launch<T>(X, lane_stride, row_stride, count, x_s, x_index, delta, lb, ub,  \
                      max_new, efl, r1_idx, r1_cnt, r2_idx, r2_cnt, sites3, active3,   \
                      n_new, dirs, dirs_count, fl, work, B, cap, n, stage_rows,        \
-                     smem_bytes, theta_e1, theta_e2_dmax, theta_pivot, delta_max,     \
-                     skip2_same_theta, stream);                                       \
+                     instance, place, mat_work, smem_bytes, theta_e1, theta_e2_dmax,  \
+                     theta_pivot, delta_max, skip2_same_theta, stream);               \
   }
 
 MORBIT_SEL_EXPORT(rbf_selection_f32, float)

@@ -99,13 +99,23 @@ def run_round4(X, cand, init_sites, n_init, kernel: str, param,
 
     N = n_init.to(torch.int32)
     row_mask0 = idxN[None, :] < N[:, None]
-    d0 = init_sites[:, :, None, :] - init_sites[:, None, :, :]
-    Phi = apply_kernel(kernel, seq_dot(d0, d0), param)
-    Phi = torch.where(row_mask0[:, :, None] & row_mask0[:, None, :], Phi, eye)
+    # the initial state from the live rows (max(N) of them; past them Phi is
+    # the identity, the polynomial block zero and Q the identity, as the
+    # full-size sums and reflections leave them, whose extra terms are exact
+    # zeros)
+    kn = min(maxN, max(int(N.max()), 1))
+    live = init_sites[:, :kn]
+    d0 = live[:, :, None, :] - live[:, None, :, :]
+    Phi = eye.repeat(B, 1, 1)
+    Phi[:, :kn, :kn] = torch.where(row_mask0[:, :kn, None] & row_mask0[:, None, :kn],
+                                   apply_kernel(kernel, seq_dot(d0, d0), param), eye[:kn, :kn])
     phi0 = apply_kernel(kernel, torch.zeros((B,), dtype=dtype, device=dev), param)
     if pd > 0:
         Pi0 = torch.where(row_mask0[..., None], poly_basis(init_sites, poly_deg), zero)
-        Q, R = _masked_householder_qr(Pi0)
+        kl = min(maxN, max(kn, pd))
+        Q = eye.repeat(B, 1, 1)
+        Q[:, :kl, :kl], R_live = _masked_householder_qr(Pi0[:, :kl])
+        R = torch.cat([R_live, Pi0[:, kl:]], 1)
     else:
         Q = eye.expand(B, maxN, maxN)
         R = torch.zeros((B, maxN, 0), dtype=dtype, device=dev)
@@ -143,15 +153,22 @@ def run_round4(X, cand, init_sites, n_init, kernel: str, param,
         else:
             row = torch.zeros((B, 0), dtype=dtype, device=dev)
             rank_ok = torch.ones_like(N, dtype=torch.bool)
-        Qg = _mv(Q, gvec)
+        # each sum runs over the live prefix only: past it every term is an
+        # exact zero of the state's structure times a finite factor (g past
+        # pd; Qg, phi_xi and Z's rows past max(N, pd) or N; v and Lv past
+        # zc), and adding +-0 to a sum that starts at +0 never changes it
+        # (the kernel's argument), so the sums keep their bits
+        kp, kn = min(maxN, max(pd, 1)), min(maxN, max(int(N.max()), 1))
+        kq, kz = min(maxN, max(kn, pd)), min(maxN, max(int(zc.max()), 1))
+        Qg = _mv(Q[..., :kp], gvec[:, :kp])
         zmask = idxN[None, :] < zc[:, None]
-        PhiQg = _mv(Phi, Qg)
-        v = torch.where(zmask, _mv(Z.transpose(-1, -2), PhiQg + phi_xi * ghat[:, None]),
-                        zero)
-        sigma = (seq_dot(Qg, PhiQg) + 2.0 * ghat * seq_dot(phi_xi, Qg)
-                 + ghat * ghat * phi0)
-        Lv = torch.where(zmask, _mv(Linv, v), zero)
-        tau2 = sigma - seq_dot(Lv, Lv)
+        PhiQg = _mv(Phi[..., :kq], Qg[:, :kq])
+        tq = PhiQg + phi_xi * ghat[:, None]
+        v = torch.where(zmask, _mv(Z.transpose(-1, -2)[..., :kn], tq[:, :kn]), zero)
+        sigma = (seq_dot(Qg[:, :kq], PhiQg[:, :kq])
+                 + 2.0 * ghat * seq_dot(phi_xi[:, :kq], Qg[:, :kq]) + ghat * ghat * phi0)
+        Lv = torch.where(zmask, _mv(Linv[..., :kz], v[:, :kz]), zero)
+        tau2 = sigma - seq_dot(Lv[:, :kz], Lv[:, :kz])
         ok = cand[:, c] & rank_ok & (tau2 > pivot2) & (N < max_points)
 
         # ---- acceptance (applied on the lanes where ok)
@@ -182,7 +199,7 @@ def run_round4(X, cand, init_sites, n_init, kernel: str, param,
             Rn = torch.where(hitN[..., None], row[:, None, :], R_rot)
         zcol = torch.where(hitN, ghat[:, None], Qg)
         Zn = torch.where(hitZ[:, None, :], zcol[:, :, None], Z)
-        linv_row = -_mv(Linv.transpose(-1, -2), Lv) / tau[:, None]
+        linv_row = -_mv(Linv.transpose(-1, -2)[..., :kz], Lv[:, :kz]) / tau[:, None]
         Linvn = torch.where(hitZ[:, :, None],
                             torch.where(zmask, linv_row, zero)[:, None, :], Linv)
         Linvn = torch.where(hitZ[:, :, None] & hitZ[:, None, :],

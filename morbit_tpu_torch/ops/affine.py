@@ -29,9 +29,10 @@ def seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     rounding per operation: the summation order of the CUDA kernels
     (``csrc/rbf_selection.cu``, ``csrc/rbf_round4.cu``, built without
     multiply-add contraction), so that twin and kernel round alike."""
-    acc = torch.zeros_like((a[..., 0] * b[..., 0]))
-    for i in range(a.shape[-1]):
-        acc = acc + a[..., i] * b[..., i]
+    prod = a * b      # each product rounded once, as a[..., i] * b[..., i]
+    acc = torch.zeros_like(prod[..., 0])
+    for i in range(prod.shape[-1]):
+        acc = acc + prod[..., i]
     return acc
 
 
@@ -47,7 +48,9 @@ def householder_q(Y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     A = Y
     idx = torch.arange(n, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    for j in range(kmax):
+    # a reflection at j >= k is the identity on every lane: stop at max(k)
+    # (one host sync)
+    for j in range(min(kmax, int(k.max()) if k.numel() else 0)):
         x = torch.where(idx >= j, A[:, :, j], zero)
         normx = torch.sqrt(seq_dot(x, x))
         sgn = torch.where(A[:, j, j] >= 0, 1.0, -1.0).to(dtype)
@@ -94,6 +97,11 @@ def affinely_independent_points(x0, seeds, seed_mask, pivot_val, n_pick,
     earlier round (round 2 continues round 1's, ``RbfModel.jl:251-265``)."""
     B, n = x0.shape
     dtype, dev = x0.dtype, x0.device
+    # rows past every lane's last seed never score: leave them out (one host
+    # sync; the scores, picks and their rows are unchanged)
+    live = seed_mask.any(0).nonzero()
+    live = int(live[-1]) + 1 if live.numel() else 1
+    seeds, seed_mask = seeds[:, :live], seed_mask[:, :live]
     shifted = (seeds - x0[:, None, :]) * seed_mask.to(dtype)[..., None]
 
     Y = torch.zeros((B, n, n), dtype=dtype, device=dev) if Y_init is None else Y_init

@@ -15,6 +15,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +30,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SMEM_LIMIT = 232_448
 
 
+class Plan(NamedTuple):
+    """How a wrapper launches its kernel at one shape: the instance, the
+    lanes one block serves, the dynamic shared memory of a block (at most
+    ``SMEM_LIMIT``), the elements of global workspace a lane needs
+    (allocated by the wrapper with ``torch.empty``; 0 for none), where an
+    instance has more than one memory layout which (``place``), and K2's
+    candidate rows staged in shared memory."""
+    instance: str
+    lanes_per_block: int
+    smem_bytes: int
+    work_elems: int = 0
+    place: int = 0
+    stage_rows: int = 0
+
+
 def nvcc() -> str:
     cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
@@ -39,48 +55,65 @@ def nvcc() -> str:
     return found
 
 
-def library_path(source: pathlib.Path, extra_flags=()) -> pathlib.Path:
-    """Where the shared library for this source, the shared headers of
-    ``csrc/`` and these flags lives."""
+def library_path(source: pathlib.Path, extra_flags=(), linked=()) -> pathlib.Path:
+    """Where the shared library for this source, the sources linked with it,
+    the shared headers of ``csrc/`` and these flags lives."""
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
+    for other in (*linked, *sorted(CSRC.glob("*.cuh"))):
+        h.update(other.read_bytes())
     h.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
-def build(source: pathlib.Path, extra_flags=()) -> tuple[pathlib.Path, str]:
+def _nvcc(args, source):
+    proc = subprocess.run([nvcc(), *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build(source: pathlib.Path, extra_flags=(), linked=()) -> tuple[pathlib.Path, str]:
     """Compile ``source`` (with ``extra_flags`` after the common ones)
-    unless its library is already built.
+    unless its library is already built. The sources of ``linked`` are
+    compiled with the common flags only and linked with it as relocatable
+    device code (``-dc``), so a device function there keeps the default
+    multiply-add contraction that ``extra_flags`` may turn off.
 
     Returns the library path and the compiler's output, which lists each
     kernel instance's registers and spills (empty when the library
     existed). The build writes to a temporary name and renames, so
     concurrent processes never load a half-written file."""
-    out = library_path(source, extra_flags)
+    out = library_path(source, extra_flags, linked)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    objs = [f"{tmp}.{k}.o" for k in range(1 + len(linked))]
     try:
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
-                               str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+        if not linked:
+            log = _nvcc([*NVCC_FLAGS, *extra_flags, "-o", tmp, str(source)], source)
+        else:
+            common = [f for f in NVCC_FLAGS if f != "-shared"]
+            log = "".join(_nvcc([*common, *flags, "-dc", "-o", obj, str(src)], src)
+                          for obj, (src, flags) in zip(
+                              objs, ((source, extra_flags), *((s, ()) for s in linked))))
+            log += _nvcc([*NVCC_FLAGS[:2], "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
+                          *objs], source)
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+        for path in (tmp, *objs):
+            if os.path.exists(path):
+                os.unlink(path)
+    return out, log
 
 
-def load(source: pathlib.Path, signatures: dict, extra_flags=()) -> ctypes.CDLL:
-    """Build ``source`` if needed and load it; ``signatures`` maps each
-    exported function to its ``argtypes`` (a launch, returning its
-    ``cudaError_t`` as an int) or to ``(argtypes, restype)``."""
-    path, _ = build(source, extra_flags)
+def load(source: pathlib.Path, signatures: dict, extra_flags=(), linked=()) -> ctypes.CDLL:
+    """Build ``source`` (and ``linked``, as :func:`build`) if needed and
+    load it; ``signatures`` maps each exported function to its
+    ``argtypes`` (a launch, returning its ``cudaError_t`` as an int) or to
+    ``(argtypes, restype)``."""
+    path, _ = build(source, extra_flags, linked)
     lib = ctypes.CDLL(str(path))
     for name, spec in signatures.items():
         argtypes, restype = spec if isinstance(spec, tuple) else (spec, ctypes.c_int)
@@ -122,3 +155,23 @@ def stream_of(t) -> ctypes.c_void_p:
     """PyTorch's current stream on ``t``'s device."""
     with torch.cuda.device(t.device):
         return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+#: cudaErrorMemoryAllocation: among other things, a launch whose local
+#: memory (the stack frames ptxas reports, reserved for every thread the
+#: card can hold) the driver could not allocate
+CUDA_ERROR_MEMORY_ALLOCATION = 2
+
+
+def launch(kernel: str, call) -> None:
+    """Run ``call``, a C launcher that returns a ``cudaError_t``. A launch
+    the driver found no memory for, while PyTorch's caching allocator held
+    the card's free memory, is made once more after the cached blocks are
+    released (the failed launch ran nothing); any other error, or a second
+    failure, raises."""
+    err = call()
+    if err == CUDA_ERROR_MEMORY_ALLOCATION:
+        torch.cuda.empty_cache()
+        err = call()
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")

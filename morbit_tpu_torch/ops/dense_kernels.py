@@ -6,7 +6,8 @@ axis:
 
 * :func:`rbf_gram_matrix` — the masked, identity-padded RBF Gram matrix of
   ``sites`` (B, P, n), the Pallas kernel ``rbf_gram_matrix`` (:71). CUDA
-  tensors launch ``csrc/rbf_gram.cu``; CPU tensors take
+  tensors launch ``csrc/rbf_gram.cu`` (at every (P, n): :func:`gram_plan`);
+  CPU tensors take
   :func:`rbf_gram_matrix_plain`, the Pallas body in plain torch. ``fit_rbf``
   routes float32 fits with ``P >= 128`` here (the wide-n path).
 * :func:`admm_iterations` — ``iters`` OSQP splitting steps with the KKT
@@ -43,7 +44,8 @@ admm_iterations_launches = 0
 
 _SIGNATURES = {
     GRAM_SOURCE: {f"rbf_gram_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                  + [ctypes.c_double] * 2 + [ctypes.c_void_p] for t in ("f32", "f64")},
+                  + [ctypes.c_double] * 2 + [ctypes.c_int, ctypes.c_void_p]
+                  for t in ("f32", "f64")},
     ADMM_ITERATIONS_SOURCE: {
         f"admm_iterations_{t}": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
         + [ctypes.c_double] * 2
@@ -94,18 +96,32 @@ def gram_smem_bytes(P: int, n: int, itemsize: int) -> int:
     return itemsize * (rows * ld + rows + 8 * 32 * 33) + rows
 
 
+#: warps of a block of K4 (``WARPS``) and the padded stride of the tiled
+#: instance's staged chunks of 16 coordinates (``TLDC``)
+GRAM_WARPS, GRAM_TILED_LD = 8, 20
+
+
+def gram_plan(P: int, n: int, itemsize: int) -> cuda_build.Plan:
+    """The launch of K4 at (P, n), one 256-thread block per lane: the
+    staged instance where the lane's sites fit a block's shared memory
+    (:func:`gram_smem_bytes`); elsewhere the tiled instance, each warp
+    staging its tile's two 32-row site tiles 16 coordinates at a time
+    (``gram_tiled_smem_bytes`` in the source)."""
+    smem = gram_smem_bytes(P, n, itemsize)
+    if smem <= cuda_build.SMEM_LIMIT:
+        return cuda_build.Plan("staged", 1, smem)
+    return cuda_build.Plan("tiled", 1, itemsize * GRAM_WARPS * (
+        2 * 32 * GRAM_TILED_LD + 32 * 33 + 32))
+
+
 def rbf_gram_cuda(sites, mask, kernel: str, param):
     """Launch the ``rbf_gram`` kernel on the current stream (one block per
-    lane; the lane's sites must fit in shared memory). Returns a (B, P, P)
-    view of a (B, P, ldo) buffer whose rows are padded to a multiple of 8
-    values."""
+    lane, as :func:`gram_plan` plans it). Returns a (B, P, P) view of a
+    (B, P, ldo) buffer whose rows are padded to a multiple of 8 values."""
     global gram_launches
     B, P, n = sites.shape
     dt = cuda_build.float_dtype("rbf_gram", sites)
-    if gram_smem_bytes(P, n, sites.element_size()) > cuda_build.SMEM_LIMIT:
-        raise NotImplementedError(
-            f"rbf_gram kernel takes a lane's sites within {cuda_build.SMEM_LIMIT} "
-            f"bytes of shared memory, got P={P}, n={n} at {dt}")
+    plan = gram_plan(P, n, sites.element_size())
     param_t = (torch.full((B,), float(param), dtype=dt, device=sites.device)
                if isinstance(param, (int, float)) else param.contiguous())
     cuda_build.check_args("rbf_gram", sites.device, {
@@ -119,10 +135,9 @@ def rbf_gram_cuda(sites, mask, kernel: str, param):
     fn = getattr(_library(GRAM_SOURCE), "rbf_gram_f32" if dt == torch.float32
                  else "rbf_gram_f64")
     p = cuda_build.ptr
-    err = fn(p(sites), p(mask), p(param_t), p(out), B, P, n, ldo, KERNEL_ID[kernel],
-             exponent, coef, cuda_build.stream_of(sites))
-    if err != 0:
-        raise RuntimeError(f"rbf_gram kernel launch failed: cudaError_t {err}")
+    cuda_build.launch("rbf_gram", lambda: fn(
+        p(sites), p(mask), p(param_t), p(out), B, P, n, ldo, KERNEL_ID[kernel],
+        exponent, coef, int(plan.instance == "tiled"), cuda_build.stream_of(sites)))
     gram_launches += 1
     return out[:, :, :P]
 
@@ -205,12 +220,11 @@ def admm_iterations_cuda(Minv, A, rho, q, l, u, z0, zz0, y0, *, iters: int,
     fn = getattr(_library(ADMM_ITERATIONS_SOURCE),
                  "admm_iterations_f32" if dt == torch.float32 else "admm_iterations_f64")
     p = cuda_build.ptr
-    err = fn(p(Minv), p(A), p(rho), p(q), p(l), p(u), p(z0), p(zz0), p(y0), p(z),
-             p(zz), p(y), B, n, m, iters, sigma, alpha,
-             admm_iterations_lanes(n, m, A.element_size()), smem, cuda_build.SMEM_LIMIT,
-             cuda_build.stream_of(A))
-    if err != 0:
-        raise RuntimeError(f"admm_iterations kernel launch failed: cudaError_t {err}")
+    cuda_build.launch("admm_iterations", lambda: fn(
+        p(Minv), p(A), p(rho), p(q), p(l), p(u), p(z0), p(zz0), p(y0), p(z),
+        p(zz), p(y), B, n, m, iters, sigma, alpha,
+        admm_iterations_lanes(n, m, A.element_size()), smem, cuda_build.SMEM_LIMIT,
+        cuda_build.stream_of(A)))
     admm_iterations_launches += 1
     return z, zz, y
 

@@ -7,8 +7,11 @@ batch of tiny QPs and returns ``(z, zz, y)``:
 * on CUDA tensors it launches the hand-written kernel in
   ``morbit_tpu_torch/csrc/qp_admm.cu`` (every stage and splitting step in
   one launch: one thread per lane at the main paths' shapes, one warp per
-  lane working from shared memory at every other shape), built with
-  ``nvcc`` at first use into ``build/kernels/`` and loaded with ``ctypes``;
+  lane working from shared memory up to nv = 32, m = 64, and above that one
+  warp per lane with its variables and rows strided over the warp, its
+  matrices in shared memory or, where a lane does not fit, in a workspace:
+  :func:`admm_plan`), built with ``nvcc`` at first use into
+  ``build/kernels/`` and loaded with ``ctypes``;
 * on CPU tensors it runs :func:`admm_stages_plain`, the batched torch
   version of the JAX package's ``_make_stage`` loop (``ops/qp.py:40-110``).
 
@@ -34,14 +37,17 @@ from morbit_tpu_torch.ops.batched_linalg import (GJ_MAX_K, chol_factor,
                                                  chol_solve)
 from morbit_tpu_torch.utils.tree import lane_where
 
-#: largest problem the kernel takes (a lane's variables and its rows spread
-#: over one warp, two rows a thread; the 30-variable descent LP with three
-#: objectives has nv = 31, m = 63)
-MAX_NV, MAX_M = 32, 64
+#: largest shape of the warp instance (a lane's variables and its rows spread
+#: over one warp, two rows a thread); the strided instance takes every other
+WARP_MAX_NV, WARP_MAX_M = 32, 64
 #: shapes of the one-thread-per-lane register instances
 REGISTER_SHAPES = ((3, 6), (4, 8))
-#: lanes (warps) in a block of the wide instance (``kLanesPerBlock``)
+#: lanes (warps) in a block of the warp instance (``kLanesPerBlock``)
 ADMM_LANES_PER_BLOCK = 4
+#: lanes a block of the strided instance may take, in order of preference
+STRIDED_LANES = (4, 2, 1)
+#: the instances' codes in the C launcher
+_INSTANCES = {"register": 0, "warp": 1, "strided": 2}
 #: infinite bounds become +-BIG inside the kernel (identical clip behavior)
 BIG = 1e30
 
@@ -158,23 +164,52 @@ def build():
     return cuda_build.build(SOURCE)
 
 
-def admm_smem_bytes(nv: int, m: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block of the kernel at (nv, m): 0 for
-    the register instances; for the wide instance ``ADMM_LANES_PER_BLOCK``
-    lanes of A (m x nv), P and two nv x nv stage matrices with rows padded
-    to an odd stride, and six vectors (``wide_layout`` in the source)."""
-    if (nv, m) in REGISTER_SHAPES:
-        return 0
+def _strided_lane(nv: int, m: int, place: int) -> tuple[int, int]:
+    """A lane's matrix and vector elements in the strided instance
+    (``strided_layout`` in the source): at place 0 A, P and the two stage
+    matrices, rows padded to an odd stride; elsewhere the stage matrices
+    only (A and P are read from the inputs); and seven vectors of m and four
+    of nv."""
     ld = nv | 1
-    lane = (m + 3 * nv) * ld + 3 * m + 3 * nv
-    return ADMM_LANES_PER_BLOCK * lane * itemsize
+    mat = (m + 3 * nv) * ld if place == 0 else 2 * nv * ld
+    return mat, 7 * m + 4 * nv
+
+
+def admm_plan(nv: int, m: int, itemsize: int) -> cuda_build.Plan:
+    """The launch at (nv, m): the register instances at their shapes (one
+    thread a lane, 128 lanes a block); the warp instance up to
+    ``WARP_MAX_NV`` x ``WARP_MAX_M`` where its block fits (four lanes a
+    block; A (m x nv), P and two nv x nv stage matrices with rows padded to
+    an odd stride, and six vectors, ``wide_layout`` in the source); every
+    other shape the strided instance, with as many lanes of
+    ``STRIDED_LANES`` as fit a block's shared memory: the whole lane there
+    (place 0), else its vectors only with the stage matrices in the
+    workspace (place 1), else nothing there (place 2, four lanes a
+    block)."""
+    if (nv, m) in REGISTER_SHAPES:
+        return cuda_build.Plan("register", 128, 0)
+    if nv <= WARP_MAX_NV and 1 <= m <= WARP_MAX_M:
+        ld = nv | 1
+        smem = ADMM_LANES_PER_BLOCK * ((m + 3 * nv) * ld + 3 * m + 3 * nv) * itemsize
+        if smem <= cuda_build.SMEM_LIMIT:
+            return cuda_build.Plan("warp", ADMM_LANES_PER_BLOCK, smem)
+    mat, vec = _strided_lane(nv, m, 0)
+    for lanes in STRIDED_LANES:
+        if lanes * (mat + vec) * itemsize <= cuda_build.SMEM_LIMIT:
+            return cuda_build.Plan("strided", lanes, lanes * (mat + vec) * itemsize)
+    mat, vec = _strided_lane(nv, m, 1)
+    for lanes in STRIDED_LANES:
+        if lanes * vec * itemsize <= cuda_build.SMEM_LIMIT:
+            return cuda_build.Plan("strided", lanes, lanes * vec * itemsize, mat, 1)
+    return cuda_build.Plan("strided", STRIDED_LANES[0], 0, mat + vec, 2)
 
 
 def _library():
     global _lib
     if _lib is None:
         argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                    + [ctypes.c_double] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
+                    + [ctypes.c_double] * 4 + [ctypes.c_int] * 3
+                    + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
         # the exit instances take the stages buffer after y, exit_eps after rho_hi
         exit_types = argtypes[:9] + [ctypes.c_void_p] + argtypes[9:18] \
             + [ctypes.c_double] + argtypes[18:]
@@ -211,11 +246,7 @@ def _launch(P, q, A, l, u, rho0, n_stages, n_steps, sigma, alpha, rho_lo, rho_hi
     B, nv = q.shape
     m = A.shape[-2]
     dt = cuda_build.float_dtype("qp_admm", q)
-    smem = admm_smem_bytes(nv, m, q.element_size())
-    if nv > MAX_NV or m > MAX_M or smem > cuda_build.SMEM_LIMIT:
-        raise NotImplementedError(
-            f"qp_admm kernel takes nv <= {MAX_NV} and m <= {MAX_M} within "
-            f"{cuda_build.SMEM_LIMIT} bytes of shared memory, got nv={nv}, m={m}")
+    plan = admm_plan(nv, m, q.element_size())
     cuda_build.check_args("qp_admm", q.device, {
         "P": (P, (B, nv, nv), dt), "q": (q, (B, nv), dt), "A": (A, (B, m, nv), dt),
         "l": (l, (B, m), dt), "u": (u, (B, m), dt), "rho0": (rho0, (B, m), dt)})
@@ -224,20 +255,21 @@ def _launch(P, q, A, l, u, rho0, n_stages, n_steps, sigma, alpha, rho_lo, rho_hi
     z = torch.empty_like(q)
     zz = torch.empty_like(l)
     y = torch.empty_like(l)
+    work = torch.empty((B * plan.work_elems,), dtype=dt, device=q.device)
     ptr = cuda_build.ptr
     head = (ptr(P), ptr(q), ptr(A), ptr(l_s), ptr(u_s), ptr(rho0), ptr(z), ptr(zz), ptr(y))
     dims = (B, nv, m, n_stages, n_steps, sigma, alpha, rho_lo, rho_hi)
+    tail = (_INSTANCES[plan.instance], plan.lanes_per_block, plan.place, plan.smem_bytes,
+            ptr(work) if plan.work_elems else None, cuda_build.stream_of(q))
     t = "f32" if dt == torch.float32 else "f64"
     if exit_eps:
         stages = torch.empty((B,), dtype=torch.int32, device=q.device)
-        err = getattr(_library(), f"qp_admm_exit_{t}")(
-            *head, ptr(stages), *dims, exit_eps, smem, cuda_build.stream_of(q))
+        cuda_build.launch("qp_admm", lambda: getattr(_library(), f"qp_admm_exit_{t}")(
+            *head, ptr(stages), *dims, exit_eps, *tail))
     else:
         stages = None
-        err = getattr(_library(), f"qp_admm_{t}")(*head, *dims, smem,
-                                                  cuda_build.stream_of(q))
-    if err != 0:
-        raise RuntimeError(f"qp_admm kernel launch failed: cudaError_t {err}")
+        cuda_build.launch("qp_admm", lambda: getattr(_library(), f"qp_admm_{t}")(
+            *head, *dims, *tail))
     launches += 1
     return z, zz, y, stages
 

@@ -239,6 +239,12 @@ def _eval_param(fit: RbfFit, kernel: str, param):
     return fit.param
 
 
+#: elements of the (B, K, P, n) differences that :func:`eval_rbf` forms at
+#: once: a larger K is taken in slices of query sites (the backtracking
+#: ladder of the 50-variable ZDT path at B=1024 would take ~17 GB at once)
+EVAL_CHUNK_ELEMS = 1 << 28
+
+
 def _sites_axes(fit: RbfFit, X: torch.Tensor):
     """Flatten query sites ``X (B, ..., n)`` to (B, K, n) and return the
     differences ``s_i - x`` (B, K, P, n) and their squared norms."""
@@ -248,10 +254,23 @@ def _sites_axes(fit: RbfFit, X: torch.Tensor):
     return Xf, d, torch.sum(d * d, dim=-1)
 
 
+def _sq_dists(fit: RbfFit, Xf: torch.Tensor) -> torch.Tensor:
+    """(B, K, P) squared norms of ``s_i - x``, the differences formed a
+    slice of query sites at a time within ``EVAL_CHUNK_ELEMS``; each entry
+    is the same torch expression as in :func:`_sites_axes`."""
+    B, K, n = Xf.shape
+    step = max(1, EVAL_CHUNK_ELEMS // max(1, B * fit.sites.shape[1] * n))
+    if K <= step:
+        return _sites_axes(fit, Xf)[2]
+    return torch.cat([_sites_axes(fit, Xf[:, k:k + step])[2] for k in range(0, K, step)],
+                     dim=1)
+
+
 def eval_rbf(fit: RbfFit, X: torch.Tensor, kernel: str, poly_deg: int,
              param=None) -> torch.Tensor:
     """Model values at scaled sites ``X (B, ..., n)`` -> ``(B, ..., m)``."""
-    Xf, _, r2 = _sites_axes(fit, X)
+    Xf = X.reshape(X.shape[0], -1, X.shape[-1])
+    r2 = _sq_dists(fit, Xf)
     phi = apply_kernel(kernel, r2, _eval_param(fit, kernel, param))
     phi = torch.where(fit.mask[:, None, :], phi, torch.zeros_like(phi))
     out = lane_matmul(phi, fit.w)                      # (B, K, m)

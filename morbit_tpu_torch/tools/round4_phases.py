@@ -51,11 +51,13 @@ _SLOTS = 16
 
 
 def instrument(src: str) -> str:
-    """The source with the probes in the wide kernel; the end before its
-    final write of N, the tested and accepted candidates counted at the
-    test and accept marks."""
+    """The source with the probes in the wide kernel's lane code (the
+    device function ``round4_wide_lane`` where the source has one, else the
+    kernel); the end before its final write of N, the tested and accepted
+    candidates counted at the test and accept marks."""
+    body = "round4_wide_lane" if "round4_wide_lane(" in src else "rbf_round4_wide_kernel"
     return _clock_probe.instrument(
-        src, "rbf_round4_wide_kernel", tuple(a for a, _ in _ANCHORS),
+        src, body, tuple(a for a, _ in _ANCHORS),
         end=r"^(?!.*return).*N_out\[b\] = N;\s*$", include='#include "rbf_phi.cuh"',
         name="round4", leader="threadIdx.x == 0", slot="blockIdx.x", slots=_SLOTS,
         counted=(PHASES.index("test"), PHASES.index("accept")), required=3)
@@ -151,21 +153,25 @@ def phases_here(inputs) -> list:
     lib = _clock_probe.build(instrument(src.read_text()), "round4", cuda_build,
                              prepare_fused._SIGNATURES[src],
                              (*prepare_fused.NO_FMA, "-I", str(cuda_build.CSRC)))
-    built = prepare_fused._library(prepare_fused.ROUND4_SOURCE)
     rows = []
     for dtype in (torch.float32, torch.float64):
+        # the library's cache key: the source, or (source, dtype) where a
+        # checkout builds K3 per dtype (its float64 build links a pow, which
+        # the probe's build inlines: see same_as_unprobed)
+        key = ((src, dtype) if dtype == torch.float64
+               and hasattr(prepare_fused, "ROUND4_F64_FLAGS") else src)
         sets = (load_round4(inputs, dtype) if inputs else []) + [random_wide(dtype)]
         for name, args, kw in sets:
             B = args[0].shape[0]
-            prepare_fused._libs[prepare_fused.ROUND4_SOURCE] = built
             acc, N = prepare_fused.round4_cuda(*args, **kw)
+            built = prepare_fused._libs[key]
             ms = cs.event_ms(lambda: prepare_fused.round4_cuda(*args, **kw), 5)
             prof = torch.zeros((B, _SLOTS), dtype=torch.int64, device="cuda")
             _clock_probe.attach(lib, "round4", prof)
-            prepare_fused._libs[prepare_fused.ROUND4_SOURCE] = lib
+            prepare_fused._libs[key] = lib
             acc_p, N_p = prepare_fused.round4_cuda(*args, **kw)
             probed_ms = cs.event_ms(lambda: prepare_fused.round4_cuda(*args, **kw), 3)
-            prepare_fused._libs[prepare_fused.ROUND4_SOURCE] = built
+            prepare_fused._libs[key] = built
             torch.cuda.synchronize()
             p = prof.cpu()
             k = len(PHASES)

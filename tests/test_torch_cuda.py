@@ -6,6 +6,8 @@ has only PyTorch: ``python3 -m pytest --noconftest tests/test_torch_cuda.py``
 skips: a hand-written CUDA kernel has no CPU mode.
 """
 
+import unittest.mock
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,12 @@ from chip_smoke import (K5_EDGES, ROUND4_EDGES, SEL_NAMES, SEL_STATICS,
                         selection_lattice_case)
 from morbit_tpu_torch.ops import qp_lane
 from morbit_tpu_torch.ops.qp import _rho_vec
+
+
+#: K1's shapes past its warp instance: ZDT1's steepest-descent LP (nv = n+1,
+#: m = 2n + 2) at n = 32, 50, 64, 80 and at n = 30 with three linear rows
+WIDE_LPS = {"wide3165": (31, 65), "wide3366": (33, 66), "wide51102": (51, 102),
+            "wide65130": (65, 130), "wide81162": (81, 162)}
 
 
 @pytest.fixture
@@ -32,13 +40,17 @@ def cuda():
 @pytest.mark.parametrize("problem", ["random36", "random48", "descent36", "random2142",
                                      "B1000_2142", "B1000_3264", "B1000_510",
                                      "B1000_12", "descent38", "descent38_eq",
-                                     "normal411", "normal411_eq"])
+                                     "normal411", "normal411_eq", *WIDE_LPS])
 def test_kernel_matches_twin(cuda, problem, dtype, tol):
     """K1 against its twin. The warp-per-lane instance also at its edges:
     two constraint rows a thread (m > 32), the largest shape, nv = 1, and
     B = 1000, not a multiple of the four lanes in a block; and at the
     constrained path's LPs: the descent LP with constraint rows (3, 8) and
-    the normal-step LP (4, 11), each also with an equality row."""
+    the normal-step LP (4, 11), each also with an equality row. The strided
+    instance at ``WIDE_LPS``, B = 16: the shapes past the warp instance
+    of ZDT1 at n = 30 with three linear rows (31, 65), at n = 32 (33, 66),
+    n = 50 (51, 102), n = 64 (65, 130) and n = 80 (81, 162, its stage
+    matrices in the workspace at float64), each lane within ``lane_limits``."""
     arrays = {"random36": lambda: random_qps(1024, 3, 6, 0),
               "random48": lambda: random_qps(1024, 4, 8, 1),
               "descent36": lambda: descent_lps(1024, 2),
@@ -51,7 +63,9 @@ def test_kernel_matches_twin(cuda, problem, dtype, tol):
               "descent38": lambda: constrained_lps(1024, "descent_con", 40),
               "descent38_eq": lambda: constrained_lps(1024, "descent_con_eq", 41),
               "normal411": lambda: constrained_lps(1024, "normal", 42),
-              "normal411_eq": lambda: constrained_lps(1024, "normal_eq", 43)}[problem]()
+              "normal411_eq": lambda: constrained_lps(1024, "normal_eq", 43),
+              **{k: lambda k=k: random_qps(16, *WIDE_LPS[k], 60 + WIDE_LPS[k][0])
+                 for k in WIDE_LPS}}[problem]()
     P, q, A, lo, hi = (torch.as_tensor(a, dtype=dtype, device=cuda)
                        for a in arrays)
     r = A.abs().amax(-1)
@@ -65,7 +79,7 @@ def test_kernel_matches_twin(cuda, problem, dtype, tol):
     zp, _, _ = qp_lane.admm_stages_plain(P, q, A, lo, hi, rho0, **kw)
     torch.cuda.synchronize()
     assert qp_lane.launches == before + 1
-    if problem.startswith(("descent38", "normal411")):
+    if problem.startswith(("descent38", "normal411", "wide")):
         # LPs whose unconverged lanes amplify rounding: each lane held, as
         # in chip_smoke.py kernel_admm, to ten times its own one-ulp
         # sensitivity where that exceeds the fixed tolerance
@@ -124,6 +138,84 @@ def test_selection_kernel_matches_twin(cuda, n, cap, kind, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,cap,kind", [(33, 600, "random"), (50, 1000, "random"),
+                                        (50, 600, "lattice"), (64, 300, "random")])
+def test_selection_wide_kernel_matches_twin(cuda, n, cap, kind, dtype):
+    """K2's wide instance (n > 32; at n = 64 float64 its matrices in the
+    workspace) against its twin at B = 16: every output equal on every
+    lane, floats to the bit, as for the block instance."""
+    from morbit_tpu_torch.ops import prepare_fused
+    from morbit_tpu_torch.ops.prepare_coord import rbf_selection_core
+
+    make = selection_case if kind == "random" else selection_lattice_case
+    case = make(np.random.default_rng(n + cap), 16, cap, n, "mixed")
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    i = lambda a: torch.as_tensor(a, dtype=torch.int32, device=cuda)
+    X, count, x_s, x_index, delta, lb, ub, max_new, efl = case
+    args = (f(X), i(count), f(x_s), i(x_index), f(delta), f(lb), f(ub), i(max_new),
+            torch.as_tensor(efl, device=cuda))
+    assert prepare_fused.selection_plan(n, torch.finfo(dtype).bits // 8).instance == "wide"
+    before = prepare_fused.selection_launches
+    k = prepare_fused.selection(*args, **SEL_STATICS)
+    t = rbf_selection_core(*args, **SEL_STATICS)
+    torch.cuda.synchronize()
+    assert prepare_fused.selection_launches == before + 1
+    if kind == "random":
+        assert int(t[1].max()) > 1     # lanes pick more than one site
+    for name, a, b in zip(SEL_NAMES, k, t):
+        if a.is_floating_point():
+            assert bool(((a == b) | (a.isnan() & b.isnan())).all()), name
+        else:
+            assert torch.equal(a, b), name
+
+
+#: K3's shapes past its block instance (max_points, n, candidate columns):
+#: the default RBF's max_points (n+1)(n+2)/2 at n = 32 and n = 50,
+#: ``max_model_points=600`` at n = 10, pd > max_points at n = 50, and
+#: n = 120 (its shared vectors in the workspace at float64)
+ROUND4_SLOT_CASES = ((561, 32, 300), (1326, 50, 200), (600, 10, 300), (40, 50, 200),
+                     (200, 120, 150))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("maxN,n,C", ROUND4_SLOT_CASES)
+def test_round4_slots_kernel_matches_twin(cuda, maxN, n, C, dtype):
+    """K3's slot instance against its twin at B = 8, the lanes looped over
+    three slots (``slots=3``) and on the card's resident blocks (a slot a
+    lane): the same acceptances on every lane, rejections present; and the
+    wrapper's plan sizes a slot as the source does."""
+    from morbit_tpu_torch.models.rbf_round4 import run_round4
+    from morbit_tpu_torch.ops import prepare_fused
+
+    item = torch.finfo(dtype).bits // 8
+    plan = prepare_fused.round4_plan(maxN, n, n + 1, item)
+    assert plan.instance == "slots"
+    lib = prepare_fused._library(prepare_fused.ROUND4_SOURCE)
+    assert plan.work_elems == lib.rbf_round4_slot_lane_elems(maxN, n, n + 1, plan.place)
+    X, cand, init, count, _ = round4_case(np.random.default_rng(maxN + n), 8, C, n,
+                                          maxN, 0.2, width=maxN + n)
+    count = np.minimum(count, np.random.default_rng(n).integers(1, 3 * n, 8)).astype(np.int32)
+    init = np.where((np.arange(maxN + n)[None, :] < count[:, None])[..., None], init, 0.0)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    args = (f(X), torch.as_tensor(cand, device=cuda), f(init),
+            torch.as_tensor(count, dtype=torch.int32, device=cuda))
+    kw = dict(kernel="cubic", param=3, poly_deg=1, max_points=maxN, chol_pivot=1e-7)
+    before = prepare_fused.round4_launches
+    acc_k, N_k = prepare_fused.round4_cuda(*args, **kw, slots=3)
+    acc_r, N_r = prepare_fused.round4_cuda(*args, **kw)   # a slot a lane
+    acc_t, N_t = run_round4(*args, **kw)
+    torch.cuda.synchronize()
+    assert prepare_fused.round4_launches == before + 2
+    assert torch.equal(N_k, N_t) and torch.equal(acc_k, acc_t)
+    assert torch.equal(N_r, N_t) and torch.equal(acc_r, acc_t)
+    assert int(acc_t.sum()) > 0
+    tested = args[1] & (torch.cumsum(acc_t.int(), -1) < maxN - args[3][:, None])
+    assert bool((tested & ~acc_t).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kernel,deg", [("multiquadric", 1), ("cubic", 1),
                                         ("multiquadric", 0)])
 def test_round4_kernel_matches_twin(cuda, kernel, deg, dtype):
@@ -146,6 +238,32 @@ def test_round4_kernel_matches_twin(cuda, kernel, deg, dtype):
     assert prepare_fused.round4_launches == before + 1
     assert torch.equal(N_k, N_t) and torch.equal(acc_k, acc_t)
     assert int(N_t.min()) < 6
+
+
+@pytest.mark.cuda
+def test_round4_launch_releases_cached_memory(cuda):
+    """A K3 launch whose local memory the driver cannot reserve while
+    PyTorch's cache holds the card's free memory runs once the wrapper has
+    released the cache: the float64 thread instance (a stack frame of ~30 KB
+    a thread, ~8 GB for the card) with all but 1 GiB of the card cached.
+    (Where an earlier launch in the process reserved that memory already,
+    the first launch succeeds.)"""
+    from morbit_tpu_torch.models.rbf_round4 import run_round4
+    from morbit_tpu_torch.ops import prepare_fused
+
+    free, _ = torch.cuda.mem_get_info()
+    held = torch.empty((max(free - (1 << 30), 0),), dtype=torch.uint8, device=cuda)
+    del held                       # back in PyTorch's cache, not freed
+    X, cand, init, count, param = round4_case(np.random.default_rng(11), 1024, 60,
+                                              2, 6, 0.4)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=cuda)
+    args = (f(X), torch.as_tensor(cand, device=cuda), f(init),
+            torch.as_tensor(count, dtype=torch.int32, device=cuda))
+    kw = dict(kernel="multiquadric", param=f(param), poly_deg=0, max_points=6,
+              chol_pivot=0.3)
+    acc_k, N_k = prepare_fused.round4_cuda(*args, **kw)
+    acc_t, N_t = run_round4(*args, **kw)
+    assert torch.equal(N_k, N_t) and torch.equal(acc_k, acc_t)
 
 
 @pytest.mark.cuda
@@ -244,6 +362,38 @@ def test_gram_kernel_edges_match_twin(cuda, P, n, kernel, dtype, tol):
     torch.cuda.synchronize()
     assert float((k - t).abs().max()) <= tol * float(t.abs().max())
     assert torch.equal(k, k.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("P,n,kernel", [(1326, 50, "cubic"), (1081, 45, "cubic"),
+                                        (1081, 45, "gaussian")])
+def test_gram_tiled_kernel_matches_twin(cuda, P, n, kernel, dtype, tol):
+    """K4's tiled instance (a lane's sites past a block's shared memory:
+    the fits of ZDT1 at n = 50 and n = 45) against its twin at B = 4 within
+    tol * max|Phi|, exactly symmetric, and equal to the bit to the staged
+    instance on the sites' leading 256 rows where both take them."""
+    from morbit_tpu_torch.ops import dense_kernels
+    from morbit_tpu_torch.ops.rbf import EXPONENT_KERNELS, kernel_default_param
+
+    item = torch.finfo(dtype).bits // 8
+    assert dense_kernels.gram_plan(P, n, item).instance == "tiled"
+    sites, mask, param = gram_case(np.random.default_rng(P + n), 4, P, n)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    par = kernel_default_param(kernel) if kernel in EXPONENT_KERNELS else f(param)
+    args = (f(sites), torch.as_tensor(mask, device=cuda), kernel, par)
+    before = dense_kernels.gram_launches
+    k = dense_kernels.rbf_gram_matrix(*args)
+    t = dense_kernels.rbf_gram_matrix_plain(*args)
+    torch.cuda.synchronize()
+    assert dense_kernels.gram_launches == before + 1
+    assert float((k - t).abs().max()) <= tol * float(t.abs().max())
+    assert torch.equal(k, k.transpose(1, 2))
+    head = (args[0][:, :256].contiguous(), args[1][:, :256].contiguous(), kernel, par)
+    with unittest.mock.patch.object(dense_kernels.cuda_build, "SMEM_LIMIT", 0):
+        tiled = dense_kernels.rbf_gram_matrix(*head)
+    assert dense_kernels.gram_plan(256, n, item).instance == "staged"
+    assert torch.equal(tiled, dense_kernels.rbf_gram_matrix(*head))
 
 
 @pytest.mark.cuda
@@ -351,7 +501,8 @@ def test_option_card_matches_cpu(cuda, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 2e-3)])
-@pytest.mark.parametrize("problem", ["random36", "random48", "descent36", "B1000_2142"])
+@pytest.mark.parametrize("problem", ["random36", "random48", "descent36", "B1000_2142",
+                                     *WIDE_LPS])
 def test_exit_kernel_matches_twin(cuda, problem, dtype, tol):
     """K1's exit instance (``exit_eps`` 1e-5) against its twin: each lane
     runs the twin's count of stages unless the twin's own decision moves
@@ -366,7 +517,9 @@ def test_exit_kernel_matches_twin(cuda, problem, dtype, tol):
     arrays = {"random36": lambda: random_qps(1024, 3, 6, 0),
               "random48": lambda: random_qps(1024, 4, 8, 1),
               "descent36": lambda: descent_lps(1024, 2),
-              "B1000_2142": lambda: random_qps(1000, 21, 42, 24)}[problem]()
+              "B1000_2142": lambda: random_qps(1000, 21, 42, 24),
+              **{k: lambda k=k: random_qps(16, *WIDE_LPS[k], 60 + WIDE_LPS[k][0])
+                 for k in WIDE_LPS}}[problem]()
     P, q, A, lo, hi = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in arrays)
     r = A.abs().amax(-1)
     A, lo, hi = (A / r[..., None]).contiguous(), lo / r, hi / r

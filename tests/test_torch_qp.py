@@ -109,8 +109,12 @@ def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
 
 
 def test_kernel_refuses_wide_problems():
+    """K1 takes every shape: past its warp instance (nv = 33) the wrapper
+    plans the strided instance and refuses only the CPU tensors it was
+    given, never the size."""
     P, q, A, lo, hi = (torch.as_tensor(a) for a in _lps(2, 33, 36))
-    with pytest.raises(NotImplementedError, match="nv=33"):
+    assert qp_lane.admm_plan(33, 36, 8).instance == "strided"
+    with pytest.raises(ValueError, match="cuda"):
         qp_lane.admm_stages_cuda(P, q, A, lo, hi, _rho_vec(lo, hi, 0.1),
                                  n_stages=1, n_steps=1, sigma=1e-6,
                                  alpha=1.6, rho_lo=1e-6, rho_hi=1e6)

@@ -208,14 +208,14 @@ def test_zdt_rbf_quality_envelope(name):
 
 
 def _beyond_limits(kernel):
-    """A call that is past the kernel's limit by one (on CPU tensors: the
-    wrappers check the sizes before the device)."""
+    """A call on CPU tensors past the kernel's limit by one (K5), or past
+    the limit K1-K4 had before they took every shape."""
     from morbit_tpu_torch.ops import prepare_fused
 
     z = lambda *shape: torch.zeros(shape)
     i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
     if kernel == "selection":
-        n = prepare_fused.SELECTION_MAX_N + 1
+        n = prepare_fused.SELECTION_BLOCK_MAX_N + 1
         return lambda: prepare_fused.selection_cuda(
             z(1, 4, n), i32(1), z(1, n), i32(1), z(1), z(1, n), z(1, n), i32(1),
             torch.zeros(1, dtype=bool), theta_e1=2.0, theta_e2_dmax=1.0,
@@ -228,7 +228,7 @@ def _beyond_limits(kernel):
     if kernel == "admm_rows":
         from morbit_tpu_torch.ops import qp_lane
 
-        nv, m = 2, qp_lane.MAX_M + 1
+        nv, m = 2, qp_lane.WARP_MAX_M + 1
         return lambda: qp_lane.admm_stages_cuda(
             z(1, nv, nv), z(1, nv), z(1, m, nv), z(1, m), z(1, m), z(1, m),
             n_stages=1, n_steps=1, sigma=1e-6, alpha=1.6, rho_lo=1e-6, rho_hi=1e6)
@@ -246,8 +246,15 @@ def _beyond_limits(kernel):
 @pytest.mark.parametrize("kernel", ["selection", "round4", "gram", "admm_iterations",
                                     "admm_rows"])
 def test_kernels_refuse_beyond_their_limits(kernel):
-    with pytest.raises(NotImplementedError, match="takes"):
-        _beyond_limits(kernel)()
+    """K5 (no caller) refuses a shape past its limits; K1-K4 take every
+    shape, so past their former limits the wrappers plan a launch and
+    refuse only the CPU tensors they were given (a bad argument)."""
+    if kernel == "admm_iterations":
+        with pytest.raises(NotImplementedError, match="takes"):
+            _beyond_limits(kernel)()
+    else:
+        with pytest.raises(ValueError, match="cuda"):
+            _beyond_limits(kernel)()
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -260,13 +267,14 @@ def test_kernel_blocks_fit_shared_memory(itemsize):
     where there are fewer than 4)."""
     from morbit_tpu_torch.ops import cuda_build, dense_kernels, prepare_fused, qp_lane
 
-    admm = [qp_lane.admm_smem_bytes(nv, m, itemsize)
-            for nv in range(1, qp_lane.MAX_NV + 1) for m in range(1, qp_lane.MAX_M + 1)]
-    sel = [prepare_fused.selection_smem_bytes(n, itemsize)
-           for n in range(1, prepare_fused.SELECTION_MAX_N + 1)]
+    admm = [qp_lane.admm_plan(nv, m, itemsize).smem_bytes
+            for nv in range(1, qp_lane.WARP_MAX_NV + 1)
+            for m in range(1, qp_lane.WARP_MAX_M + 1)]
+    sel = [prepare_fused.selection_plan(n, itemsize).smem_bytes
+           for n in range(1, prepare_fused.SELECTION_BLOCK_MAX_N + 1)]
     assert max(admm) <= cuda_build.SMEM_LIMIT and max(sel) <= cuda_build.SMEM_LIMIT
-    assert qp_lane.admm_smem_bytes(3, 6, itemsize) == 0
-    assert prepare_fused.selection_smem_bytes(2, itemsize) == 0
+    assert qp_lane.admm_plan(3, 6, itemsize).smem_bytes == 0
+    assert prepare_fused.selection_plan(2, itemsize).smem_bytes == 0
     assert prepare_fused.selection_stage_rows(20, itemsize) > 0
     for n in range(1, dense_kernels.ADMM_ITERATIONS_MAX_N + 1):
         for m in range(1, dense_kernels.ADMM_ITERATIONS_MAX_M + 1):
@@ -296,8 +304,9 @@ def test_admm_iterations_phase_probe_finds_its_marks():
 @pytest.mark.parametrize("kernel", ["admm", "selection", "admm_iterations"])
 def test_kernels_refuse_blocks_past_shared_memory(monkeypatch, kernel):
     """A shape whose block would not fit the shared memory of the card
-    raises before any launch (here with the limit set below the wide path's
-    block)."""
+    (here with the limit set below the wide path's block): K5 raises before
+    any launch; K1 and K2 plan another instance whose block fits, so their
+    wrappers refuse only the CPU tensors they were given."""
     from morbit_tpu_torch.ops import cuda_build, prepare_fused, qp_lane
 
     monkeypatch.setattr(cuda_build, "SMEM_LIMIT", 1024)
@@ -321,5 +330,12 @@ def test_kernels_refuse_blocks_past_shared_memory(monkeypatch, kernel):
             z(1, 4, n), i32(1), z(1, n), i32(1), z(1), z(1, n), z(1, n), i32(1),
             torch.zeros(1, dtype=bool), theta_e1=2.0, theta_e2_dmax=1.0,
             theta_pivot=0.25, delta_max=0.5, skip2_same_theta=True)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    if kernel == "admm_iterations":
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            call()
+        return
+    plan = (qp_lane.admm_plan(21, 42, 4) if kernel == "admm"
+            else prepare_fused.selection_plan(20, 4))
+    assert plan.smem_bytes <= 1024 and plan.work_elems > 0
+    with pytest.raises(ValueError, match="cuda"):
         call()
