@@ -6,10 +6,11 @@ Run from the repository root on a machine with one CUDA card::
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. ``build``            — nvcc-builds the five kernels at once, one process
+1. ``build``            — nvcc-builds the seven kernels at once, one process
    per source: K1 (``csrc/qp_admm.cu``), K2 (``csrc/rbf_selection.cu``),
    K3 (``csrc/rbf_round4.cu``), K4 (``csrc/rbf_gram.cu``), K5
-   (``csrc/admm_iterations.cu``); registers, stack and spills per instance.
+   (``csrc/admm_iterations.cu``), K6 (``csrc/lane_lu.cu``) and K7
+   (``csrc/lane_matmul.cu``); registers, stack and spills per instance.
 2. ``rbf_main_path``    — the RBF main path: ``multistart_optimize`` on 1024
    Halton starts of two parabolas, both objectives in one multiquadric RBF
    group, float32, max_iter=100, qp_iters=400; launch counts of K1-K3 in
@@ -65,6 +66,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    multiple of the instances a block, no steps, rows with infinite bounds),
    float64 and float32, within 1e-10 (float64) or 1e-4 (float32) times
    max(1, max|twin|).
+   ``kernel_lane_lu``, ``kernel_lane_matmul`` — K6 (LU factor and solve)
+   and K7 (lane products), which replace the card's float64 library calls
+   whose bits depend on the batch width (ROADMAP 3.15), against their
+   twins at float64, equal to the bit: the fits' k (9, 12, 77, 272, 600,
+   1,377) with two right-hand sides, the polish's K (9, 11, 63, 153) with
+   one, products with 1-3 columns, at B = 1, 16 and 1024 (B = 4 at k =
+   1,377); card, twin, bound and library ms (``lu_factor_ex``,
+   ``lu_solve``, ``solve_ex``, ``torch.bmm``).
+   ``width_invariance_f64`` — under ``kernels_only``, ``width_gaps.py``'s
+   float64 problem by the plain runner in shards of 8, 4, 2 and 1 lanes
+   (meshes of the card 2-16 times) and by ``StagedMultistart`` with widths
+   over a mesh of 4, each equal to the unsharded batch of 16 to the bit in
+   every leaf; K6's and K7's launches in those runs.
 7. ``wide_quality_f64`` — the wide path's problem at float64, B=4,
    max_iter=25, under the asserts of tests/test_zdt_quality.py:97-101.
 8. ``wide_card_vs_cpu`` — ZDT1 at n=10 at float64 on the card and on the
@@ -199,13 +213,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     CPU: the same lines, integers and booleans equal, floats within 1e-10
     relative.
 
+Phases 7-9, ``card_vs_cpu`` and the ``*_card_vs_cpu``, ``optimize_surface``,
+``staged_card_exact``, ``staged_quality_f64`` and ``compacted_card_exact``
+phases run under ``kernels_only``: no plain twin, and no float64 library solve or product
+(``F64_LIBRARY``), runs on a CUDA tensor.
+
 Each phase line carries ``t_s``, the seconds since the script started.
 Then the card's name and power limit, one JSON line with the kernel table
 (K1-K4 also with the n=50 path's launches and rows, K1-K3 with the
 staged main path's launches at each budget, the
 ``routing`` times, the launches of the paths of phases 12-16, the rows of
-the inputs the paths of phases 13-14 recorded and K1's exit instance), the
-script's total seconds, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
+the inputs the paths of phases 13-14 recorded and K1's exit instance; K6's
+factor and solve and K7 with their launches on the float64 path of
+``width_invariance_f64`` and the library call's ms), the script's total
+seconds, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA it
 exits non-zero before printing any result. Imports nothing of JAX.
 """
 
@@ -754,7 +775,8 @@ def ptxas_summary(log):
     for line in log.splitlines():
         hit = re.search(r"(qp_admm_wide|qp_admm_strided|qp_admm|rbf_selection_block|"
                         r"rbf_selection_wide|rbf_selection|rbf_round4_wide|"
-                        r"rbf_round4_slots|rbf_round4|rbf_gram_tiled|rbf_gram|admm_iterations)"
+                        r"rbf_round4_slots|rbf_round4|rbf_gram_tiled|rbf_gram|admm_iterations|"
+                        r"lane_lu_factor|lane_lu_solve|lane_matmul)"
                         r"_kernelI([fd])((?:Li\d+E)*)", line)
         if "Compiling entry function" in line and hit:
             sizes = "".join("_" + v for v in re.findall(r"Li(\d+)E", hit[3]))
@@ -773,13 +795,14 @@ def ptxas_summary(log):
 
 
 def phase_build():
-    from morbit_tpu_torch.ops import dense_kernels, prepare_fused, qp_lane
+    from morbit_tpu_torch.ops import dense_kernels, lane_linalg, prepare_fused, qp_lane
 
     builds = {"qp_admm": qp_lane.build, "rbf_selection": prepare_fused.build_selection,
               "rbf_round4": prepare_fused.build_round4,
               "rbf_round4_f64": lambda: prepare_fused.build_round4(torch.float64),
               "rbf_gram": dense_kernels.build_gram,
-              "admm_iterations": dense_kernels.build_admm_iterations}
+              "admm_iterations": dense_kernels.build_admm_iterations,
+              "lane_lu": lane_linalg.build_lu, "lane_matmul": lane_linalg.build_matmul}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:     # one nvcc per source
         done = {k: pool.submit(fn) for k, fn in builds.items()}
@@ -790,12 +813,13 @@ def phase_build():
 
 
 #: lanes of K1's recorded float64 sets whose polish jumps between kernel
-#: and twin although their stage loops agree within their limits (the
-#: constrained lane to 1e-16, no one-ulp probe moving it; the n=50 path's
-#: lane within its batch's limit): the polish's discontinuity on an LP whose
-#: minimizers are not unique, ROADMAP 3.5. Each must give two minimizers,
-#: equal objectives and both feasible and stationary to the fixed tolerance
-POLISH_JUMPS = {"constrained_path_4_11": (172,), "wide50_path_call6": (34,)}
+#: and twin although their stage loops agree within their limits (the n=50
+#: path's lanes within their batch's limit): the polish's discontinuity on
+#: an LP whose minimizers are not unique, ROADMAP 3.5. Since the float64
+#: polish factors with K6, lane 309 jumps too (3.19) and the constrained
+#: set's lane 172 no longer does. Each must give two minimizers, equal
+#: objectives and both feasible and stationary to the fixed tolerance
+POLISH_JUMPS = {"wide50_path_call6": (34, 309)}
 
 
 def phase_kernel_admm(wide_captured, constrained_captured, option_captured,
@@ -1607,17 +1631,59 @@ def recording(captured, calls_to_keep):
         yield
 
 
+#: the library calls whose float64 results on the card depend on the batch
+#: width (ROADMAP 3.15): K6 and K7 take their place on every float64 CUDA
+#: tensor, and ``kernels_only`` makes them raise there
+F64_LIBRARY = ((torch.linalg, "solve_ex"), (torch.linalg, "solve"),
+               (torch.linalg, "lu_factor_ex"), (torch.linalg, "lu_factor"),
+               (torch.linalg, "lu_solve"), (torch, "matmul"), (torch, "bmm"),
+               (torch, "einsum"), (torch.Tensor, "__matmul__"))
+
+
+def _tensors(args):
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            yield from _tensors(a)
+        elif isinstance(a, torch.Tensor):
+            yield a
+
+
 @contextlib.contextmanager
 def kernels_only():
-    """Make every plain twin raise on a CUDA tensor, so that a run shows it
-    went through the kernels only."""
-    from morbit_tpu_torch.ops import dense_kernels, prepare_fused, qp_lane
+    """Make every plain twin raise on a CUDA tensor, and every library call
+    of ``F64_LIBRARY`` on a float64 CUDA tensor, so that a run shows it went
+    through the kernels only (K6 and K7 for its float64 solves and
+    products). The one float64 library product left is ``lane_matmul``'s
+    float32 branch (``batched_linalg._sum_in_f64``, the float64 sums of
+    float32 operands; fault 3.10), let through while it runs. Float32
+    library solves (the fits past k = 512, the polish past K = 48) stay
+    (ROADMAP 3.18)."""
+    from morbit_tpu_torch.ops import batched_linalg, dense_kernels, prepare_fused, qp_lane
 
     def guard(name, fn):
         def wrapped(*args, **kw):
             if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
                 raise RuntimeError(f"the plain twin {name} ran on a CUDA tensor")
             return fn(*args, **kw)
+        return wrapped
+
+    widening = [0]
+
+    def refuse(name, fn):
+        def wrapped(*args, **kw):
+            if not widening[0] and any(t.is_cuda and t.dtype == torch.float64
+                                       for t in _tensors(args)):
+                raise RuntimeError(f"the library call {name} ran on a float64 CUDA tensor")
+            return fn(*args, **kw)
+        return wrapped
+
+    def widened(fn):
+        def wrapped(*args, **kw):
+            widening[0] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                widening[0] -= 1
         return wrapped
 
     twins = [(qp_lane, "admm_stages_plain"), (qp_lane, "admm_stages_exit_plain"),
@@ -1627,6 +1693,10 @@ def kernels_only():
     with contextlib.ExitStack() as stack:
         for mod, attr in twins:
             stack.enter_context(mock.patch.object(mod, attr, guard(attr, getattr(mod, attr))))
+        for mod, attr in F64_LIBRARY:
+            stack.enter_context(mock.patch.object(mod, attr, refuse(attr, getattr(mod, attr))))
+        stack.enter_context(mock.patch.object(batched_linalg, "_sum_in_f64",
+                                              widened(batched_linalg._sum_in_f64)))
         yield
 
 
@@ -3075,6 +3145,181 @@ def phase_kernel_admm_iterations():
     return rows[("n3_m6", torch.float32)], rows[("n21_m42", torch.float32)]
 
 
+# ---------------------------------------------- K6 and K7: lane-invariant f64
+
+#: K6's and K7's batch widths at each shape (the small shapes at 1, 16 and
+#: 1024 lanes, the n=50 path's fit at the 4 of ``wide50_card_vs_cpu``), and
+#: the shape whose row the kernel table carries: the main path's fit at
+#: float64 (k = 9: 6 sites and 3 polynomial terms, 2 objectives) at the 16
+#: lanes of ``width_invariance_f64``
+LANE_WIDTHS_SMALL, LANE_WIDTH_N50 = (1, 16, 1024), 4
+LANE_TABLE_SHAPE = (9, 2, 16)
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        (a.contiguous().view(torch.uint8) == b.contiguous().view(torch.uint8)).all())
+
+
+def lane_lu_work(k, m, item):
+    """(ops, bytes) of K6's factor and of its solve for one lane at (k, m):
+    the factor's k(k-1)/2 divisions and 2 (k-1)k(2k-1)/6 multiplies and
+    subtracts, reading A and writing LU, the permutation and info; the
+    solve's m k (2k - 1), reading LU, the permutation and b and writing x."""
+    factor = (k * (k - 1) // 2 + (k - 1) * k * (2 * k - 1) // 3,
+              2 * k * k * item + 4 * k + 4)
+    solve = (m * k * (2 * k - 1), k * k * item + 4 * k + 2 * k * m * item)
+    return factor, solve
+
+
+def lane_shapes(fit_k, polish_k, fit_m):
+    """(k, m, B) of K6's and K7's kernel phases: each fit's k with ``fit_m``
+    right-hand sides and each polish's K with one, at every width of
+    ``LANE_WIDTHS_SMALL``; the largest fit at ``LANE_WIDTH_N50`` lanes."""
+    *small, big = fit_k
+    return ([(k, fit_m, B) for k in small for B in LANE_WIDTHS_SMALL]
+            + [(big, fit_m, LANE_WIDTH_N50)]
+            + [(k, 1, B) for k in polish_k for B in LANE_WIDTHS_SMALL])
+
+
+def phase_kernel_lane_lu():
+    """K6 (``csrc/lane_lu.cu``) against its twins on the card at float64:
+    factor and solve at every shape of ``lane_shapes`` (the fits' k and the
+    polish's K of ``width_gaps.py``), LU, permutation, info and x equal to
+    the bit, the kernel's lanes of a batch against the twin's; card ms of
+    each (median of event timings of its C launch repeated, without the
+    wrapper's host work), the twins' ms (one run), the bound at
+    the FP64 rate (34 TFLOP/s, no tensor cores) and the library's ms on the
+    same inputs (``lu_factor_ex``, ``lu_solve``, and ``solve_ex`` for both).
+    Returns the rows of ``LANE_TABLE_SHAPE`` (factor, solve)."""
+    from morbit_tpu_torch.ops import lane_linalg as ll
+    from morbit_tpu_torch.tools.width_gaps import FIT_K, FIT_M, POLISH_K
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    table = None
+    for k, m, B in lane_shapes(FIT_K, POLISH_K, FIT_M):
+        A = torch.randn(B, k, k, dtype=torch.float64, device="cuda", generator=g)
+        b = torch.randn(B, k, m, dtype=torch.float64, device="cuda", generator=g)
+        before = (ll.lu_factor_launches, ll.lu_solve_launches)
+        LU, perm, info = ll.lane_lu_factor_cuda(A)
+        x = ll.lane_lu_solve_cuda(LU, perm, b)
+        check((ll.lu_factor_launches, ll.lu_solve_launches) == (before[0] + 1, before[1] + 1),
+              "K6 launches not counted")
+        (LU_t, perm_t, info_t), factor_plain_ms = timed(lambda: ll.lane_lu_factor_plain(A))
+        x_t, solve_plain_ms = timed(lambda: ll.lane_lu_solve_plain(LU_t, perm_t, b))
+        apart = [name for name, a, t in (("LU", LU, LU_t), ("perm", perm, perm_t),
+                                         ("info", info, info_t), ("x", x, x_t))
+                 if not _bits_equal(a, t)]
+        check(not apart, f"K6 at k={k}, m={m}, B={B}: {apart} differ from the twin's")
+        lib = torch.linalg.solve_ex(A, b)[0]
+        lib_LU, lib_piv, _ = torch.linalg.lu_factor_ex(A)
+        (f_ops, f_bytes), (s_ops, s_bytes) = lane_lu_work(k, m, 8)
+        rows = {}
+        # the kernels' C launches repeated on their buffers (the wrappers'
+        # host work left out), the library calls back to back
+        reps, inner = (3, 1) if k > 600 else (10, 10 if k <= 153 else 2)
+        for part, kernel, plain_ms, library, ops, nbytes in (
+                ("factor", ll.factor_launcher(A, torch.empty_like(LU), torch.empty_like(perm),
+                                              torch.empty_like(info)), factor_plain_ms,
+                 lambda: torch.linalg.lu_factor_ex(A), f_ops, f_bytes),
+                ("solve", ll.solve_launcher(LU, perm, b, torch.empty_like(b)), solve_plain_ms,
+                 lambda: torch.linalg.lu_solve(lib_LU, lib_piv, b), s_ops, s_bytes)):
+            bound_ms, bound_by = bound(B * ops, B * nbytes, torch.float64)
+            rows[part] = dict(ms=event_ms(kernel, reps, inner), plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=event_ms(library, reps, inner), max_abs_err=0.0)
+        solve_ex_ms = event_ms(lambda: torch.linalg.solve_ex(A, b), reps, inner)
+        plan = ll.lu_factor_plan(k, 8)
+        phase("kernel_lane_lu", k=k, m=m, B=B, dtype="float64", bitwise=True,
+              factor_place=plan.instance, factor_smem_bytes=plan.smem_bytes,
+              solve_place=ll.lu_solve_plan(k, m, 8).instance,
+              singular_lanes=int((info != 0).sum()),
+              max_rel_diff_from_solve_ex=float((x - lib).abs().max() / lib.abs().max()),
+              solve_ex_ms=solve_ex_ms, **{f"{p}_{key}": v for p, r in rows.items()
+                                           for key, v in r.items()})
+        if (k, m, B) == LANE_TABLE_SHAPE:
+            table = rows
+    return table
+
+
+def phase_kernel_lane_matmul():
+    """K7 (``csrc/lane_matmul.cu``) against its twin on the card at
+    float64: (B, k, k) @ (B, k, m) at every (k, B) of ``lane_shapes`` and m
+    in ``PRODUCT_M``, equal to the bit; card ms (its C launch repeated) and
+    the wrapper's (flattening, checks and launch: host-bound at small
+    shapes), the twin's ms, the bound and ``torch.bmm``'s ms on the same
+    inputs. Returns the row of
+    ``LANE_TABLE_SHAPE``."""
+    from morbit_tpu_torch.ops import lane_linalg as ll
+    from morbit_tpu_torch.tools.width_gaps import FIT_K, FIT_M, POLISH_K, PRODUCT_M
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    table = None
+    shapes = sorted({(k, B) for k, _, B in lane_shapes(FIT_K, POLISH_K, FIT_M)})
+    for (k, B), m in ((kb, m) for kb in shapes for m in PRODUCT_M):
+        a = torch.randn(B, k, k, dtype=torch.float64, device="cuda", generator=g)
+        b = torch.randn(B, k, m, dtype=torch.float64, device="cuda", generator=g)
+        before = ll.matmul_launches
+        out = ll.lane_matmul_cuda(a, b)
+        check(ll.matmul_launches == before + 1, "K7 launch not counted")
+        want, plain_ms = timed(lambda: ll.lane_matmul_plain(a, b))
+        check(_bits_equal(out, want), f"K7 at k={k}, m={m}, B={B} differs from the twin")
+        bound_ms, bound_by = bound(2 * B * k * k * m, 8 * B * (k * k + 2 * k * m),
+                                   torch.float64)
+        row = dict(ms=event_ms(ll.matmul_launcher(a, b, torch.empty_like(out)), 10, inner=20),
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=event_ms(lambda: torch.bmm(a, b), 10, inner=20),
+                   wrapper_ms=event_ms(lambda: ll.lane_matmul_cuda(a, b), 10, inner=20),
+                   max_abs_err=0.0)
+        phase("kernel_lane_matmul", k=k, m=m, B=B, dtype="float64", bitwise=True,
+              max_abs_diff_from_bmm=float((out - torch.bmm(a, b)).abs().max()), **row)
+        if (k, m, B) == LANE_TABLE_SHAPE:
+            table = row
+    return table
+
+
+def _lane_launch_counts():
+    from morbit_tpu_torch.ops import lane_linalg as ll
+
+    return {"lane_lu_factor": ll.lu_factor_launches, "lane_lu_solve": ll.lu_solve_launches,
+            "lane_matmul": ll.matmul_launches}
+
+
+def _zero_lane_launch_counts():
+    from morbit_tpu_torch.ops import lane_linalg as ll
+
+    ll.lu_factor_launches = ll.lu_solve_launches = ll.matmul_launches = 0
+
+
+def phase_width_invariance_f64():
+    """The float64 path whose runs K6 and K7 make independent of the batch
+    width (ROADMAP 3.15), under ``kernels_only``: ``width_gaps.py``'s
+    problem (two parabolas, one multiquadric group, 16 Halton starts,
+    max_iter=12, qp_iters=100) by the plain runner unsharded and over the
+    meshes ``[cuda:0] * k``, k = 2, 4, 8, 16 (shards of 8, 4, 2 and 1
+    lanes), and by ``StagedMultistart(schedule=(3, 6), widths=(16, 8, 8))``
+    over a mesh of 4; each equal to the unsharded batch of 16 to the bit in
+    every leaf after ``canonicalize_buffer_tails``. K6's and K7's counts are
+    set to 0 just before the runs and read just after; each must have
+    launched. Returns the counts."""
+    from morbit_tpu_torch.tools.width_gaps import width_invariance
+
+    t0 = time.perf_counter()
+    with kernels_only():
+        _zero_lane_launch_counts()
+        runs = width_invariance("cuda")
+        torch.cuda.synchronize()
+        launches = _lane_launch_counts()
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the float64 path")
+    for name, r in runs.items():
+        check(not r["leaves_apart"], f"width_invariance_f64: {name} parts from the "
+              f"batch of 16 in {r['leaves_apart']} (largest gap {r['largest_gap']})")
+    phase("width_invariance_f64", B=16, dtype="float64", max_iter=12, qp_iters=100,
+          runs=runs, launches=launches, seconds=time.perf_counter() - t0)
+    return launches
+
+
 # ------------------------------------------------- the compacted runner (slice 13)
 
 #: interleaved rounds of the plain and the compacted runner per budget
@@ -3294,8 +3539,9 @@ GRID_MAY_PART = {
     # the largest gap is fx's, 8.11e-10 (the CPU port ends as far from JAX)
     "two_parabolas-n2-exact-steepest_descent-s3": {1: (1e-9, "3.5 polish")},
     # the rounding of the card's plain operations, carried over the run's
-    # trips (3.4): the largest gap 3.77e-10
-    "zdt1-n5-rbf_cubic-steepest_descent-s4": {1: (5e-10, "3.4 rounding")},
+    # trips (3.4): the largest gap 3.77e-10 with the library's float64
+    # solves and products, 1.005e-9 with K6's and K7's (3.20)
+    "zdt1-n5-rbf_cubic-steepest_descent-s4": {1: (2e-9, "3.4 rounding, 3.20")},
 }
 
 
@@ -3471,15 +3717,22 @@ def phase_grid_card_vs_cpu():
             bounds[lane] = tol
         apart = np.zeros(s.n_starts, bool)
         lane_gap = np.zeros(s.n_starts)
+        widest = {}                 # lane -> its largest gap's leaf and values
         for k in ("x", "fx", "n_evals", "n_iterations", "stop_code", "omega"):
             a, b = obs["cuda"][k], obs["cpu"][k]
             if a.dtype.kind in "iu":
                 bad = (a != b).reshape(s.n_starts, -1).any(-1)
             else:
                 both = np.isfinite(a) & np.isfinite(b)
-                d = np.where(both, np.abs(a - b), 0.0).reshape(s.n_starts, -1).max(-1)
+                gaps = np.where(both, np.abs(a - b), 0.0).reshape(s.n_starts, -1)
+                d = gaps.max(-1)
                 bad = (np.isfinite(a) != np.isfinite(b)).reshape(s.n_starts, -1).any(-1)
                 bad |= d > bounds
+                for i in np.nonzero((d > 1e-10) & (d > lane_gap))[0]:
+                    j = int(gaps[i].argmax())
+                    widest[int(i)] = {"leaf": k, "entry": j,
+                                      "card": float(a.reshape(s.n_starts, -1)[i, j]),
+                                      "cpu": float(b.reshape(s.n_starts, -1)[i, j])}
                 lane_gap = np.maximum(lane_gap, d)
             apart |= bad
         first_parting = {}
@@ -3497,7 +3750,7 @@ def phase_grid_card_vs_cpu():
               f"from CPU (first trips {first_parting}); recorded: {recorded}")
         rows[s.key] = dict(
             overrides=over, max_abs_float_diff=float(lane_gap.max()),
-            lanes_beyond_1e10={int(i): float(lane_gap[i])
+            lanes_beyond_1e10={int(i): dict(gap=float(lane_gap[i]), **widest[int(i)])
                                for i in np.nonzero(lane_gap > 1e-10)[0]},
             recorded={i: {"bound": tol, "cause": cause,
                           "lockstep": first_parting.get(
@@ -3705,21 +3958,27 @@ def main():
     gram_row, gram50 = phase_kernel_gram(wide_captured["gram"], wide50["gram"])
     del wide50
     k5_rows = phase_kernel_admm_iterations()
+    lu_rows = phase_kernel_lane_lu()
+    matmul_row = phase_kernel_lane_matmul()
     routing = phase_routing()
-    phase_wide_quality_f64()
-    phase_wide_card_vs_cpu()
-    phase_wide50_card_vs_cpu()
-    phase_rbf_card_vs_cpu()
-    phase_constrained_card_vs_cpu()
-    for kind in FAMILY_KINDS + OPTION_KINDS:
-        phase_family_card_vs_cpu(kind)
-    phase_optimize_surface()
-    phase_staged_card_exact()
-    phase_staged_quality_f64()
-    phase_compacted_card_exact()
-    phase_grid_card_vs_cpu()
-    phase_parametric_card_vs_cpu()
-    phase_card_vs_cpu()
+    lane_launches = phase_width_invariance_f64()
+    # the float64 card runs take K6 and K7 for every library solve and
+    # product whose bits depend on the batch width (kernels_only raises else)
+    with kernels_only():
+        phase_wide_quality_f64()
+        phase_wide_card_vs_cpu()
+        phase_wide50_card_vs_cpu()
+        phase_rbf_card_vs_cpu()
+        phase_constrained_card_vs_cpu()
+        for kind in FAMILY_KINDS + OPTION_KINDS:
+            phase_family_card_vs_cpu(kind)
+        phase_optimize_surface()
+        phase_staged_card_exact()
+        phase_staged_quality_f64()
+        phase_compacted_card_exact()
+        phase_grid_card_vs_cpu()
+        phase_parametric_card_vs_cpu()
+        phase_card_vs_cpu()
     phase_main_path()
 
     phase("total", seconds=time.perf_counter() - started)
@@ -3803,6 +4062,27 @@ def main():
             entry["shape"] = [row["n"], row["m"]]
             entry["n3_m6"] = {k: k5_rows[0][k] for k in keys}
         table.append(entry)
+    # K6 and K7 replace no Pallas kernel but the library calls named: their
+    # path is the float64 one of ``width_invariance_f64``, their row the
+    # main path's fit there (LANE_TABLE_SHAPE), library_ms the library call
+    lane_rows = (("lane_lu_factor", lu_rows["factor"], "morbit_tpu_torch/csrc/lane_lu.cu",
+                  "none (a library call): torch.linalg.solve_ex and lu_factor_ex on float64 "
+                  "CUDA tensors, morbit_tpu_torch/ops/batched_linalg.py solve_small and "
+                  "morbit_tpu_torch/ops/qp.py _polish (JAX: morbit_tpu/ops/batched_linalg.py:147, "
+                  "morbit_tpu/ops/qp.py:328)"),
+                 ("lane_lu_solve", lu_rows["solve"], "morbit_tpu_torch/csrc/lane_lu.cu",
+                  "none (a library call): torch.linalg.solve_ex and lu_solve on float64 CUDA "
+                  "tensors (JAX: morbit_tpu/ops/batched_linalg.py:147, "
+                  "morbit_tpu/ops/qp.py:329)"),
+                 ("lane_matmul", matmul_row, "morbit_tpu_torch/csrc/lane_matmul.cu",
+                  "none (a library call): a @ b and einsum on float64 CUDA tensors, "
+                  "morbit_tpu_torch/ops/batched_linalg.py lane_matmul and lane_product"))
+    for name, row, source, replaces in lane_rows:
+        check(row is not None and math.isfinite(row["ms"]), f"no row for {name}")
+        table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                      "path": "width_invariance_f64", "launches": lane_launches[name],
+                      **{k: row[k] for k in keys}, "library_ms": row["library_ms"],
+                      "shape_k_m_B": list(LANE_TABLE_SHAPE)})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,7 +54,7 @@ from morbit_tpu_torch.core.mop import MOP, NL_EQ, NL_INEQ, CompiledMOP, compile_
 from morbit_tpu_torch.models.configs import LagrangeConfig, TaylorConfig
 from morbit_tpu_torch.models.container import SurrogateContainer, chain_rule
 from morbit_tpu_torch.ops import prng
-from morbit_tpu_torch.ops.batched_linalg import lane_matmul, lane_matvec
+from morbit_tpu_torch.ops.batched_linalg import lane_matmul, lane_matvec, lane_product
 from morbit_tpu_torch.ops.boxopt import halton_grid, maximize_in_box
 from morbit_tpu_torch.ops.geometry import project_into_box
 from morbit_tpu_torch.utils.logging import LiveLog
@@ -470,9 +470,10 @@ class Solver:
                 pen = pen + sq(torch.clamp(container.eval_nl_ineq_raw(groups, chi, scal),
                                            min=0.0))
             if mop.A_eq.shape[0]:
-                pen = pen + sq(chi @ A_eq_s.transpose(-1, -2) - b_eq_s[:, None, :])
+                pen = pen + sq(lane_product(chi, A_eq_s.transpose(-1, -2))
+                               - b_eq_s[:, None, :])
             if mop.A_ineq.shape[0]:
-                pen = pen + sq(torch.clamp(chi @ A_ineq_s.transpose(-1, -2)
+                pen = pen + sq(torch.clamp(lane_product(chi, A_ineq_s.transpose(-1, -2))
                                            - b_ineq_s[:, None, :], min=0.0))
             return pen
 

@@ -34,6 +34,7 @@ import torch
 
 from morbit_tpu_torch.core import database as dbm
 from morbit_tpu_torch.models.base import ModelContext, SurrogateOps
+from morbit_tpu_torch.ops.batched_linalg import lane_product
 from morbit_tpu_torch.ops.boxopt import first_argmax, halton_grid, maximize_in_box
 from morbit_tpu_torch.ops.geometry import local_bounds
 
@@ -398,7 +399,7 @@ class LagrangeOps(SurrogateOps):
     # ---- phase 2 ---------------------------------------------------------------
     def fit(self, state, db, ctx: ModelContext):
         _, Y = dbm.get_rows(db, state.idx)                     # (L, p, m)
-        return state._replace(coef=state.B.transpose(-1, -2) @ Y)
+        return state._replace(coef=lane_product(state.B.transpose(-1, -2), Y))
 
     # ---- evaluation ------------------------------------------------------------
     def _lead(self, t, extra):
@@ -409,13 +410,13 @@ class LagrangeOps(SurrogateOps):
         extra = x_s.dim() - 2
         lb, ub = self._lead(state.lb, extra), self._lead(state.ub, extra)
         phi = self._phi((x_s - lb) / (ub - lb))
-        return (phi[..., None, :] @ self._lead(state.coef, extra))[..., 0, :]
+        return lane_product(phi[..., None, :], self._lead(state.coef, extra))[..., 0, :]
 
     def jac(self, state, x_s, scal=None):
         """(L, m, n) Jacobians, in closed form in the monomials."""
         w = state.ub - state.lb
         dphi = self._dphi((x_s - state.lb) / w)                # (L, p, n)
-        return (state.coef.transpose(-1, -2) @ dphi) / w[:, None, :]
+        return lane_product(state.coef.transpose(-1, -2), dphi) / w[:, None, :]
 
     def fully_linear(self, state):
         return state.fully_linear

@@ -32,6 +32,7 @@ import torch
 from morbit_tpu_torch.core import database as dbm
 from morbit_tpu_torch.core import scaling
 from morbit_tpu_torch.models.base import ModelContext, SurrogateOps
+from morbit_tpu_torch.ops.batched_linalg import lane_product
 from morbit_tpu_torch.ops.geometry import project_into_box
 
 # First-order stamps: (grid, coefficients), derivative ~ sum c_a f(x + h g_a e_i) / h
@@ -194,10 +195,21 @@ class TaylorOps(SurrogateOps):
         if self.cfg.mode == "fd":
             _, Y = dbm.get_rows(db, state.site_idx)                  # (B, S, m)
             h = torch.tensor(self.h, dtype=self.dtype)
-            g = torch.einsum("is,bsm->bmi", self._const("G", x.device), Y) / h
+            G = self._const("G", x.device)
             if self.degree >= 2:
-                H = torch.einsum("ijs,bsm->bmij", self._const("Hc", x.device), Y) / h ** 2
+                Hc = self._const("Hc", x.device)
+            if Y.dtype == torch.float64 and Y.is_cuda:
+                # the two einsums as K7's products (ROADMAP 3.15)
+                Yt = Y.transpose(-1, -2)                                # (B, m, S)
+                g = lane_product(Yt, G.transpose(0, 1)) / h
+                if self.degree >= 2:
+                    HY = lane_product(Yt, Hc.reshape(-1, Hc.shape[-1]).transpose(0, 1))
+                    H = HY.reshape(HY.shape[:2] + Hc.shape[:2]) / h ** 2
             else:
+                g = torch.einsum("is,bsm->bmi", G, Y) / h
+                if self.degree >= 2:
+                    H = torch.einsum("ijs,bsm->bmij", Hc, Y) / h ** 2
+            if self.degree < 2:
                 H = torch.zeros_like(state.H)
         else:
             xu = scaling.untransform(ctx.scal, x)
@@ -220,9 +232,9 @@ class TaylorOps(SurrogateOps):
         extra = x_s.dim() - 2
         lead = lambda t: t.reshape(t.shape[:1] + (1,) * extra + t.shape[1:])
         d = x_s - lead(state.x0)
-        out = lead(state.fx0) + (lead(state.g) @ d[..., None])[..., 0]
+        out = lead(state.fx0) + lane_product(lead(state.g), d[..., None])[..., 0]
         if self.degree >= 2:
-            Hd = (lead(state.H) @ d[..., None, :, None])[..., 0]      # (B, ..., m, n)
+            Hd = lane_product(lead(state.H), d[..., None, :, None])[..., 0]  # (B, ..., m, n)
             out = out + 0.5 * (Hd * d[..., None, :]).sum(-1)
         return out
 
@@ -232,7 +244,7 @@ class TaylorOps(SurrogateOps):
         if self.degree >= 2:
             d = x_s - state.x0
             Hs = state.H + state.H.transpose(-1, -2)
-            return state.g + 0.5 * (Hs @ d[:, None, :, None])[..., 0]
+            return state.g + 0.5 * lane_product(Hs, d[:, None, :, None])[..., 0]
         return state.g
 
     def fully_linear(self, state):

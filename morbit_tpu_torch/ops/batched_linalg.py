@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from morbit_tpu_torch.ops import lane_linalg
+
 #: unrolled solves are used up to this size (``GJ_MAX_K`` of the JAX package)
 GJ_MAX_K = 24
 #: the blocked Gauss-Jordan covers the mid-size band above it (RBF KKT
@@ -20,15 +22,38 @@ GJ_PANEL = 16
 
 
 def lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` over a leading lane axis. Below float64 the products are
-    summed in float64 and rounded once: a batched matrix product's
+    """``a @ b`` over a leading lane axis. A batched matrix product's
     summation order depends on the algorithm cuBLAS picks for the batch
-    size, so a float32 result would otherwise change in its last bits with
-    the number of lanes (a staged runner's compacted width) and move a
-    tied or ill-conditioned decision of its lane."""
+    size, so its result would otherwise change in its last bits with the
+    number of lanes (a staged runner's compacted width, a mesh's shard) and
+    move a tied or ill-conditioned decision of its lane. So below float64
+    the products are summed in float64 and rounded once, and at float64 a
+    CUDA tensor takes K7 (:func:`lane_product`, every sum in index order;
+    ROADMAP 3.15). Float64 on the CPU stays BLAS's, as the JAX package
+    computes it there."""
     if a.dtype == torch.float64:
-        return a @ b
+        return lane_product(a, b)
+    return _sum_in_f64(a, b)
+
+
+def _sum_in_f64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`lane_matmul` below float64: the library's float64 product of
+    the widened operands, rounded once (fault 3.10). Its summation order
+    still depends on the batch width at sizes past the port's float32 fits
+    (ROADMAP 3.18); the float32 paths keep it so that none of their bits
+    move."""
     return (a.double() @ b.double()).to(a.dtype)
+
+
+def lane_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with broadcast batch axes where :func:`lane_matmul`'s
+    float64 sums are not wanted: float64 CUDA tensors take K7 (every sum in
+    index order, whatever the batch width; ROADMAP 3.15), every other
+    tensor the library's ``a @ b`` as before, so that no float32 or CPU bit
+    moves."""
+    if a.dtype == torch.float64 and a.device.type != "cpu":
+        return lane_linalg.lane_matmul_cuda(a, b)
+    return a @ b
 
 
 def lane_matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -122,14 +147,20 @@ def solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Size and dtype dispatch (``solve_small``, ``batched_linalg.py:135-148``
     of the JAX package): at <= 32 bits the unrolled Gauss-Jordan for
     ``k <= GJ_MAX_K`` and the blocked one for ``k <= BLOCKED_GJ_MAX_K``; LU
-    (``torch.linalg.solve``) otherwise. Exactly singular systems give nan,
-    like LU in the JAX package, instead of raising."""
+    otherwise: ``torch.linalg.solve_ex`` (LAPACK on the CPU, as the JAX
+    package; cuSOLVER for float32 on the card) or, for float64 CUDA
+    tensors, K6 (:func:`morbit_tpu_torch.ops.lane_linalg.lu_solve_nan`),
+    whose bits do not depend on the batch width (ROADMAP 3.15). Exactly
+    singular systems give nan, like LU in the JAX package, instead of
+    raising."""
     k = A.shape[-1]
     if torch.finfo(A.dtype).bits <= 32:
         if k <= GJ_MAX_K:
             return gj_solve(A, b)
         if k <= BLOCKED_GJ_MAX_K:
             return blocked_gj_solve(A, b)
+    elif A.device.type != "cpu":
+        return lane_linalg.lu_solve_nan(A, b)
     vec = b.dim() == A.dim() - 1
     x, info = torch.linalg.solve_ex(A, b[..., None] if vec else b)
     x = torch.where((info != 0).reshape(info.shape + (1, 1)),

@@ -25,6 +25,10 @@ BUILD_DIR = PKG.parent / "build" / "kernels"
 # -Xptxas=-v only reports registers and spills per kernel (see build())
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: no multiply-add contraction: a kernel built so rounds every operation as
+#: its twin does (K2, K3, K6, K7), so decisions at exact ties (a score equal
+#: to its pivot, the two box exits of a direction) fall the same way on both
+NO_FMA = ("--fmad=false",)
 #: dynamic shared memory one block may use on an H100 (227 KB); the
 #: launchers ask for more than 48 KB with cudaFuncSetAttribute
 SMEM_LIMIT = 232_448
@@ -153,8 +157,7 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream_of(t) -> ctypes.c_void_p:
     """PyTorch's current stream on ``t``'s device."""
-    with torch.cuda.device(t.device):
-        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 #: cudaErrorMemoryAllocation: among other things, a launch whose local

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from morbit_tpu_torch.ops.batched_linalg import lane_product
+
 
 def project_into_box(z, lb, ub):
     """``min.(max.(z, lb), ub)`` — reference ``src/utilities.jl:122``."""
@@ -54,8 +56,8 @@ def intersect_bounds(x, d, lb=None, ub=None, A_ineq=None, b_ineq=None,
     if ub is not None:
         sigmas.append(_crossing_sigmas(x, ub, d, sense_lb=False))
     if A_ineq is not None and A_ineq.shape[-2] > 0:
-        ax = (A_ineq @ x[..., None])[..., 0]
-        ad = (A_ineq @ d[..., None])[..., 0]
+        ax = lane_product(A_ineq, x[..., None])[..., 0]
+        ad = lane_product(A_ineq, d[..., None])[..., 0]
         b = torch.zeros_like(ax) if b_ineq is None else b_ineq
         sigmas.append(_crossing_sigmas(ax, b, ad, sense_lb=False))
 

@@ -36,10 +36,6 @@ ROUND4_SOURCE = cuda_build.CSRC / "rbf_round4.cu"
 #: translation unit
 ROUND4_F64_FLAGS = ("-DMORBIT_LINKED_POW",)
 ROUND4_LINKED = (cuda_build.CSRC / "rbf_pow.cu",)
-#: no multiply-add contraction: the kernels then round every operation as
-#: their twins do, so decisions at exact ties (a score equal to its pivot,
-#: the two box exits of a direction) fall the same way on both
-NO_FMA = ("--fmad=false",)
 
 #: the instances' ranges: K2's register instances (n = 2, 3), its block
 #: instance (n <= 32) and its wide instance (every other n); K3's
@@ -98,13 +94,13 @@ _SIGNATURES = {
 
 
 def build_selection():
-    return cuda_build.build(SELECTION_SOURCE, NO_FMA)
+    return cuda_build.build(SELECTION_SOURCE, cuda_build.NO_FMA)
 
 
 def build_round4(dtype=torch.float32):
     if dtype == torch.float64:
-        return cuda_build.build(ROUND4_SOURCE, NO_FMA + ROUND4_F64_FLAGS, ROUND4_LINKED)
-    return cuda_build.build(ROUND4_SOURCE, NO_FMA)
+        return cuda_build.build(ROUND4_SOURCE, cuda_build.NO_FMA + ROUND4_F64_FLAGS, ROUND4_LINKED)
+    return cuda_build.build(ROUND4_SOURCE, cuda_build.NO_FMA)
 
 
 def _library(source, dtype=torch.float32):
@@ -114,7 +110,7 @@ def _library(source, dtype=torch.float32):
     key = (source, dtype) if f64 else source
     if key not in _libs:
         _libs[key] = cuda_build.load(source, _SIGNATURES[source],
-                                     NO_FMA + (ROUND4_F64_FLAGS if f64 else ()),
+                                     cuda_build.NO_FMA + (ROUND4_F64_FLAGS if f64 else ()),
                                      ROUND4_LINKED if f64 else ())
     return _libs[key]
 

@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from morbit_tpu_torch.ops import qp_lane
+from morbit_tpu_torch.ops import lane_linalg, qp_lane
 from morbit_tpu_torch.ops.batched_linalg import GJ_MAX_K, gj_inverse, lane_matvec
 
 
@@ -150,6 +150,11 @@ def _polish(P, q, A, l, u, z, y, delta: float = 1e-8, refine_steps: int = 3):
         # unrolled inverse once; refinement applications become matvecs
         Kinv = gj_inverse(K)
         solve_K = lambda v: _mv(Kinv, v)
+    elif dtype == torch.float64 and K.device.type != "cpu":
+        # K6 on the card: its bits do not depend on the batch width (3.15)
+        LU, perm, _ = lane_linalg.lane_lu_factor(K.reshape(-1, *K.shape[-2:]).contiguous())
+        solve_K = lambda v: lane_linalg.lane_lu_solve(
+            LU, perm, v.reshape(-1, v.shape[-1])).reshape(v.shape)
     else:
         LU, piv, _ = torch.linalg.lu_factor_ex(K)
         solve_K = lambda v: torch.linalg.lu_solve(LU, piv, v[..., None])[..., 0]

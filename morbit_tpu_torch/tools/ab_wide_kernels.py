@@ -19,11 +19,13 @@ wrappers' host time exceeds or nears the kernels'). ``--inputs`` also times K3
 on the wide path's recorded inputs (``round4_phases --record``). With
 ``--wide-batch`` it also times one batch of the wide path (``chip_smoke.py``'s first ``wide_main_path`` batch:
 ZDT1 at n=20, cubic RBF, the reference grid budget, 1024 Halton starts,
-float32) on the host clock, its kernels built beforehand. Each checkout
+float32) on the host clock, its kernels built beforehand. With ``--paths``
+it also prints a SHA-256 of the final state of one float32 batch of the
+main path, the n=20 path and the n=50 path (``path_hashes``). Each checkout
 runs in its own process (its own package and kernels), in turns parent,
 change, change, parent; one JSON line each::
 
-    python3 -m morbit_tpu_torch.tools.ab_wide_kernels --parent PATH [--change PATH] [--wide-batch] [--inputs NPZ]
+    python3 -m morbit_tpu_torch.tools.ab_wide_kernels --parent PATH [--change PATH] [--wide-batch] [--paths] [--inputs NPZ]
 
 ``PATH`` is the root of a checkout (``git archive`` of the parent commit
 unpacked into a directory that ``.gitignore`` lists). Needs a CUDA card.
@@ -60,7 +62,7 @@ def _event_ms(fn, reps, inner=1):
     return statistics.median(times)
 
 
-def time_here(wide_batch: bool, inputs) -> dict:
+def time_here(wide_batch: bool, inputs, paths: bool = False) -> dict:
     """The timings of the checkout in the working directory."""
     sys.path.insert(0, os.getcwd())
     import numpy as np
@@ -149,6 +151,39 @@ def time_here(wide_batch: bool, inputs) -> dict:
         torch.cuda.synchronize()
         out.update(wide_batch_s=time.perf_counter() - t0, wide_trips=res.trips,
                    wide_mean_evals=float(res.n_evals.double().mean()))
+    if paths:
+        out.update(path_hashes(cs))
+    return out
+
+
+def path_hashes(cs) -> dict:
+    """A SHA-256 of the final state of one float32 batch of each path whose
+    bits a change to the float64 solves must leave as they are: the main
+    path (two parabolas, one multiquadric group, 1024 Halton starts, the
+    reference budget), the n=20 path at ``WIDE_SMOKE_BUDGET`` and the n=50
+    path at ``WIDE50_BUDGET`` (1024 starts each), by the plain runner."""
+    import numpy as np
+    import torch
+
+    from morbit_tpu_torch import AlgorithmConfig, multistart_optimize
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+    from morbit_tpu_torch.utils.carry import state_to_numpy
+
+    runs = {"main": (cs.rbf_mop(), cs.LB, cs.UB,
+                     dict(max_iter=100, qp_iters=cs.QP_ITERS)),
+            "n20": (cs.wide_mop(), None, None, cs.WIDE_SMOKE_BUDGET),
+            "n50": (cs.wide_mop(cs.N_WIDE50), None, None, cs.WIDE50_BUDGET)}
+    out = {}
+    for name, (mop, lb, ub, budget) in runs.items():
+        lb = mop.lb if lb is None else lb
+        ub = mop.ub if ub is None else ub
+        x0 = torch.as_tensor(halton_starts(1024, lb, ub, 1), dtype=torch.float32,
+                             device="cuda")
+        leaves = state_to_numpy(multistart_optimize(mop, x0, AlgorithmConfig(**budget),
+                                                    dtype=torch.float32).state)
+        out[f"{name}_f32_state_sha256"] = hashlib.sha256(b"".join(
+            np.ascontiguousarray(leaves[k]).tobytes() for k in sorted(leaves))).hexdigest()[:16]
+        torch.cuda.empty_cache()
     return out
 
 
@@ -159,10 +194,12 @@ def main(argv=None) -> int:
     ap.add_argument("--wide-batch", action="store_true")
     ap.add_argument("--inputs", help="recorded K3 inputs of the wide path "
                     "(morbit_tpu_torch.tools.round4_phases --record) to time too")
+    ap.add_argument("--paths", action="store_true",
+                    help="also hash one float32 batch of the main, n=20 and n=50 paths")
     ap.add_argument("--here", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.here:
-        print(json.dumps(time_here(args.wide_batch, args.inputs)), flush=True)
+        print(json.dumps(time_here(args.wide_batch, args.inputs, args.paths)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -171,7 +208,7 @@ def main(argv=None) -> int:
     for name in ("parent", "change", "change", "parent"):
         root = os.path.abspath(getattr(args, name))
         run = subprocess.run([sys.executable, me, "--here", "--parent", root]
-                             + ["--wide-batch"] * args.wide_batch
+                             + ["--wide-batch"] * args.wide_batch + ["--paths"] * args.paths
                              + (["--inputs", os.path.abspath(args.inputs)]
                                 if args.inputs else []),
                              cwd=root, capture_output=True, text=True)

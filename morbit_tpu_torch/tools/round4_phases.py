@@ -152,7 +152,7 @@ def phases_here(inputs) -> list:
     src = prepare_fused.ROUND4_SOURCE
     lib = _clock_probe.build(instrument(src.read_text()), "round4", cuda_build,
                              prepare_fused._SIGNATURES[src],
-                             (*prepare_fused.NO_FMA, "-I", str(cuda_build.CSRC)))
+                             (*cuda_build.NO_FMA, "-I", str(cuda_build.CSRC)))
     rows = []
     for dtype in (torch.float32, torch.float64):
         # the library's cache key: the source, or (source, dtype) where a

@@ -18,13 +18,22 @@ each:
   width 16 against the same trip of its shards of 2 lanes; the
   first trips at which some leaf differs at all, with the leaf, the lane
   and both values;
-* ``products``: the float64 library calls of the port's solves (``a @
-  b``, ``torch.linalg.solve_ex``, ``lu_factor_ex`` + ``lu_solve``,
-  ``cholesky_ex`` + ``cholesky_solve``) on random inputs of shape (16, k,
-  k) and (16, k, m): the (k, m, w) for which the first w lanes' results in
-  a batch of w are not equal to the bit to theirs in the batch of 16.
+* ``ops`` (not run by default): within the trip after each of
+  ``--trips``, every torch call's output lanes at width 16 against the
+  same call in the shards of 2 lanes, and the first call that differs,
+  with the line of the package that made it;
+* ``products``: the library calls of the port's solves on the card
+  (``torch.linalg.solve_ex`` at the fits' sizes, ``lu_factor_ex`` +
+  ``lu_solve`` at the polish's, ``a @ b`` with 1-3 columns; float64 and
+  float32, where the float32 products are ``lane_matmul``'s float64 sums,
+  ``lane_matmul_sum``)
+  and the float64 kernels that replace them (K6 ``lane_lu``, K7
+  ``lane_matmul``), and a lane's ``sum`` over k values, on random inputs of shape (16, k, k) and (16, k, m):
+  the (k, m, w) for which the first w lanes' results in a batch of w are
+  not equal to the bit to theirs in the batch of 16, w in 1, 2, 4, 8, and
+  the first such value of each call.
 
-    python3 -m morbit_tpu_torch.tools.width_gaps [--device cuda|cpu] [--parts runs lockstep products]
+    python3 -m morbit_tpu_torch.tools.width_gaps [--device cuda|cpu] [--parts runs lockstep ops products] [--trips T ...]
 
 Runs on the card unless ``--device cpu``.
 """
@@ -78,6 +87,44 @@ def _gap(x, y) -> float:
     if (np.isfinite(x) != np.isfinite(y)).any():
         return float("inf")
     return float(np.abs(np.where(both, x, 0.0) - np.where(both, y, 0.0)).max(initial=0.0))
+
+
+def leaves_apart(a: dict, b: dict) -> list:
+    """The leaves of two ``state_to_numpy`` dicts that are not equal to the
+    bit (shape, dtype and bytes)."""
+    return [name for name in a
+            if a[name].shape != b[name].shape or a[name].dtype != b[name].dtype
+            or a[name].tobytes() != b[name].tobytes()]
+
+
+def width_invariance(dev: str) -> dict:
+    """The float64 width check of ``chip_smoke.py`` (``width_invariance_f64``)
+    and of the card test: the plain runner over the meshes ``[dev] * k``,
+    k in 2, 4, 8, 16, and ``StagedMultistart(schedule=(3, 6), widths=(16, 8,
+    8))`` over a mesh of 4, each against the unsharded plain batch of 16
+    leaf by leaf after ``canonicalize_buffer_tails``: the leaves that are
+    not equal to the bit, whether the integers are equal and the largest
+    float gap."""
+    from morbit_tpu_torch import AlgorithmConfig, StagedMultistart, multistart_optimize
+    from morbit_tpu_torch.parallel.multistart import canonicalize_buffer_tails
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+    from morbit_tpu_torch.utils.carry import state_to_numpy
+
+    ac = AlgorithmConfig(max_iter=12, qp_iters=100)
+    x0 = torch.as_tensor(halton_starts(B, LB, UB), dtype=torch.float64, device=dev)
+    leaves = lambda r: state_to_numpy(canonicalize_buffer_tails(r.state))
+    ref = leaves(multistart_optimize(_mop(), x0, ac, torch.float64, device=dev))
+    todo = {f"plain_mesh{k}": lambda k=k: multistart_optimize(
+        _mop(), x0, ac, torch.float64, mesh=[dev] * k) for k in (2, 4, 8, 16)}
+    todo["staged_widths_mesh4"] = lambda: StagedMultistart(
+        _mop(), ac, torch.float64, schedule=(3, 6), widths=(16, 8, 8), mesh=[dev] * 4)(x0)
+    out = {}
+    for name, run in todo.items():
+        got = leaves(run())
+        ints_equal, gaps = leaf_gaps(got, ref, 2, 2)
+        out[name] = {"leaves_apart": leaves_apart(got, ref), "integers_equal": ints_equal,
+                     "largest_gap": max(gaps.values())}
+    return out
 
 
 def runs(x0, ac, dev: str) -> dict:
@@ -141,42 +188,174 @@ def lockstep(x0, ac, dev: str) -> list:
     return found
 
 
-def _ops():
-    """The float64 library calls of the port's solves, each on (A, b)."""
-    def lu(A, b):
-        LU, piv, _ = torch.linalg.lu_factor_ex(A)
-        return torch.linalg.lu_solve(LU, piv, b)
+class _OpLog(torch.overrides.TorchFunctionMode):
+    """Record each torch call's name and first caller line in the package,
+    and where the (first) tensor it returns has the batch's ``width``
+    lanes on its first axis, a copy of lanes ``lanes``. Factories
+    (``empty``) are skipped: the kernels fill them."""
 
-    def chol(A, b):
-        L, _ = torch.linalg.cholesky_ex(A @ A.transpose(-1, -2))
-        return torch.cholesky_solve(b, L)
+    SKIP = ("empty", "empty_like", "new_empty", "empty_strided")
 
-    return {"matmul": lambda A, b: A @ b,
-            "solve_ex": lambda A, b: torch.linalg.solve_ex(A, b)[0],
-            "lu_factor_solve": lu, "cholesky_solve": chol}
+    def __init__(self, width, lanes):
+        super().__init__()
+        self.width, self.lanes, self.log = width, lanes, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", str(func))
+        if name in self.SKIP:
+            return out
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        t = next((t for t in outs if isinstance(t, torch.Tensor)), None)
+        lane = t is not None and t.dim() and t.shape[0] == self.width
+        self.log.append((name, _caller(),
+                         t[self.lanes].detach().cpu().clone() if lane else None))
+        return out
+
+
+def _caller() -> str:
+    import sys
+
+    f = sys._getframe(2)
+    while f is not None:
+        fn = f.f_code.co_filename
+        if "morbit_tpu_torch" in fn and not fn.endswith("width_gaps.py"):
+            return f"{fn.split('morbit_tpu_torch/')[-1]}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
+
+
+def first_op_apart(x0, ac, dev: str, trips: int) -> dict:
+    """Op by op within one trip: from the state after ``trips`` trips of the
+    batch of B, that trip at width B and in shards of ``NARROW`` lanes
+    under :class:`_OpLog`; the first call whose lane slices differ (or
+    whose sequence parts: a host decision of the shard went another way),
+    with its name, caller, shard and largest gap."""
+    from morbit_tpu_torch import STOP_CODE
+    from morbit_tpu_torch.parallel.multistart import build_solver
+    from morbit_tpu_torch.utils.tree import tree_map, tree_where
+
+    solver = build_solver(_mop(), ac, torch.float64, dev)
+    state = solver.initialize(x0)
+    for _ in range(trips):
+        running = state.stop_code == STOP_CODE.CONTINUE
+        state = tree_where(running, solver.iterate(state), state)
+    first = None
+    for lo in range(0, B, NARROW):
+        lanes = slice(lo, lo + NARROW)
+        with _OpLog(B, lanes) as wide:
+            solver.iterate(state)
+        sub = tree_map(lambda t: t[lanes], state)
+        with _OpLog(NARROW, slice(None)) as narrow:
+            solver.iterate(sub)
+        for i, ((na, ca, a), (nb, cb, b)) in enumerate(zip(wide.log, narrow.log)):
+            if (na, ca) != (nb, cb):
+                hit = {"op": i, "shard": lo, "wide": [na, ca], "narrow": [nb, cb],
+                       "kind": "sequence"}
+            elif a is None or b is None or a.shape != b.shape:
+                continue
+            elif a.dtype.is_floating_point and not torch.equal(
+                    torch.nan_to_num(a, 0.0, 1.0, -1.0), torch.nan_to_num(b, 0.0, 1.0, -1.0)):
+                gap = float((a - b).abs().nan_to_num(0.0).max())
+                hit = {"op": i, "shard": lo, "call": na, "at": ca, "kind": "value",
+                       "largest_gap": gap}
+            elif not a.dtype.is_floating_point and not torch.equal(a, b):
+                hit = {"op": i, "shard": lo, "call": na, "at": ca, "kind": "value"}
+            else:
+                continue
+            if first is None or hit["op"] < first["op"]:
+                first = hit
+            break
+    return {"trip": trips + 1, "ops_of_trip": len(wide.log), "first_apart": first}
+
+
+#: the shapes of the port's float64 solves: the RBF fits' KKT size k (the
+#: main path's 9 and 12, the n=10 path's 77, the n=20 path's 272, 600, the
+#: n=50 path's 1,377) and the polish's K (nv + m: 9, 11, the n=20 path's 63
+#: and the n=50 path's 153)
+FIT_K = (9, 12, 77, 272, 600, 1377)
+POLISH_K = (9, 11, 63, 153)
+#: right-hand sides of a fit (one column an objective) and columns of a product
+FIT_M = 2
+PRODUCT_M = (1, 2, 3)
+#: the lengths of the per-lane sums measured (the main path's 2-12, ZDT's
+#: n = 20 and 50, the fits' k)
+SUM_K = (12, 20, 50, 77, 272, 1377)
+#: the narrower batches held against the batch of B
+WIDTHS = (1, 2, 4, 8)
+
+
+def _lu(A, b):
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
+    return torch.linalg.lu_solve(LU, piv, b)
+
+
+def _k6(A, b):
+    from morbit_tpu_torch.ops import lane_linalg
+
+    LU, perm, _ = lane_linalg.lane_lu_factor(A)
+    return lane_linalg.lane_lu_solve(LU, perm, b)
+
+
+def _cases():
+    """(name, dtype, shapes, op): the library calls the port makes on the
+    card and, at float64, the kernels that replace them (K6 ``lane_lu``,
+    K7 ``lane_matmul``). The shapes are (k, m) of a (B, k, k) matrix and a
+    (B, k, m) right-hand side or factor."""
+    from morbit_tpu_torch.ops import lane_linalg
+
+    fits = [(k, FIT_M) for k in FIT_K]
+    polish = [(k, 1) for k in POLISH_K]
+    prods = [(k, m) for k in sorted(set(FIT_K + POLISH_K)) for m in PRODUCT_M]
+    f64_sum = lambda A, b: (A.double() @ b.double()).to(A.dtype)
+    out = []
+    for dt in (torch.float64, torch.float32):
+        out += [("solve_ex", dt, fits, lambda A, b: torch.linalg.solve_ex(A, b)[0]),
+                ("lu_factor_solve", dt, polish, _lu)]
+    # a lane's sum over k values (one output a lane), PyTorch's reduction
+    sums = [(k, 1) for k in SUM_K]
+    out += [("sum", dt, sums, lambda A, b: A[:, 0].contiguous().sum(-1))
+            for dt in (torch.float64, torch.float32)]
+    out += [("matmul", torch.float64, prods, lambda A, b: A @ b),
+            ("lane_matmul_sum", torch.float32, prods, f64_sum),
+            ("lane_lu", torch.float64, fits + polish, _k6),
+            ("lane_matmul", torch.float64, prods, lane_linalg.lane_matmul)]
+    return out
 
 
 def products(dev: str) -> dict:
-    """For each library call, the (k, m, w) at which the first w lanes'
-    results of a batch of w differ from theirs in the batch of 16."""
+    """For each call, the (k, m, w) at which the first w lanes' results of
+    a batch of w differ from theirs in the batch of B, and at each (k, m)
+    the first differing value of the narrowest such w (both widths'
+    values, lane and index)."""
     g = torch.Generator(device=dev).manual_seed(0)
-    apart = {name: [] for name in _ops()}
-    for k in (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 77, 128):
-        for m in (1, 2):
-            A = torch.randn(B, k, k, dtype=torch.float64, device=dev, generator=g)
-            b = torch.randn(B, k, m, dtype=torch.float64, device=dev, generator=g)
-            for name, op in _ops().items():
-                full = op(A, b)
-                for w in (1, 2, 3, 4, 8):
-                    if not torch.equal(full[:w], op(A[:w], b[:w])):
-                        apart[name].append([k, m, w])
-    return apart
+    apart, first = {}, {}
+    for name, dt, shapes, op in _cases():
+        key = f"{name}_{'f64' if dt == torch.float64 else 'f32'}"
+        apart[key] = []
+        for k, m in shapes:
+            A = torch.randn(B, k, k, dtype=dt, device=dev, generator=g)
+            b = torch.randn(B, k, m, dtype=dt, device=dev, generator=g)
+            full = op(A, b)
+            for w in WIDTHS:
+                part = op(A[:w], b[:w])
+                if torch.equal(full[:w], part):
+                    continue
+                apart[key].append([k, m, w])
+                shape = f"k{k}_m{m}"
+                if shape not in first.setdefault(key, {}):
+                    at = tuple(int(i) for i in torch.nonzero(full[:w] != part)[0])
+                    first[key][shape] = {"w": w, "at": list(at), "width_w": float(part[at]),
+                                         f"width_{B}": float(full[at])}
+    return {"k_m_w_apart": apart, "first_apart": first}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--device", default="cuda")
     p.add_argument("--parts", nargs="*", default=["runs", "lockstep", "products"])
+    p.add_argument("--trips", type=int, nargs="*", default=[0],
+                   help="for the ops part: the trips after which to compare op by op")
     args = p.parse_args(argv)
     dev = args.device
     from morbit_tpu_torch import AlgorithmConfig
@@ -192,9 +371,13 @@ def main(argv=None):
         print(json.dumps({"part": "lockstep", "card": card, "width": NARROW,
                           "first_trips_apart": lockstep(x0, ac, dev)}),
               flush=True)
+    if "ops" in args.parts:
+        for t in args.trips:
+            print(json.dumps({"part": "ops", "card": card, "width": NARROW,
+                              **first_op_apart(x0, ac, dev, t)}), flush=True)
     if "products" in args.parts:
-        print(json.dumps({"part": "products", "card": card,
-                          "k_m_w_apart_from_width_16": products(dev)}), flush=True)
+        print(json.dumps({"part": "products", "card": card, "of_width": B,
+                          **products(dev)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ from chip_smoke import (K5_EDGES, ROUND4_EDGES, SEL_NAMES, SEL_STATICS,
                         selection_lattice_case)
 from morbit_tpu_torch.ops import qp_lane
 from morbit_tpu_torch.ops.qp import _rho_vec
+from morbit_tpu_torch.tools.width_gaps import FIT_K, FIT_M, POLISH_K, PRODUCT_M
 
 
 #: K1's shapes past its warp instance: ZDT1's steepest-descent LP (nv = n+1,
@@ -629,16 +630,6 @@ def test_parametric_on_card_matches_cpu(cuda):
                                    rtol=0, atol=1e-10, err_msg=k)
 
 
-#: the float leaves of the staged runner over the mesh on the card that part
-#: from the plain runner's beyond 1e-12, each bounded just above its largest
-#: absolute gap as ``morbit_tpu_torch/tools/width_gaps.py`` measured it on an
-#: NVIDIA H100 80GB HBM3 (700 W): each shard runs stages 4 and 2 lanes wide,
-#: and below 3 lanes the card's float64 LU solves (``torch.linalg.solve_ex``,
-#: ``lu_factor_ex``) take another algorithm and round otherwise (ROADMAP 3.15)
-STAGED_MESH_GAPS = {"traj.rho": 3e-5, "traj.omega": 5e-11, "groups.0.db.data": 5e-11,
-                    "groups.0.model.fit.fdata": 2e-5, "groups.0.model.fit.flam": 4e-9}
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("runner", ["plain", "staged_widths", "parametric"])
 def test_mesh_on_card_matches_unsharded(cuda, runner):
@@ -647,8 +638,10 @@ def test_mesh_on_card_matches_unsharded(cuda, runner):
     plain runner, ``StagedMultistart`` with widths (per shard) and
     ``parametric_multistart``, each equal to its unsharded run leaf by
     leaf: integers exact, every float leaf within 1e-12 (the trajectory
-    column by column), but for the staged runner the leaves of
-    STAGED_MESH_GAPS within their bounds."""
+    column by column). The float64 solves and lane products go through K6
+    and K7 on the card, whose bits do not depend on a shard's width
+    (ROADMAP 3.15), so the staged runner's stages of 4 and 2 lanes a shard
+    are held as tightly as the plain runner."""
     from chip_smoke import LB, UB, rbf_mop
     from morbit_tpu_torch import (AlgorithmConfig, StagedMultistart, multistart_optimize,
                                   parametric_multistart)
@@ -677,6 +670,113 @@ def test_mesh_on_card_matches_unsharded(cuda, runner):
         assert a[name].dtype == b[name].dtype and a[name].shape == b[name].shape, name
     ints_equal, gaps = leaf_gaps(a, b, 2, 2)
     assert ints_equal
-    bounds = STAGED_MESH_GAPS if runner == "staged_widths" else {}
     for name, gap in gaps.items():
-        assert gap <= bounds.get(name, 1e-12), (name, gap)
+        assert gap <= 1e-12, (name, gap)
+
+
+#: K6's (k, m) at the port's float64 solves (``width_gaps.py``: the RBF
+#: fits' k with two right-hand sides, the polish's K with one) and K7's
+#: (k, m) products, each at batch widths 1, 2 and 16
+LANE_LU_SHAPES = [(k, FIT_M) for k in FIT_K] + [(k, 1) for k in POLISH_K] + [(12, 3)]
+LANE_MATMUL_SHAPES = [(k, m) for k in sorted(set(FIT_K + POLISH_K)) for m in PRODUCT_M]
+LANE_WIDTHS = (1, 2, 16)
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        (a.contiguous().view(torch.uint8) == b.contiguous().view(torch.uint8)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k,m", LANE_LU_SHAPES)
+def test_lane_lu_kernel_matches_twin(cuda, k, m, dtype):
+    """K6's factor and solve against their twins on the card, to the bit
+    (LU, permutation, info, x), the first w lanes of a batch of w against
+    the twin's batch of 16; lane 3 is exactly singular (a zero column), so
+    its info is set and ``lu_solve_nan`` gives nan on it alone."""
+    from morbit_tpu_torch.ops import lane_linalg as ll
+
+    rng = np.random.default_rng(1000 * k + m)
+    A = torch.as_tensor(rng.standard_normal((16, k, k)), dtype=dtype, device=cuda)
+    A[3, :, k // 2] = 0.0
+    b = torch.as_tensor(rng.standard_normal((16, k, m)), dtype=dtype, device=cuda)
+    LU_t, perm_t, info_t = ll.lane_lu_factor_plain(A)
+    x_t = ll.lane_lu_solve_plain(LU_t, perm_t, b)
+    assert int(info_t[3]) == k // 2 + 1 or k == 1
+    for w in LANE_WIDTHS:
+        LU, perm, info = ll.lane_lu_factor_cuda(A[:w].contiguous())
+        x = ll.lane_lu_solve_cuda(LU, perm, b[:w].contiguous())
+        torch.cuda.synchronize()
+        for name, got, want in (("LU", LU, LU_t), ("perm", perm, perm_t),
+                                ("info", info, info_t), ("x", x, x_t)):
+            assert _bits_equal(got, want[:w]), (name, w)
+    x = ll.lu_solve_nan(A, b)
+    nan_lanes = torch.isnan(x).flatten(1).all(1).cpu().numpy()
+    assert nan_lanes[3] and not nan_lanes[np.arange(16) != 3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", LANE_MATMUL_SHAPES)
+def test_lane_matmul_kernel_matches_twin(cuda, k, m):
+    """K7 against its twin on the card at float64, to the bit, the first w
+    lanes of a batch of w against the twin's batch of 16; also a transposed
+    operand and a broadcast batch axis, as ``lane_matmul``'s callers pass
+    them."""
+    from morbit_tpu_torch.ops import lane_linalg as ll
+
+    rng = np.random.default_rng(10 * k + m)
+    a = torch.as_tensor(rng.standard_normal((16, k, k)), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((16, k, m)), device=cuda)
+    want = ll.lane_matmul_plain(a, b)
+    for w in LANE_WIDTHS:
+        assert _bits_equal(ll.lane_matmul_cuda(a[:w], b[:w]), want[:w]), w
+    at = a.transpose(-1, -2)
+    assert _bits_equal(ll.lane_matmul_cuda(at, b), ll.lane_matmul_plain(at, b))
+    assert _bits_equal(ll.lane_matmul_cuda(a, b[0]), ll.lane_matmul_plain(a, b[0]))
+
+
+@pytest.mark.cuda
+def test_float64_routes_to_lane_kernels(cuda):
+    """On the card, ``solve_small``'s float64 LU branch, the float64 polish
+    and float64 ``lane_matmul`` launch K6 and K7 and never the library
+    calls whose bits depend on the batch width; float32 calls keep their
+    paths."""
+    from morbit_tpu_torch.ops import batched_linalg, lane_linalg as ll
+    from morbit_tpu_torch.ops.qp import _polish
+
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.standard_normal((4, 12, 12)), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((4, 12, 2)), device=cuda)
+    P, q, Aq, lo, hi = (torch.as_tensor(t, device=cuda) for t in random_qps(4, 21, 42, 0))
+    z, y = torch.zeros_like(q), torch.zeros_like(lo)
+    refuse = lambda *a, **k: pytest.fail("a float64 library solve ran on the card")
+    with unittest.mock.patch.object(torch.linalg, "solve_ex", refuse), \
+            unittest.mock.patch.object(torch.linalg, "lu_factor_ex", refuse), \
+            unittest.mock.patch.object(torch.linalg, "lu_solve", refuse):
+        ll.lu_factor_launches = ll.lu_solve_launches = ll.matmul_launches = 0
+        x = batched_linalg.solve_small(A, b)
+        assert (ll.lu_factor_launches, ll.lu_solve_launches) == (1, 1)
+        assert _bits_equal(x, ll.lu_solve_nan(A, b))
+        _polish(P, q, Aq, lo, hi, z, y)
+        assert (ll.lu_factor_launches, ll.lu_solve_launches) == (3, 6)
+        launched = ll.matmul_launches
+        assert _bits_equal(batched_linalg.lane_matmul(A, b), ll.lane_matmul_plain(A, b))
+        assert ll.matmul_launches == launched + 1
+    launched = ll.matmul_launches
+    batched_linalg.lane_matmul(A.float(), b.float())
+    assert ll.matmul_launches == launched
+
+
+@pytest.mark.cuda
+def test_width_invariance_f64(cuda):
+    """``width_gaps.py``'s problem at float64 (two parabolas, one
+    multiquadric group, 16 Halton starts, max_iter=12, qp_iters=100): the
+    plain runner over meshes of the card 2, 4, 8 and 16 times (shards of 8,
+    4, 2 and 1 lanes) and ``StagedMultistart(schedule=(3, 6), widths=(16,
+    8, 8))`` over a mesh of 4 each equal to the unsharded plain batch of 16
+    to the bit, in every leaf after ``canonicalize_buffer_tails``."""
+    from morbit_tpu_torch.tools.width_gaps import width_invariance
+
+    out = width_invariance("cuda")
+    assert all(not r["leaves_apart"] for r in out.values()), out
