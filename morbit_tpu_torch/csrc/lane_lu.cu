@@ -34,17 +34,24 @@
 // Where the lane lives: the factor keeps its matrix in shared memory (rows
 // padded to an odd count of values) where it fits the 227 KB a block may
 // use, k <= 169 at float64, and factors it in place in the output otherwise
-// (the n = 50 path's fits, k = 1,377); the solve keeps x in shared memory
-// where k m values fit, in the output otherwise. The wrapper plans the
-// placement from (k, m, dtype) alone (ops/lane_linalg.py: lu_factor_plan,
-// lu_solve_plan), and the arithmetic is the same in either.
+// (the n = 50 path's fits, k = 1,377), there in panels of kPanel columns
+// (lane_lu_factor_blocked_kernel): the panel is factored column by column,
+// its rows of U are finished by a forward substitution, and the trailing
+// matrix takes the panel's kPanel updates at once, tile by tile through
+// shared memory, so it streams through memory once a panel rather than
+// once a column. Each entry still takes its updates one at a time in
+// column order, so the blocked factor equals the unblocked one to the bit.
+// The solve keeps x in shared memory where k m values fit, in the output
+// otherwise. The wrapper plans the placement from (k, m, dtype) alone
+// (ops/lane_linalg.py: lu_factor_plan, lu_solve_plan), and the arithmetic
+// is the same in either.
 //
 // Bound on the H100: the factor does 2k^3/3 operations on k^2 values a lane
-// (at k = 1,377: 1.74 GFLOP on 15 MB, so operations bound it at the FP64
-// rate, ~0.05 ms a lane); this design runs one lane on one SM and moves its
-// trailing matrix through shared memory or L2 once a column, so it is far
-// from that bound (PERF.md). The solve does 2k^2 m operations on k^2 + 2km
-// values and is bound by reading LU.
+// (at k = 1,377: 1.74 GFLOP on 15 MB, so operations bound it, ~0.03 ms a
+// lane at the card's 67 TFLOP/s float64 peak); this design runs one lane on
+// one SM with separate multiplies and subtracts, so it is far from that
+// bound (PERF.md). The solve does 2k^2 m operations on k^2 + 2km values and
+// is bound by reading LU.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,10 +60,14 @@ namespace {
 
 constexpr size_t kMaxSmemBytes = 232448;   // 227 KB, the H100's per-block limit
 constexpr int kWarps = 32;                 // at most 1024 threads a block
+// the blocked factor: panel width, and the trailing update's tiles (rows x
+// columns; 1024 threads, each a row and every kTileLanes-th column)
+constexpr int kPanel = 32;
+constexpr int kTileRows = 64, kTileCols = 64, kTileLanes = 16;
 
 // threads of a factor block: enough for the trailing matrix's rows, at most
 // 1024 (the lane's arithmetic is the same for any count)
-__host__ inline int factor_threads(int k) { return k <= 64 ? 128 : k <= 256 ? 256 : 1024; }
+__host__ inline int factor_threads(int k) { return k <= 64 ? 128 : 256; }
 __host__ inline int solve_threads(int k, int m) {
   const long long e = (long long)k * m;
   return e <= 128 ? 128 : e <= 256 ? 256 : 1024;
@@ -67,10 +78,12 @@ __host__ inline int solve_threads(int k, int m) {
 __host__ __device__ inline int factor_ld(int k) { return k % 2 == 0 ? k + 1 : k; }
 
 // dynamic shared memory of a factor block: the reduction's values and rows,
-// the permutation, and where `shared` the lane's matrix
+// the permutation, and where `shared` the lane's matrix, else the blocked
+// factor's tiles (L's kTileRows x kPanel, U's kPanel x kTileCols)
 __host__ __device__ inline size_t factor_smem_bytes(int k, int item, bool shared) {
   return (size_t)kWarps * (item + 4) + (size_t)k * 4 +
-         (shared ? (size_t)k * factor_ld(k) * item : 0);
+         (shared ? (size_t)k * factor_ld(k) * item
+                 : (size_t)(kTileRows + kTileCols) * kPanel * item);
 }
 
 // |v| at row i against the best so far (bv at row bi; bi < 0: none yet)
@@ -82,10 +95,68 @@ __device__ __forceinline__ bool better(T v, int i, T bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+// Column j of a factor block's matrix a (row stride ld): the pivot, the
+// first row p >= j of the largest |a_pj| (a block-wide reduction), the
+// swap of rows j and p, whole, and the permutation's; then l_i = a_ij / d
+// below the diagonal, or, where d = a_jj is 0, info (the first such
+// column, from 1) and the column left as it is. Ends at a barrier.
+template <typename T>
+__device__ void pivot_column(T* a, int ld, int k, int j, T* red_v, int* red_i, int* perm,
+                             int* piv, int* info) {
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, wl = tid & 31;
+  const int nwarps = nt >> 5;
+  T bv = T(0);
+  int bi = -1;
+  for (int i = j + tid; i < k; i += nt) {
+    const T v = fabs(a[(long long)i * ld + j]);
+    if (better(v, i, bv, bi)) bv = v, bi = i;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ov = __shfl_down_sync(0xffffffffu, bv, off);
+    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+    if (oi >= 0 && better(ov, oi, bv, bi)) bv = ov, bi = oi;
+  }
+  if (wl == 0) red_v[warp] = bv, red_i[warp] = bi;
+  __syncthreads();
+  if (warp == 0) {
+    bv = wl < nwarps ? red_v[wl] : T(0);
+    bi = wl < nwarps ? red_i[wl] : -1;
+    for (int off = 16; off > 0; off >>= 1) {
+      const T ov = __shfl_down_sync(0xffffffffu, bv, off);
+      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+      if (oi >= 0 && better(ov, oi, bv, bi)) bv = ov, bi = oi;
+    }
+    if (wl == 0) {
+      *piv = bi;
+      if (bi != j) {
+        const int t = perm[j];
+        perm[j] = perm[bi], perm[bi] = t;
+      }
+    }
+  }
+  __syncthreads();
+  const int p = *piv;
+  if (p != j)
+    for (int c = tid; c < k; c += nt) {
+      const T t = a[(long long)j * ld + c];
+      a[(long long)j * ld + c] = a[(long long)p * ld + c];
+      a[(long long)p * ld + c] = t;
+    }
+  __syncthreads();
+  const T d = a[(long long)j * ld + j];
+  if (d == T(0)) {
+    if (tid == 0 && *info == 0) *info = j + 1;
+  } else {
+    for (int i = j + 1 + tid; i < k; i += nt) a[(long long)i * ld + j] /= d;
+  }
+  __syncthreads();
+}
+
+// The factor with the lane's matrix in shared memory (k <= 169 at float64).
 template <typename T>
 __global__ void lane_lu_factor_kernel(const T* __restrict__ A, T* __restrict__ LU,
                                       int* __restrict__ perm_out, int* __restrict__ info_out,
-                                      int k, int shared) {
+                                      int k) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* red_v = reinterpret_cast<T*>(smem);
   int* red_i = reinterpret_cast<int*>(red_v + kWarps);
@@ -95,69 +166,18 @@ __global__ void lane_lu_factor_kernel(const T* __restrict__ A, T* __restrict__ L
   const int nwarps = nt >> 5;
   const T* Ag = A + lane * k * k;
   T* LUg = LU + lane * k * k;
-  int ld = k;
-  T* a = LUg;
-  if (shared) {
-    ld = factor_ld(k);
-    a = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(perm) +
-                             ((size_t)k * 4 + 15) / 16 * 16);
-    for (int r = warp; r < k; r += nwarps)
-      for (int c = wl; c < k; c += 32) a[r * ld + c] = Ag[(long long)r * k + c];
-  } else {
-    for (long long e = tid; e < (long long)k * k; e += nt) a[e] = Ag[e];
-  }
+  const int ld = factor_ld(k);
+  T* a = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(perm) +
+                              ((size_t)k * 4 + 15) / 16 * 16);
+  for (int r = warp; r < k; r += nwarps)
+    for (int c = wl; c < k; c += 32) a[r * ld + c] = Ag[(long long)r * k + c];
   for (int i = tid; i < k; i += nt) perm[i] = i;
   __shared__ int info, piv;
   if (tid == 0) info = 0;
   __syncthreads();
 
   for (int j = 0; j < k; ++j) {
-    // pivot: the first row of the largest |a_ij|, i >= j
-    T bv = T(0);
-    int bi = -1;
-    for (int i = j + tid; i < k; i += nt) {
-      const T v = fabs(a[(long long)i * ld + j]);
-      if (better(v, i, bv, bi)) bv = v, bi = i;
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const T ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (oi >= 0 && better(ov, oi, bv, bi)) bv = ov, bi = oi;
-    }
-    if (wl == 0) red_v[warp] = bv, red_i[warp] = bi;
-    __syncthreads();
-    if (warp == 0) {
-      bv = wl < nwarps ? red_v[wl] : T(0);
-      bi = wl < nwarps ? red_i[wl] : -1;
-      for (int off = 16; off > 0; off >>= 1) {
-        const T ov = __shfl_down_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (oi >= 0 && better(ov, oi, bv, bi)) bv = ov, bi = oi;
-      }
-      if (wl == 0) {
-        piv = bi;
-        if (bi != j) {
-          const int t = perm[j];
-          perm[j] = perm[bi], perm[bi] = t;
-        }
-      }
-    }
-    __syncthreads();
-    const int p = piv;
-    if (p != j)
-      for (int c = tid; c < k; c += nt) {
-        const T t = a[(long long)j * ld + c];
-        a[(long long)j * ld + c] = a[(long long)p * ld + c];
-        a[(long long)p * ld + c] = t;
-      }
-    __syncthreads();
-    const T d = a[(long long)j * ld + j];
-    if (d == T(0)) {
-      if (tid == 0 && info == 0) info = j + 1;
-    } else {
-      for (int i = j + 1 + tid; i < k; i += nt) a[(long long)i * ld + j] /= d;
-    }
-    __syncthreads();
+    pivot_column(a, ld, k, j, red_v, red_i, perm, &piv, &info);
     // trailing update, rows over the warps and columns over their lanes
     for (int i = j + 1 + warp; i < k; i += nwarps) {
       T* row = a + (long long)i * ld;
@@ -168,9 +188,106 @@ __global__ void lane_lu_factor_kernel(const T* __restrict__ A, T* __restrict__ L
     __syncthreads();
   }
 
-  if (shared)
-    for (int r = warp; r < k; r += nwarps)
-      for (int c = wl; c < k; c += 32) LUg[(long long)r * k + c] = a[r * ld + c];
+  for (int r = warp; r < k; r += nwarps)
+    for (int c = wl; c < k; c += 32) LUg[(long long)r * k + c] = a[r * ld + c];
+  for (int i = tid; i < k; i += nt) perm_out[lane * k + i] = perm[i];
+  if (tid == 0) info_out[lane] = info;
+}
+
+// The factor in place in global memory, in panels of kPanel columns (see the
+// header). For the panel j0 .. j1-1:
+//   1. each column j of it: pivot_column, then a_ic = a_ic - l_i * a_jc for
+//      rows i > j and the panel's columns c in (j, j1);
+//   2. the panel's rows of U right of it: for c >= j1 and j = j0+1 .. j1-1,
+//      a_jc = a_jc - l_jt * a_tc for t = j0 .. j-1 in turn;
+//   3. the trailing matrix, i, c >= j1: a_ic = a_ic - l_it * a_tc for
+//      t = j0 .. j1-1 in turn, by tiles of kTileRows x kTileCols with the
+//      tile's l and u staged in shared memory.
+// Every entry so takes the updates of the unblocked factor, from the same
+// values and in the same column order, each a multiply and a subtract.
+template <typename T>
+__global__ void lane_lu_factor_blocked_kernel(const T* __restrict__ A, T* __restrict__ LU,
+                                              int* __restrict__ perm_out,
+                                              int* __restrict__ info_out, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* red_v = reinterpret_cast<T*>(smem);
+  int* red_i = reinterpret_cast<int*>(red_v + kWarps);
+  int* perm = red_i + kWarps;
+  T* ls = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(perm) +
+                               ((size_t)k * 4 + 15) / 16 * 16);   // kTileRows x kPanel
+  T* us = ls + kTileRows * kPanel;                                 // kPanel x kTileCols
+  const long long lane = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, wl = tid & 31;
+  const int nwarps = nt >> 5;
+  const T* Ag = A + lane * k * k;
+  T* a = LU + lane * k * k;
+  for (long long e = tid; e < (long long)k * k; e += nt) a[e] = Ag[e];
+  for (int i = tid; i < k; i += nt) perm[i] = i;
+  __shared__ int info, piv;
+  if (tid == 0) info = 0;
+  __syncthreads();
+
+  for (int j0 = 0; j0 < k; j0 += kPanel) {
+    const int j1 = min(j0 + kPanel, k);
+    // 1. the panel, column by column
+    for (int j = j0; j < j1; ++j) {
+      pivot_column(a, k, k, j, red_v, red_i, perm, &piv, &info);
+      for (int i = j + 1 + warp; i < k; i += nwarps) {
+        T* row = a + (long long)i * k;
+        const int c = j + 1 + wl;
+        if (c < j1) row[c] = row[c] - row[j] * a[(long long)j * k + c];
+      }
+      __syncthreads();
+    }
+    if (j1 == k) break;
+    // 2. the panel's rows of U, one column a thread, the unknowns in turn
+    for (int c = j1 + tid; c < k; c += nt)
+      for (int j = j0 + 1; j < j1; ++j) {
+        T s = a[(long long)j * k + c];
+        for (int t = j0; t < j; ++t) s = s - a[(long long)j * k + t] * a[(long long)t * k + c];
+        a[(long long)j * k + c] = s;
+      }
+    __syncthreads();
+    // 3. the trailing matrix, tile by tile
+    const int w = j1 - j0;
+    const int tr = tid / kTileLanes, tc = tid % kTileLanes;   // columns tc + kTileLanes q
+    for (int r0 = j1; r0 < k; r0 += kTileRows) {
+      for (int e = tid; e < kTileRows * kPanel; e += nt) {
+        const int r = r0 + e / kPanel, t = e % kPanel;
+        ls[e] = (r < k && t < w) ? a[(long long)r * k + j0 + t] : T(0);
+      }
+      for (int c0 = j1; c0 < k; c0 += kTileCols) {
+        for (int e = tid; e < kPanel * kTileCols; e += nt) {
+          const int t = e / kTileCols, c = c0 + e % kTileCols;
+          us[e] = (t < w && c < k) ? a[(long long)(j0 + t) * k + c] : T(0);
+        }
+        __syncthreads();
+        const int r = r0 + tr;
+        if (tr < kTileRows && r < k) {
+          T* row = a + (long long)r * k;
+          T v[kTileCols / kTileLanes];
+#pragma unroll
+          for (int q = 0; q < kTileCols / kTileLanes; ++q) {
+            const int c = c0 + tc + kTileLanes * q;
+            v[q] = c < k ? row[c] : T(0);
+          }
+          for (int t = 0; t < w; ++t) {
+            const T l = ls[tr * kPanel + t];
+#pragma unroll
+            for (int q = 0; q < kTileCols / kTileLanes; ++q)
+              v[q] = v[q] - l * us[t * kTileCols + tc + kTileLanes * q];
+          }
+#pragma unroll
+          for (int q = 0; q < kTileCols / kTileLanes; ++q) {
+            const int c = c0 + tc + kTileLanes * q;
+            if (c < k) row[c] = v[q];
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
   for (int i = tid; i < k; i += nt) perm_out[lane * k + i] = perm[i];
   if (tid == 0) info_out[lane] = info;
 }
@@ -231,12 +348,19 @@ int factor(const T* A, T* LU, int* perm, int* info, long long B, int k, int shar
            size_t smem, void* stream) {
   if (B <= 0) return 0;
   if (k < 1 || B > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t need = factor_smem_bytes(k, sizeof(T), shared != 0) + (shared ? 16 : 0);
+  const size_t need = factor_smem_bytes(k, sizeof(T), shared != 0) + 16;
   if (smem < need || smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(lane_lu_factor_kernel<T>), smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  lane_lu_factor_kernel<T><<<(unsigned)B, factor_threads(k), smem,
-                             static_cast<cudaStream_t>(stream)>>>(A, LU, perm, info, k, shared);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shared) {
+    cudaError_t e = allow_smem(reinterpret_cast<const void*>(lane_lu_factor_kernel<T>), smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    lane_lu_factor_kernel<T><<<(unsigned)B, factor_threads(k), smem, st>>>(A, LU, perm, info, k);
+  } else {
+    cudaError_t e =
+        allow_smem(reinterpret_cast<const void*>(lane_lu_factor_blocked_kernel<T>), smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    lane_lu_factor_blocked_kernel<T><<<(unsigned)B, 1024, smem, st>>>(A, LU, perm, info, k);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

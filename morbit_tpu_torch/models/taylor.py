@@ -32,7 +32,7 @@ import torch
 from morbit_tpu_torch.core import database as dbm
 from morbit_tpu_torch.core import scaling
 from morbit_tpu_torch.models.base import ModelContext, SurrogateOps
-from morbit_tpu_torch.ops.batched_linalg import lane_product
+from morbit_tpu_torch.ops.batched_linalg import lane_contract, lane_product
 from morbit_tpu_torch.ops.geometry import project_into_box
 
 # First-order stamps: (grid, coefficients), derivative ~ sum c_a f(x + h g_a e_i) / h
@@ -195,21 +195,10 @@ class TaylorOps(SurrogateOps):
         if self.cfg.mode == "fd":
             _, Y = dbm.get_rows(db, state.site_idx)                  # (B, S, m)
             h = torch.tensor(self.h, dtype=self.dtype)
-            G = self._const("G", x.device)
+            g = lane_contract(self._const("G", x.device), Y) / h
             if self.degree >= 2:
-                Hc = self._const("Hc", x.device)
-            if Y.dtype == torch.float64 and Y.is_cuda:
-                # the two einsums as K7's products (ROADMAP 3.15)
-                Yt = Y.transpose(-1, -2)                                # (B, m, S)
-                g = lane_product(Yt, G.transpose(0, 1)) / h
-                if self.degree >= 2:
-                    HY = lane_product(Yt, Hc.reshape(-1, Hc.shape[-1]).transpose(0, 1))
-                    H = HY.reshape(HY.shape[:2] + Hc.shape[:2]) / h ** 2
+                H = lane_contract(self._const("Hc", x.device), Y) / h ** 2
             else:
-                g = torch.einsum("is,bsm->bmi", G, Y) / h
-                if self.degree >= 2:
-                    H = torch.einsum("ijs,bsm->bmij", Hc, Y) / h ** 2
-            if self.degree < 2:
                 H = torch.zeros_like(state.H)
         else:
             xu = scaling.untransform(ctx.scal, x)

@@ -56,6 +56,31 @@ def lane_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def lane_contract(C: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """``einsum("...s,bsm->bm...", C, Y)``: a constant ``C`` (..., S)
+    applied to each lane's ``Y`` (B, S, m). Float64 CUDA tensors take K7
+    (:func:`lane_product`); every other tensor the einsum as before."""
+    if Y.dtype == torch.float64 and Y.device.type != "cpu":
+        out = lane_linalg.lane_matmul_cuda(Y.transpose(-1, -2),
+                                           C.reshape(-1, C.shape[-1]).transpose(0, 1))
+        return out.reshape(out.shape[:2] + C.shape[:-1])
+    idx = "ijkl"[:C.dim() - 1]
+    return torch.einsum(f"{idx}s,bsm->bm{idx}", C, Y)
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Each lane's sum of ``x`` (B, ...) over all but its first axis. On
+    the card PyTorch's reduction splits a long sum over more threads when
+    it has fewer outputs, so past 64 values its bits depend on the batch
+    width (ROADMAP 3.15); float64 CUDA tensors therefore sum in index order
+    from +0 by K7 against ones. Every other tensor keeps ``sum``."""
+    if x.dtype == torch.float64 and x.device.type != "cpu":
+        flat = x.reshape(x.shape[0], 1, -1)
+        ones = torch.ones((flat.shape[-1], 1), dtype=x.dtype, device=x.device)
+        return lane_linalg.lane_matmul_cuda(flat, ones)[:, 0, 0]
+    return x.sum(tuple(range(1, x.dim())))
+
+
 def lane_matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``M (..., k, n) @ v (..., n)`` by :func:`lane_matmul`."""
     return lane_matmul(M, v[..., None])[..., 0]

@@ -6,19 +6,20 @@ the launch (``torch.linalg.solve_ex``, ``lu_factor_ex`` + ``lu_solve`` and
 ``a @ b``: cuSOLVER and cuBLAS choose their algorithm by the batch size,
 ROADMAP 3.15). Here one lane's result is one fixed sequence of roundings:
 
-* K6 ``csrc/lane_lu.cu`` — :func:`lane_lu_factor` (partial pivoting,
-  right-looking, one block a lane) and :func:`lane_lu_solve`;
-* K7 ``csrc/lane_matmul.cu`` — :func:`lane_matmul` at float64, one thread
-  an output entry, each sum in index order.
+* K6 ``csrc/lane_lu.cu`` — :func:`lane_lu_factor_cuda` (partial
+  pivoting, right-looking, one block a lane; in panels where the lane
+  lives in global memory) and :func:`lane_lu_solve_cuda`;
+* K7 ``csrc/lane_matmul.cu`` — :func:`lane_matmul_cuda`, float64, one
+  thread an output entry, each sum in index order.
 
-Routing (:mod:`morbit_tpu_torch.ops.batched_linalg`, :mod:`morbit_tpu_torch.ops.qp`):
-float64 CUDA tensors launch these kernels; CPU tensors keep the LAPACK and
-BLAS calls, which is what the JAX package computes on the CPU, so the
-goldens and the JAX lockstep tests stand on it; float32 calls are
-unchanged. The plain twins ``*_plain`` repeat each kernel's arithmetic in
-the same order (one column at a time, every multiply and subtract its own
-operation), so on the card they equal the kernels to the bit. They are the
-wrappers' CPU path, which a run never takes: the tests and
+Routing is the callers' (:mod:`morbit_tpu_torch.ops.batched_linalg`,
+:mod:`morbit_tpu_torch.ops.qp`): float64 CUDA tensors launch these
+kernels; CPU tensors keep the LAPACK and BLAS calls, which is what the JAX
+package computes on the CPU, so the goldens and the JAX lockstep tests
+stand on it; float32 calls are unchanged. The plain twins ``*_plain``
+repeat each kernel's arithmetic in the same order (one column at a time,
+every multiply and subtract its own operation), so on the card they equal
+the kernels to the bit. No run takes them: the tests and
 ``chip_smoke.py``'s kernel-against-twin phases call them.
 
 There is no fallback: a CUDA tensor launches the kernel or raises. Each
@@ -40,6 +41,9 @@ MATMUL_SOURCE = cuda_build.CSRC / "lane_matmul.cu"
 #: the reduction slots of a factor block (``kWarps``: one per warp, at most
 #: 32 warps)
 LU_WARPS = 32
+#: the global factor's panel width and trailing tiles (``kPanel``,
+#: ``kTileRows``, ``kTileCols``)
+LU_PANEL, LU_TILE_ROWS, LU_TILE_COLS = 32, 64, 64
 
 #: kernel launches since the counters were last set to 0 (each wrapper adds
 #: one per launch; callers reset them to prove a run went through a kernel)
@@ -83,17 +87,17 @@ def _suffix(dtype):
 def lu_factor_plan(k: int, itemsize: int) -> cuda_build.Plan:
     """The launch of K6's factor at size ``k``, one block a lane: the lane's
     matrix in shared memory where it fits a block's 227 KB (``shared``,
-    k <= 169 at float64), factored in place in the output otherwise
-    (``global``). Shared bytes mirror ``factor_smem_bytes`` in the source,
-    with 16 for the matrix's alignment. Raises only on a bad argument."""
+    k <= 169 at float64), factored in place in the output otherwise, in
+    panels (``global``). Shared bytes mirror ``factor_smem_bytes`` in the
+    source, with 16 for alignment. Raises only on a bad argument."""
     if k < 1:
         raise ValueError(f"lane_lu_factor: k must be positive, got {k}")
-    base = LU_WARPS * (itemsize + 4) + 4 * k
+    base = LU_WARPS * (itemsize + 4) + 4 * k + 16
     ld = k + 1 - k % 2                  # odd row stride (``factor_ld``)
-    shared = base + 16 + itemsize * k * ld
+    shared = base + itemsize * k * ld
     if shared <= cuda_build.SMEM_LIMIT:
         return cuda_build.Plan("shared", 1, shared)
-    return cuda_build.Plan("global", 1, base)
+    return cuda_build.Plan("global", 1, base + itemsize * LU_PANEL * (LU_TILE_ROWS + LU_TILE_COLS))
 
 
 def lu_solve_plan(k: int, m: int, itemsize: int) -> cuda_build.Plan:
@@ -117,7 +121,7 @@ def lane_lu_factor_plain(A: torch.Tensor):
     zeros), then a_ic - l_i * a_jc, a multiply and a subtract. Returns (LU,
     perm, info): row i of LU factors row ``perm[i]`` of A (int32); info is
     the first column with an exactly zero pivot, counted from 1, else 0.
-    K6's CPU twin; runs take LAPACK on the CPU (see the module's note)."""
+    K6's twin; runs take LAPACK on the CPU (see the module's note)."""
     B, k = A.shape[0], A.shape[-1]
     a = A.clone()
     perm = torch.arange(k, dtype=torch.int32, device=A.device).repeat(B, 1)
@@ -147,7 +151,7 @@ def lane_lu_solve_plain(LU: torch.Tensor, perm: torch.Tensor, b: torch.Tensor):
     the rows of ``b`` (B, k) or (B, k, m) in ``perm``'s order, forward
     substitution with the unit lower triangle column by column, then back
     substitution from the last unknown, each x_j divided by U_jj before it
-    is used. K6's CPU twin; runs take LAPACK on the CPU."""
+    is used. K6's twin; runs take LAPACK on the CPU."""
     vec = b.dim() == 2
     x = b[..., None] if vec else b
     k = LU.shape[-1]
@@ -220,34 +224,18 @@ def solve_launcher(LU, perm, b, x):
     return lambda: fn(*args)
 
 
-def lane_lu_factor(A: torch.Tensor):
-    """(LU, perm, info) of (B, k, k) ``A``. CPU tensors take the plain twin,
-    CUDA tensors launch K6 or raise."""
-    if A.device.type == "cpu":
-        return lane_lu_factor_plain(A)
-    return lane_lu_factor_cuda(A)
-
-
-def lane_lu_solve(LU: torch.Tensor, perm: torch.Tensor, b: torch.Tensor):
-    """Solve with :func:`lane_lu_factor`'s factors for ``b`` (B, k) or
-    (B, k, m). CPU tensors take the plain twin, CUDA tensors launch K6 or
-    raise."""
-    if LU.device.type == "cpu":
-        return lane_lu_solve_plain(LU, perm, b)
-    return lane_lu_solve_cuda(LU, perm, b)
-
-
-def lu_solve_nan(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve (..., k, k) ``A`` x = ``b`` ((..., k) or (..., k, m)) by K6 on
-    the card (:func:`lane_lu_factor`, :func:`lane_lu_solve`), a lane whose
+def lu_solve_nan(A: torch.Tensor, b: torch.Tensor, factor=None, solve=None) -> torch.Tensor:
+    """Solve (..., k, k) ``A`` x = ``b`` ((..., k) or (..., k, m)) by K6's
+    launches (``factor`` and ``solve`` default to :func:`lane_lu_factor_cuda`
+    and :func:`lane_lu_solve_cuda`; the tests pass the twins), a lane whose
     factor met an exactly zero pivot giving nan, as ``solve_small``'s LU
     branch does."""
     k = A.shape[-1]
     vec = b.dim() == A.dim() - 1
     bm = b[..., None] if vec else b
     A3, b3, lead = flatten_lanes(A, bm)
-    LU, perm, info = lane_lu_factor(A3)
-    x = lane_lu_solve(LU, perm, b3)
+    LU, perm, info = (factor or lane_lu_factor_cuda)(A3)
+    x = (solve or lane_lu_solve_cuda)(LU, perm, b3)
     x = torch.where((info != 0)[:, None, None], torch.full_like(x, float("nan")), x)
     x = x.reshape(*lead, *bm.shape[-2:])
     return x[..., 0] if vec else x
@@ -269,7 +257,7 @@ def flatten_lanes(a: torch.Tensor, b: torch.Tensor):
 def lane_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a (..., p, q) @ b (..., q, m)`` in K7's order: each entry summed
     from +0 over ascending q, every product rounded before it is added.
-    K7's CPU twin; runs take BLAS on the CPU."""
+    K7's twin; runs take BLAS on the CPU."""
     lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     s = torch.zeros((*lead, a.shape[-2], b.shape[-1]), dtype=a.dtype, device=a.device)
     for t in range(a.shape[-1]):
@@ -308,11 +296,3 @@ def matmul_launcher(a, b, out):
     ptr = cuda_build.ptr
     args = (ptr(a), ptr(b), ptr(out), N, p, q, b.shape[-1], cuda_build.stream_of(a))
     return lambda: fn(*args)
-
-
-def lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Float64 ``a @ b`` with broadcast batch axes. CPU tensors take the
-    plain twin, CUDA tensors launch K7 or raise."""
-    if a.device.type == "cpu":
-        return lane_matmul_plain(a, b)
-    return lane_matmul_cuda(a, b)

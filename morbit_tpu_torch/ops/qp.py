@@ -152,8 +152,9 @@ def _polish(P, q, A, l, u, z, y, delta: float = 1e-8, refine_steps: int = 3):
         solve_K = lambda v: _mv(Kinv, v)
     elif dtype == torch.float64 and K.device.type != "cpu":
         # K6 on the card: its bits do not depend on the batch width (3.15)
-        LU, perm, _ = lane_linalg.lane_lu_factor(K.reshape(-1, *K.shape[-2:]).contiguous())
-        solve_K = lambda v: lane_linalg.lane_lu_solve(
+        LU, perm, _ = lane_linalg.lane_lu_factor_cuda(
+            K.reshape(-1, *K.shape[-2:]).contiguous())
+        solve_K = lambda v: lane_linalg.lane_lu_solve_cuda(
             LU, perm, v.reshape(-1, v.shape[-1])).reshape(v.shape)
     else:
         LU, piv, _ = torch.linalg.lu_factor_ex(K)

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from morbit_tpu_torch.ops.batched_linalg import GJ_MAX_K, lane_matmul, solve_small
+from morbit_tpu_torch.ops.batched_linalg import GJ_MAX_K, lane_matmul, lane_sum, solve_small
 
 RBF_KERNELS = ("cubic", "multiquadric", "inv_multiquadric", "gaussian",
                "thin_plate_spline")
@@ -183,7 +183,7 @@ def fit_rbf(sites, values, mask, kernel: str = "cubic", param=None,
     # conditioning: centering removes the dominant rank-one part when the
     # tail holds the constant; alpha factors out a global scale
     if np_ > 0:
-        c = (torch.where(mm, Phi, zero).sum((-1, -2))
+        c = (lane_sum(torch.where(mm, Phi, zero))
              / torch.clamp(n_valid ** 2, min=1.0))
         Phi_c = Phi - c[:, None, None]
     else:

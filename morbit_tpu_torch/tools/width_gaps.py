@@ -20,8 +20,9 @@ each:
   and both values;
 * ``ops`` (not run by default): within the trip after each of
   ``--trips``, every torch call's output lanes at width 16 against the
-  same call in the shards of 2 lanes, and the first call that differs,
-  with the line of the package that made it;
+  same call in the shards of 2 (``--narrow``) lanes (``op_trace``), and each call, by the
+  line of the package that made it, whose lanes differ although its
+  inputs are equal to the bit;
 * ``products``: the library calls of the port's solves on the card
   (``torch.linalg.solve_ex`` at the fits' sizes, ``lu_factor_ex`` +
   ``lu_solve`` at the polish's, ``a @ b`` with 1-3 columns; float64 and
@@ -33,7 +34,11 @@ each:
   not equal to the bit to theirs in the batch of 16, w in 1, 2, 4, 8, and
   the first such value of each call.
 
-    python3 -m morbit_tpu_torch.tools.width_gaps [--device cuda|cpu] [--parts runs lockstep ops products] [--trips T ...]
+    python3 -m morbit_tpu_torch.tools.width_gaps [--device cuda|cpu] [--parts runs lockstep ops products] [--problem parabolas|name,n,model] [--narrow W] [--trips T ...]
+
+``--problem`` sets the lockstep's and the ops part's problem: a setting of
+``parallel/benchmarks.py`` (``zdt1,10,rbf_cubic``: ZDT1 at n = 10 in one
+cubic RBF group) with 16 Halton starts and the same budget.
 
 Runs on the card unless ``--device cpu``.
 """
@@ -150,13 +155,13 @@ def runs(x0, ac, dev: str) -> dict:
     return out
 
 
-def lockstep(x0, ac, dev: str) -> list:
+def lockstep(make_mop, x0, ac, dev: str, narrow: int = NARROW) -> list:
     from morbit_tpu_torch import STOP_CODE
     from morbit_tpu_torch.parallel.multistart import build_solver
     from morbit_tpu_torch.utils.carry import state_to_numpy
     from morbit_tpu_torch.utils.tree import tree_map, tree_where
 
-    solver = build_solver(_mop(), ac, torch.float64, dev)
+    solver = build_solver(make_mop(), ac, torch.float64, dev)
     state = solver.initialize(x0)
     found, trip = [], 0
     while len(found) < 3:
@@ -165,12 +170,12 @@ def lockstep(x0, ac, dev: str) -> list:
             break
         wide = tree_where(running, solver.iterate(state), state)
         parts = []
-        for lo in range(0, B, NARROW):
-            sub = tree_map(lambda t: t[lo:lo + NARROW], state)
+        for lo in range(0, B, narrow):
+            sub = tree_map(lambda t: t[lo:lo + narrow], state)
             run = sub.stop_code == STOP_CODE.CONTINUE
             parts.append(tree_where(run, solver.iterate(sub), sub))
-        narrow = tree_map(lambda *ts: torch.cat(ts, 0), *parts)
-        a, b = state_to_numpy(wide), state_to_numpy(narrow)
+        sharded = tree_map(lambda *ts: torch.cat(ts, 0), *parts)
+        a, b = state_to_numpy(wide), state_to_numpy(sharded)
         trip += 1
         diffs = []
         for name in a:
@@ -188,85 +193,35 @@ def lockstep(x0, ac, dev: str) -> list:
     return found
 
 
-class _OpLog(torch.overrides.TorchFunctionMode):
-    """Record each torch call's name and first caller line in the package,
-    and where the (first) tensor it returns has the batch's ``width``
-    lanes on its first axis, a copy of lanes ``lanes``. Factories
-    (``empty``) are skipped: the kernels fill them."""
-
-    SKIP = ("empty", "empty_like", "new_empty", "empty_strided")
-
-    def __init__(self, width, lanes):
-        super().__init__()
-        self.width, self.lanes, self.log = width, lanes, []
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        name = getattr(func, "__name__", str(func))
-        if name in self.SKIP:
-            return out
-        outs = out if isinstance(out, (tuple, list)) else (out,)
-        t = next((t for t in outs if isinstance(t, torch.Tensor)), None)
-        lane = t is not None and t.dim() and t.shape[0] == self.width
-        self.log.append((name, _caller(),
-                         t[self.lanes].detach().cpu().clone() if lane else None))
-        return out
-
-
-def _caller() -> str:
-    import sys
-
-    f = sys._getframe(2)
-    while f is not None:
-        fn = f.f_code.co_filename
-        if "morbit_tpu_torch" in fn and not fn.endswith("width_gaps.py"):
-            return f"{fn.split('morbit_tpu_torch/')[-1]}:{f.f_lineno}"
-        f = f.f_back
-    return "?"
-
-
-def first_op_apart(x0, ac, dev: str, trips: int) -> dict:
+def ops_apart(make_mop, x0, ac, dev: str, trips: int, narrow: int = NARROW) -> dict:
     """Op by op within one trip: from the state after ``trips`` trips of the
     batch of B, that trip at width B and in shards of ``NARROW`` lanes
-    under :class:`_OpLog`; the first call whose lane slices differ (or
-    whose sequence parts: a host decision of the shard went another way),
-    with its name, caller, shard and largest gap."""
+    (``op_trace``); every call (by its line) whose shard lanes part from the
+    same lanes of the batch of B while its inputs are equal to the bit,
+    with the first shard where it does and its relative gap."""
     from morbit_tpu_torch import STOP_CODE
     from morbit_tpu_torch.parallel.multistart import build_solver
+    from morbit_tpu_torch.tools import op_trace
     from morbit_tpu_torch.utils.tree import tree_map, tree_where
 
-    solver = build_solver(_mop(), ac, torch.float64, dev)
+    solver = build_solver(make_mop(), ac, torch.float64, dev)
     state = solver.initialize(x0)
     for _ in range(trips):
         running = state.stop_code == STOP_CODE.CONTINUE
         state = tree_where(running, solver.iterate(state), state)
-    first = None
-    for lo in range(0, B, NARROW):
-        lanes = slice(lo, lo + NARROW)
-        with _OpLog(B, lanes) as wide:
-            solver.iterate(state)
+    made, calls = {}, 0
+    for lo in range(0, B, narrow):
+        lanes = slice(lo, lo + narrow)
         sub = tree_map(lambda t: t[lanes], state)
-        with _OpLog(NARROW, slice(None)) as narrow:
+        with op_trace.tracing(B, lanes) as on_wide:
+            solver.iterate(state)
+        with op_trace.tracing(narrow, slice(None)) as on_narrow:
             solver.iterate(sub)
-        for i, ((na, ca, a), (nb, cb, b)) in enumerate(zip(wide.log, narrow.log)):
-            if (na, ca) != (nb, cb):
-                hit = {"op": i, "shard": lo, "wide": [na, ca], "narrow": [nb, cb],
-                       "kind": "sequence"}
-            elif a is None or b is None or a.shape != b.shape:
-                continue
-            elif a.dtype.is_floating_point and not torch.equal(
-                    torch.nan_to_num(a, 0.0, 1.0, -1.0), torch.nan_to_num(b, 0.0, 1.0, -1.0)):
-                gap = float((a - b).abs().nan_to_num(0.0).max())
-                hit = {"op": i, "shard": lo, "call": na, "at": ca, "kind": "value",
-                       "largest_gap": gap}
-            elif not a.dtype.is_floating_point and not torch.equal(a, b):
-                hit = {"op": i, "shard": lo, "call": na, "at": ca, "kind": "value"}
-            else:
-                continue
-            if first is None or hit["op"] < first["op"]:
-                first = hit
-            break
-    return {"trip": trips + 1, "ops_of_trip": len(wide.log), "first_apart": first}
+        summary = op_trace.summarize(op_trace.compare(on_wide, on_narrow))
+        calls = max(calls, summary["calls_compared"])
+        for r in summary["gap_made_at"]:
+            made.setdefault(f"{r['at']} {r['call']}", {"shard": lo, "rel_gap": r["out_gap"]})
+    return {"trip": trips + 1, "calls_compared": calls, "gap_made_at": made}
 
 
 #: the shapes of the port's float64 solves: the RBF fits' KKT size k (the
@@ -293,16 +248,16 @@ def _lu(A, b):
 def _k6(A, b):
     from morbit_tpu_torch.ops import lane_linalg
 
-    LU, perm, _ = lane_linalg.lane_lu_factor(A)
-    return lane_linalg.lane_lu_solve(LU, perm, b)
+    LU, perm, _ = lane_linalg.lane_lu_factor_cuda(A)
+    return lane_linalg.lane_lu_solve_cuda(LU, perm, b)
 
 
-def _cases():
+def _cases(dev):
     """(name, dtype, shapes, op): the library calls the port makes on the
-    card and, at float64, the kernels that replace them (K6 ``lane_lu``,
-    K7 ``lane_matmul``). The shapes are (k, m) of a (B, k, k) matrix and a
+    card and, at float64 on the card, the kernels that replace them (K6
+    ``lane_lu``, K7 ``lane_matmul``). The shapes are (k, m) of a (B, k, k) matrix and a
     (B, k, m) right-hand side or factor."""
-    from morbit_tpu_torch.ops import lane_linalg
+    from morbit_tpu_torch.ops import batched_linalg, lane_linalg
 
     fits = [(k, FIT_M) for k in FIT_K]
     polish = [(k, 1) for k in POLISH_K]
@@ -317,9 +272,12 @@ def _cases():
     out += [("sum", dt, sums, lambda A, b: A[:, 0].contiguous().sum(-1))
             for dt in (torch.float64, torch.float32)]
     out += [("matmul", torch.float64, prods, lambda A, b: A @ b),
-            ("lane_matmul_sum", torch.float32, prods, f64_sum),
-            ("lane_lu", torch.float64, fits + polish, _k6),
-            ("lane_matmul", torch.float64, prods, lane_linalg.lane_matmul)]
+            ("lane_matmul_sum", torch.float32, prods, f64_sum)]
+    if dev != "cpu":
+        out += [("lane_lu", torch.float64, fits + polish, _k6),
+                ("lane_matmul", torch.float64, prods, lane_linalg.lane_matmul_cuda),
+                ("lane_sum", torch.float64, sums,
+                 lambda A, b: batched_linalg.lane_sum(A[:, 0].contiguous()))]
     return out
 
 
@@ -330,7 +288,7 @@ def products(dev: str) -> dict:
     values, lane and index)."""
     g = torch.Generator(device=dev).manual_seed(0)
     apart, first = {}, {}
-    for name, dt, shapes, op in _cases():
+    for name, dt, shapes, op in _cases(dev):
         key = f"{name}_{'f64' if dt == torch.float64 else 'f32'}"
         apart[key] = []
         for k, m in shapes:
@@ -350,31 +308,52 @@ def products(dev: str) -> dict:
     return {"k_m_w_apart": apart, "first_apart": first}
 
 
+def _problem(spec: str):
+    """The problem of ``--problem``: ``parabolas`` (this module's) or a
+    setting of ``parallel/benchmarks.py`` as ``name,n,model``, with its
+    Halton starts and the budget ``max_iter=12, qp_iters=100``."""
+    from morbit_tpu_torch import AlgorithmConfig
+    from morbit_tpu_torch.problems.synthetic import halton_starts
+
+    if spec == "parabolas":
+        make, lb, ub = _mop, LB, UB
+    else:
+        from morbit_tpu_torch.parallel.benchmarks import make_problem
+
+        name, n, model = spec.split(",")
+        make = lambda: make_problem(name, int(n), model)
+        lb, ub = make().lb, make().ub
+    return make, halton_starts(B, lb, ub), AlgorithmConfig(max_iter=12, qp_iters=100)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--device", default="cuda")
     p.add_argument("--parts", nargs="*", default=["runs", "lockstep", "products"])
+    p.add_argument("--problem", default="parabolas",
+                   help="for the lockstep and ops parts: parabolas or name,n,model")
+    p.add_argument("--narrow", type=int, default=NARROW,
+                   help="for the lockstep and ops parts: the shards' width")
     p.add_argument("--trips", type=int, nargs="*", default=[0],
                    help="for the ops part: the trips after which to compare op by op")
     args = p.parse_args(argv)
     dev = args.device
-    from morbit_tpu_torch import AlgorithmConfig
-    from morbit_tpu_torch.problems.synthetic import halton_starts
-
-    ac = AlgorithmConfig(max_iter=12, qp_iters=100)
-    x0 = torch.as_tensor(halton_starts(B, LB, UB), dtype=torch.float64, device=dev)
+    make, starts, ac = _problem(args.problem)
+    x0 = torch.as_tensor(starts, dtype=torch.float64, device=dev)
     card = torch.cuda.get_device_name(0) if dev == "cuda" else dev
+    head = {"card": card, "problem": args.problem}
     if "runs" in args.parts:
-        print(json.dumps({"part": "runs", "card": card, "runs": runs(x0, ac, dev)}),
+        x_par = torch.as_tensor(_problem("parabolas")[1], dtype=torch.float64, device=dev)
+        print(json.dumps({"part": "runs", "card": card, "runs": runs(x_par, ac, dev)}),
               flush=True)
     if "lockstep" in args.parts:
-        print(json.dumps({"part": "lockstep", "card": card, "width": NARROW,
-                          "first_trips_apart": lockstep(x0, ac, dev)}),
+        print(json.dumps({"part": "lockstep", **head, "width": args.narrow,
+                          "first_trips_apart": lockstep(make, x0, ac, dev, args.narrow)}),
               flush=True)
     if "ops" in args.parts:
         for t in args.trips:
-            print(json.dumps({"part": "ops", "card": card, "width": NARROW,
-                              **first_op_apart(x0, ac, dev, t)}), flush=True)
+            print(json.dumps({"part": "ops", **head, "width": args.narrow,
+                              **ops_apart(make, x0, ac, dev, t, args.narrow)}), flush=True)
     if "products" in args.parts:
         print(json.dumps({"part": "products", "card": card, "of_width": B,
                           **products(dev)}), flush=True)

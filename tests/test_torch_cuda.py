@@ -737,6 +737,27 @@ def test_lane_matmul_kernel_matches_twin(cuda, k, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("length", [36, 441, 2000])
+def test_lane_sum_kernel_matches_twin(cuda, length):
+    """``lane_sum`` on a float64 CUDA tensor (the RBF fit's centering sum,
+    P^2 values a lane) is K7 against ones: equal to the bit to the twin's
+    sum in index order, and the first w lanes of a batch of w to theirs in
+    the batch of 16; the CPU's ``sum`` of more than 64 values may differ."""
+    from morbit_tpu_torch.ops import batched_linalg, lane_linalg as ll
+
+    x = torch.as_tensor(np.random.default_rng(length).standard_normal((16, length)),
+                        device=cuda)
+    ones = torch.ones((length, 1), dtype=torch.float64, device=cuda)
+    want = ll.lane_matmul_plain(x[:, None, :], ones)[:, 0, 0]
+    launched = ll.matmul_launches
+    got = batched_linalg.lane_sum(x.reshape(16, -1, 1))
+    assert ll.matmul_launches == launched + 1
+    assert _bits_equal(got, want)
+    for w in LANE_WIDTHS:
+        assert _bits_equal(batched_linalg.lane_sum(x[:w]), want[:w]), w
+
+
+@pytest.mark.cuda
 def test_float64_routes_to_lane_kernels(cuda):
     """On the card, ``solve_small``'s float64 LU branch, the float64 polish
     and float64 ``lane_matmul`` launch K6 and K7 and never the library

@@ -26,6 +26,8 @@ from morbit_tpu_torch.ops import batched_linalg, lane_linalg as ll
 from morbit_tpu_torch.ops.qp import _polish
 
 WIDTHS = (1, 2, 16)
+#: K6's launches replaced by its twins, for ``lu_solve_nan`` on the CPU
+TWINS = dict(factor=ll.lane_lu_factor_plain, solve=ll.lane_lu_solve_plain)
 
 
 def _system(k, m, B=16, seed=0):
@@ -77,13 +79,13 @@ def test_matmul_twin_matches_blas_and_is_width_invariant(p, q, m):
     # a broadcast batch axis and a transposed operand, as callers pass them
     assert torch.equal(ll.lane_matmul_plain(a, b[0]), ll.lane_matmul_plain(a, b[:1].expand_as(b)))
     at = a.transpose(-1, -2)
-    assert torch.equal(ll.lane_matmul(at, a), ll.lane_matmul_plain(at.contiguous(), a))
+    assert torch.equal(ll.lane_matmul_plain(at, a), ll.lane_matmul_plain(at.contiguous(), a))
 
 
 def test_singular_lane_gives_nan_and_neighbours_solve():
     A, b = (torch.as_tensor(t) for t in _system(12, 2, B=5, seed=2))
     A[2, :, 4] = 0.0
-    x = ll.lu_solve_nan(A, b)
+    x = ll.lu_solve_nan(A, b, **TWINS)
     _, _, _, info = _twin_solve(A, b)
     assert info.tolist() == [0, 0, 5, 0, 0]
     assert torch.isnan(x[2]).all() and torch.isfinite(x[[0, 1, 3, 4]]).all()
@@ -91,7 +93,7 @@ def test_singular_lane_gives_nan_and_neighbours_solve():
                                torch.linalg.solve(A[[0, 1, 3, 4]], b[[0, 1, 3, 4]]).numpy(),
                                rtol=1e-10)
     # the vector form, as solve_small takes it
-    xv = ll.lu_solve_nan(A, b[..., 0])
+    xv = ll.lu_solve_nan(A, b[..., 0], **TWINS)
     assert torch.equal(xv.nan_to_num(7.0), x[..., 0].nan_to_num(7.0))
 
 
@@ -100,7 +102,7 @@ def _no_twins():
     them."""
     fail = lambda *a, **k: pytest.fail("a CPU run reached the lane kernels' path")
     return [unittest.mock.patch.object(ll, name, fail) for name in (
-        "lane_lu_factor", "lane_lu_solve", "lu_solve_nan", "lane_matmul_cuda",
+        "lane_lu_factor_cuda", "lane_lu_solve_cuda", "lu_solve_nan", "lane_matmul_cuda",
         "lane_lu_factor_plain", "lane_matmul_plain")]
 
 
@@ -155,6 +157,30 @@ def test_cpu_polish_and_lane_matmul_keep_the_library():
     assert torch.equal(got_v, (A @ z[..., None])[..., 0])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cpu_lane_sum_and_contract_keep_torch(dtype):
+    """On the CPU ``lane_sum`` is ``sum`` over a lane's axes and
+    ``lane_contract`` the einsum Taylor's fd fit made before, to the bit;
+    neither reaches K7."""
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((5, 9, 9)), dtype=dtype)
+    Y = torch.as_tensor(rng.standard_normal((5, 7, 2)), dtype=dtype)
+    G = torch.as_tensor(rng.standard_normal((3, 7)), dtype=dtype)
+    Hc = torch.as_tensor(rng.standard_normal((3, 3, 7)), dtype=dtype)
+    patches = _no_twins()
+    for p in patches:
+        p.start()
+    try:
+        got = (batched_linalg.lane_sum(x), batched_linalg.lane_contract(G, Y),
+               batched_linalg.lane_contract(Hc, Y))
+    finally:
+        for p in patches:
+            p.stop()
+    assert torch.equal(got[0], x.sum((-1, -2)))
+    assert torch.equal(got[1], torch.einsum("is,bsm->bmi", G, Y))
+    assert torch.equal(got[2], torch.einsum("ijs,bsm->bmij", Hc, Y))
+
+
 @pytest.mark.parametrize("itemsize,last_shared", [(8, 169), (4, 239)])
 def test_plans_take_every_size(itemsize, last_shared):
     """K6's plans exist at every k (and m), fit a block's shared memory,
@@ -191,7 +217,7 @@ def test_flatten_lanes_and_empty_products(a_shape, b_shape):
     assert a3.is_contiguous() and a3.shape[1:] == a.shape[-2:] and b3.shape[1:] == b.shape[-2:]
     assert a3.shape[0] == b3.shape[0] == int(np.prod(lead))
     want = a @ b
-    got = ll.lane_matmul(a, b)
+    got = ll.lane_matmul_plain(a, b)
     assert got.shape == want.shape
     scale = (a.abs() @ b.abs()).numpy().max(initial=1.0)
     assert np.abs((got - want).numpy()).max(initial=0.0) <= 1e-13 * scale
